@@ -3,28 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the 3-D 128^3 ConvNet plume rollout that
-bench.py times for the JAX package, on the card, in four phases:
+Drives the port's paths of the 3-D 128^3 plume that bench.py times for the
+JAX package (the ConvNet rollout and the jacobi-34 / PCG / ConvNet +
+Jacobi-polish certification rollouts) on the card, in five phases:
 
   1. device: fails without CUDA; prints the card's name and power limit.
-  2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc call into
-             build/kernels/) and prints the seconds it took.
-  3. kernels vs plain: each kernel of the path (K1 forward, K1 backward,
-             K2) against its plain PyTorch version on the same CUDA
-             inputs, on the 128^3 plume state after a few steps and on a
-             1x37x45x61 grid with random obstacles, Stick and Empty cells
-             and slab BCs. Fails above 1e-5 of the field's largest value.
-             Times both versions at 128^3 with CUDA events.
+  2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
+             at once, into build/kernels/) and prints the seconds it took
+             and ptxas's registers and spills per kernel.
+  3. kernels vs plain: each kernel (K1 forward, K1 backward, K2 prologue,
+             K2 forces block, K3 Jacobi) against its plain PyTorch version
+             on the same CUDA inputs: on the 128^3 plume state after a few
+             steps, on a 1x37x45x61 grid with random obstacles, Stick and
+             Empty cells and slab BCs, and (K3) on a 2-D 2x1x45x61 grid.
+             Fails above 1e-5 of the field's largest value. Times both
+             versions at 128^3 with CUDA events (K3 at 34 sweeps).
   4. slice:  the bundled checkpoint (data/models_bundled/m3d_v5_bestRollout,
              read by the port's own reader) with bench.py's knobs on a
              128^3 plume: 30 warm-up steps, then 4 x 30 timed steps. The
-             kernels' launch counters must show K1 twice and K2 once per
+             launch counters must show K1 twice and K2's prologue once per
              step; the final state must be finite. Then 8 steps with the
              kernels against 8 with the plain versions, from that state.
+  5. certification, as bench.py:168-195: from a fresh t = 0 plume, 150
+             steps each of jacobi-34, PCG (100 iterations, tol 1e-4) and
+             the ConvNet with 8 Jacobi polish sweeps, each with its launch
+             counters read on their own. Every final state must be finite
+             and PCG's ||div||_2 below jacobi-34's. Then 8 jacobi-34 and 8
+             ConvNet + p8 steps with the kernels against 8 of each with the
+             plain versions, from the certification states.
 
-The next-to-last line is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}. Any failure raises: the exit code is
-then not 0 and no result line is printed.
+The last three lines are the card's name and power limit, a JSON object
+with one entry per kernel, and {"ok": true, "device": {...}}. Any failure
+raises: the exit code is then not 0 and no result line is printed.
 """
 
 import json
@@ -38,13 +48,23 @@ import torch
 
 RES = 128
 WARMUP, STEPS, REPS = 30, 30, 4
+CERT_STEPS = (1 + REPS) * STEPS   # bench.py's total_steps
 TOL = 1e-5          # kernel vs plain: max abs error / the field's max
+PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3 memory rate
+PEAK_F32_S = 67e12       # H100 SXM float32 outside the tensor cores
 BUNDLED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "models_bundled", "m3d_v5_bestRollout")
 BENCH_KNOBS = dict(sim_method="convnet", dt=0.1, buoyancy_scale=2.0,
                    vorticity_confinement_amp=3.0, maccormack_strength=0.6,
                    advection_method="maccormackOurs", adaptive_window=False,
                    advection_window=1)
+# The certification projections of bench.py:184-195 and the hybrid, with
+# the kernels each step launches besides K1's two sweeps.
+CERT = {"jacobi34": (dict(sim_method="jacobi", max_iter=34),
+                     {"forces_block": 1, "jacobi": 1}),
+        "pcg": (dict(sim_method="pcg", max_iter=100, pcg_tol=1e-4),
+                {"forces_block": 1}),
+        "convnet_p8": (dict(polish_iters=8), {"prologue": 1, "jacobi": 1})}
 KERNELS = {
     "mac_sweep_fwd": ("fluidnet_tpu_torch/csrc/mac_sweep.cu",
                       "fluidnet_tpu/ops/pallas/mac_sweep.py:57"),
@@ -52,7 +72,18 @@ KERNELS = {
                       "fluidnet_tpu/ops/pallas/mac_sweep.py:57"),
     "prologue": ("fluidnet_tpu_torch/csrc/prologue.cu",
                  "fluidnet_tpu/ops/pallas/forces_kernel.py:219"),
+    "forces_block": ("fluidnet_tpu_torch/csrc/prologue.cu",
+                     "fluidnet_tpu/ops/pallas/forces_kernel.py:219"),
+    "jacobi": ("fluidnet_tpu_torch/csrc/jacobi.cu",
+               "fluidnet_tpu/solvers/pallas_jacobi.py:35"),
 }
+# Float operations per cell, counted from each kernel's source (adds,
+# multiplies, divisions, square roots, min/max; selects not counted).
+# K3 counts per active (interior, non-obstacle) cell and sweep: 5 adds, the
+# div add and one division in 3-D.
+FLOPS_PER_CELL = {"mac_sweep_fwd": 378, "mac_sweep_bwd": 378,
+                  "prologue": 81, "forces_block": 76}
+JACOBI_FLOPS_3D = 7
 
 
 def log(*a):
@@ -89,41 +120,58 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def plume_case(dev, mconf, model, n_steps):
+def bound(nbytes, flops):
+    """(ms, what bounds it): the larger of the bytes over the card's
+    memory rate and the float32 operations over its peak rate."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def make_plume(dev):
     from fluidnet_tpu_torch.core.grids import FluidState, empty_domain
-    from fluidnet_tpu_torch.sim.simulate import create_plume_bcs, rollout
+    from fluidnet_tpu_torch.sim.simulate import create_plume_bcs
     shape = (1, 1, RES, RES, RES)
     state = FluidState(
         u=torch.zeros((1, 3) + shape[2:], device=dev),
         p=torch.zeros(shape, device=dev),
         flags=empty_domain(shape, True, device=dev),
         density=torch.zeros(shape, device=dev))
-    bcs = create_plume_bcs(state, [1.0], u_scale=0.6, rad=0.15)
-    if n_steps:
-        state = rollout(state, mconf, n_steps, model, bcs)
-    return state, bcs
+    return state, create_plume_bcs(state, [1.0], u_scale=0.6, rad=0.15)
+
+
+def random_flags(rng, shape):
+    """15% obstacles, an obstacle border (x/y only in 2-D), Stick and Empty
+    cells."""
+    flags = np.where(rng.random(shape) < 0.15, 2, 1)
+    flags[..., 0, :] = flags[..., -1, :] = 2
+    flags[..., :, 0] = flags[..., :, -1] = 2
+    if shape[2] > 1:
+        flags[:, :, 0] = flags[:, :, -1] = 2
+    flags = np.where((flags == 1) & (rng.random(shape) < 0.08), 128, flags)
+    flags = np.where((flags == 1) & (rng.random(shape) < 0.05), 4, flags)
+    return flags.astype(np.int32)
 
 
 def random_case(dev, seed=7):
     """1x37x45x61 with 15% obstacles, Stick and Empty cells, slab BCs."""
     rng = np.random.default_rng(seed)
     Z, Y, X = 37, 45, 61
-    flags = np.where(rng.random((1, 1, Z, Y, X)) < 0.15, 2, 1)
-    flags[..., 0, :] = flags[..., -1, :] = 2
-    flags[..., :, 0] = flags[..., :, -1] = 2
-    flags[:, :, 0] = flags[:, :, -1] = 2
-    fluid = flags == 1
-    flags = np.where(fluid & (rng.random(flags.shape) < 0.08), 128, flags)
-    flags = np.where((flags == 1) & (rng.random(flags.shape) < 0.05), 4,
-                     flags)
+    flags = random_flags(rng, (1, 1, Z, Y, X))
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=dev)
     return {
-        "flags": torch.tensor(flags.astype(np.int32), device=dev),
+        "flags": torch.tensor(flags, device=dev),
         # ~3 cells/step at dt 0.1: exercises the +-(W - 1e-3) clip.
         "u": t(rng.standard_normal((1, 3, Z, Y, X)) * 3.0),
         "s": t(rng.random((1, 1, Z, Y, X))),
+        "div": t(rng.standard_normal((1, 1, Z, Y, X))),
         "u_bc": t(rng.standard_normal((1, 3, Z, 4, X)) * 0.3),
         "u_inv": t(rng.random((1, 3, Z, 4, X)) < 0.5),
     }
@@ -140,7 +188,8 @@ def max_err(out, ref, what):
         finite = r.abs() < 1e29
         scale = max(r[finite].abs().max().item() if finite.any() else 0.0,
                     1.0)
-        log(f"  {what}[{c}]: max abs err {err:.3e} (field max {scale:.3e})")
+        log(f"  {what}[{c}]: max abs err {err:.3e} (field max {scale:.3e})"
+            f"{'; bit-identical' if torch.equal(o, r) else ''}")
         if not err <= TOL * scale:
             raise AssertionError(f"{what} channel {c}: kernel vs plain max "
                                  f"abs err {err} > {TOL} x {scale}")
@@ -149,15 +198,22 @@ def max_err(out, ref, what):
 
 
 def kernels_phase(dev, mconf, model):
-    from fluidnet_tpu_torch.core.celltype import is_fluid
-    from fluidnet_tpu_torch.core.grids import get_dx
+    from fluidnet_tpu_torch.core.celltype import is_fluid, is_obstacle
+    from fluidnet_tpu_torch.core.grids import border_mask, get_dx
     from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
     from fluidnet_tpu_torch.ops.cuda import forces_kernel, mac_sweep
+    from fluidnet_tpu_torch.ops.divergence import velocity_divergence
+    from fluidnet_tpu_torch.ops.forces import forces_block_xla
+    from fluidnet_tpu_torch.sim.simulate import rollout
+    from fluidnet_tpu_torch.solvers.cuda_jacobi import (jacobi_cuda,
+                                                        jacobi_plain)
 
     dt, strength, W = mconf.dt, mconf.maccormack_strength, 1
-    state, bcs = plume_case(dev, mconf, model, 12)
+    state, bcs = make_plume(dev)
+    state = rollout(state, mconf, 12, model, bcs)
     dx = get_dx(state.flags)
     plume = {"flags": state.flags, "u": state.u, "s": state.density,
+             "div": velocity_divergence(state.u, state.flags),
              "u_bc": bcs.u_bc, "u_inv": bcs.u_bc_inv_mask,
              "buoy_g": [0.0, -(dx / 4.0) * 2.0, 0.0], "grav_g": [0.0] * 3,
              "amp": 3.0 * dx}
@@ -165,7 +221,7 @@ def kernels_phase(dev, mconf, model):
     rnd.update(buoy_g=[0.01, -0.2, 0.03], grav_g=[0.0, -0.05, 0.02],
                amp=0.7)
     errs = {k: 0.0 for k in KERNELS}
-    timed = {}
+    calls = {}
     for name, case in (("plume 1x128^3", plume), ("random 1x37x45x61", rnd)):
         log(f"kernels vs plain on {name}:")
         flags = case["flags"]
@@ -185,6 +241,12 @@ def kernels_phase(dev, mconf, model):
                     case["u_inv"])
         ref_p = forces_kernel.prologue_plain(*pro_args)
         out_p = forces_kernel.prologue_cuda(*pro_args)
+        fb_args = pro_args[:7]
+        ref_fb = forces_block_xla(*fb_args)
+        out_fb = forces_kernel.forces_block_cuda(*fb_args)
+        jac_args = (flags, case["div"], 34)
+        ref_j = jacobi_plain(*jac_args)
+        out_j = jacobi_cuda(*jac_args)
         torch.cuda.synchronize()
         for key in ref_f:
             errs["mac_sweep_fwd"] = max(errs["mac_sweep_fwd"], max_err(
@@ -194,37 +256,120 @@ def kernels_phase(dev, mconf, model):
                 out_b[key], ref_b[key], f"K1 bwd {key}"))
         for i, what in enumerate(("u''", "div")):
             errs["prologue"] = max(errs["prologue"], max_err(
-                out_p[i], ref_p[i], f"K2 {what}"))
+                out_p[i], ref_p[i], f"K2 prologue {what}"))
+        errs["forces_block"] = max(errs["forces_block"], max_err(
+            out_fb, ref_fb, "K2 forces block u'"))
+        errs["jacobi"] = max(errs["jacobi"], max_err(
+            out_j, ref_j, "K3 p (34 sweeps)"))
         if case is plume:
-            timed = {"mac_sweep_fwd": fwd_args, "mac_sweep_bwd": bwd_args,
-                     "prologue": pro_args}
+            active = ((~border_mask(flags.shape, True, 1, dev)) &
+                      ~is_obstacle(flags)).sum().item()
+            calls = {
+                "mac_sweep_fwd": (
+                    mac_sweep.sweep_fused_ep_plain,
+                    mac_sweep.advect_sweep_fused_ep, fwd_args,
+                    nbytes(case["u"], case["s"], m, free) +
+                    12 * 4 * m.numel(),
+                    FLOPS_PER_CELL["mac_sweep_fwd"] * m.numel()),
+                "mac_sweep_bwd": (
+                    mac_sweep.sweep_fused_ep_plain,
+                    mac_sweep.advect_sweep_fused_ep, bwd_args,
+                    nbytes(case["u"], case["s"], m, free, bwd_args[3],
+                           bwd_args[4]) + 10 * 4 * m.numel(),
+                    FLOPS_PER_CELL["mac_sweep_bwd"] * m.numel()),
+                "prologue": (
+                    forces_kernel.prologue_plain,
+                    forces_kernel.prologue_cuda, pro_args,
+                    nbytes(case["u"], flags, case["s"], case["u_bc"],
+                           case["u_inv"]) + 4 * 4 * m.numel(),
+                    FLOPS_PER_CELL["prologue"] * m.numel()),
+                "forces_block": (
+                    forces_block_xla, forces_kernel.forces_block_cuda,
+                    fb_args, nbytes(case["u"], flags, case["s"]) +
+                    3 * 4 * m.numel(),
+                    FLOPS_PER_CELL["forces_block"] * m.numel()),
+                "jacobi": (
+                    jacobi_plain, jacobi_cuda, jac_args,
+                    nbytes(flags, case["div"]) + 4 * m.numel(),
+                    JACOBI_FLOPS_3D * 34 * active),
+            }
+
+    log("kernels vs plain on 2-D 2x1x1x45x61 (K3):")
+    rng = np.random.default_rng(9)
+    shape2 = (2, 1, 1, 45, 61)
+    flags2 = torch.tensor(random_flags(rng, shape2), device=dev)
+    div2 = torch.tensor(rng.standard_normal(shape2).astype(np.float32),
+                        device=dev)
+    errs["jacobi"] = max(errs["jacobi"], max_err(
+        jacobi_cuda(flags2, div2, 34), jacobi_plain(flags2, div2, 34),
+        "K3 2-D p (34 sweeps)"))
 
     # Times at 128^3, in turns: plain, kernel, kernel, plain.
-    fns = {"mac_sweep_fwd": (mac_sweep.sweep_fused_ep_plain,
-                             mac_sweep.advect_sweep_fused_ep),
-           "mac_sweep_bwd": (mac_sweep.sweep_fused_ep_plain,
-                             mac_sweep.advect_sweep_fused_ep),
-           "prologue": (forces_kernel.prologue_plain,
-                        forces_kernel.prologue_cuda)}
     times = {}
-    for key, (plain, kern) in fns.items():
-        args = timed[key]
-        p1 = cuda_ms(lambda: plain(*args), 10)
+    for key, (plain, kern, args, nb, flops) in calls.items():
+        p1 = cuda_ms(lambda: plain(*args), 5)
         k1 = cuda_ms(lambda: kern(*args), 50)
         k2 = cuda_ms(lambda: kern(*args), 50)
-        p2 = cuda_ms(lambda: plain(*args), 10)
-        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        p2 = cuda_ms(lambda: plain(*args), 5)
+        b_ms, b_by = bound(nb, flops)
+        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by)
         log(f"time {key} at {RES}^3: kernel {k1:.4f} / {k2:.4f} ms, plain "
-            f"{p1:.4f} / {p2:.4f} ms")
+            f"{p1:.4f} / {p2:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+            f"{nb / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)")
     return errs, times
+
+
+def check_launches(launches, n, per_step, what):
+    """The counters of one path's run: K1 twice a step plus `per_step`,
+    nothing else."""
+    expect = {"mac_sweep_fwd": n, "mac_sweep_bwd": n}
+    expect.update({k: v * n for k, v in per_step.items()})
+    log(f"{what}: launches {launches} in {n} steps")
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches} in {n} steps, "
+                             f"expected {expect}")
+
+
+def final_check(state, what):
+    from fluidnet_tpu_torch.ops.divergence import velocity_divergence
+    for name in ("u", "p", "density"):
+        if not torch.isfinite(getattr(state, name)).all():
+            raise AssertionError(f"{what}: non-finite {name}")
+    div = torch.linalg.norm(velocity_divergence(state.u, state.flags))
+    div, umax = div.item(), state.u.abs().max().item()
+    log(f"{what}: final ||div||_2 = {div:.6f}, max|U| = {umax:.6f}")
+    return div
+
+
+def kernels_vs_plain_rollout(state, mconf, model, bcs, what):
+    """8 steps with the kernels against 8 with the plain versions; fails
+    above a relative L2 difference of 1e-4."""
+    from fluidnet_tpu_torch.sim.simulate import rollout
+    runs = {}
+    for use_kernels in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[use_kernels] = rollout(state, mconf, 8, model, bcs,
+                                    use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        log(f"{what}: 8 steps with {'kernels' if use_kernels else 'plain'}"
+            f": {(time.perf_counter() - t0) / 8 * 1e3:.3f} ms/step")
+    for name in ("u", "p", "density"):
+        a, b = getattr(runs[True], name), getattr(runs[False], name)
+        rel = (torch.linalg.norm(a - b) /
+               torch.linalg.norm(b).clamp_min(1e-30)).item()
+        log(f"{what}: 8 steps kernels vs plain, relative L2 difference of "
+            f"{name}: {rel:.3e}")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{what}: kernels and plain versions "
+                                 f"differ by {rel} in {name} after 8 steps")
 
 
 def slice_phase(dev, mconf, model):
     from fluidnet_tpu_torch.ops.cuda import _build
-    from fluidnet_tpu_torch.ops.divergence import velocity_divergence
     from fluidnet_tpu_torch.sim.simulate import rollout
 
-    state, bcs = plume_case(dev, mconf, model, 0)
+    state, bcs = make_plume(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
@@ -237,45 +382,48 @@ def slice_phase(dev, mconf, model):
         torch.cuda.synchronize()
         rep_s.append(time.perf_counter() - t0)
     launches = dict(_build.launches)
-    n = WARMUP + STEPS * REPS
-    log(f"slice: {n} steps at {RES}^3; launches {launches}")
-    for key, per_step in (("mac_sweep_fwd", 1), ("mac_sweep_bwd", 1),
-                          ("prologue", 1)):
-        if launches.get(key, 0) != per_step * n:
-            raise AssertionError(f"{key}: {launches.get(key, 0)} launches "
-                                 f"in {n} steps, expected {per_step * n}")
+    check_launches(launches, WARMUP + STEPS * REPS, {"prologue": 1},
+                   f"slice ({RES}^3 convnet)")
     steps_per_s = STEPS * REPS / sum(rep_s)
     log(f"slice: per-rep seconds for {STEPS} steps: "
         f"{[round(s, 4) for s in rep_s]}")
     log(f"slice: {steps_per_s:.2f} steps/s ({1e3 / steps_per_s:.3f} ms/step)"
         f", peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    for name in ("u", "p", "density"):
-        if not torch.isfinite(getattr(state, name)).all():
-            raise AssertionError(f"slice: non-finite {name}")
-    div = velocity_divergence(state.u, state.flags)
-    log(f"slice: final ||div||_2 = {torch.linalg.norm(div).item():.6f}, "
-        f"max|U| = {state.u.abs().max().item():.6f}")
+    div = final_check(state, "slice")
+    kernels_vs_plain_rollout(state, mconf, model, bcs, "slice")
+    return launches, steps_per_s, div
 
-    runs = {}
-    for use_kernels in (True, False):
+
+def cert_phase(dev, mconf, model):
+    """bench.py's residual certification on the port: each projection from
+    a fresh t = 0 plume for CERT_STEPS steps."""
+    from fluidnet_tpu_torch.ops.cuda import _build
+    from fluidnet_tpu_torch.sim.simulate import rollout
+
+    launches, divs, finals = {}, {}, {}
+    for name, (kw, per_step) in CERT.items():
+        m = mconf.replace(**kw)
+        net = model if m.sim_method == "convnet" else None
+        state, bcs = make_plume(dev)
         torch.cuda.synchronize()
+        _build.launches.clear()
         t0 = time.perf_counter()
-        runs[use_kernels] = rollout(state, mconf, 8, model, bcs,
-                                    use_kernels=use_kernels)
+        state = rollout(state, m, CERT_STEPS, net, bcs)
         torch.cuda.synchronize()
-        log(f"slice: 8 steps with {'kernels' if use_kernels else 'plain'}"
-            f": {(time.perf_counter() - t0) / 8 * 1e3:.3f} ms/step")
-    kern, plain = runs[True], runs[False]
-    for name in ("u", "p", "density"):
-        a, b = getattr(kern, name), getattr(plain, name)
-        rel = (torch.linalg.norm(a - b) /
-               torch.linalg.norm(b).clamp_min(1e-30)).item()
-        log(f"slice: 8 steps kernels vs plain, relative L2 difference of "
-            f"{name}: {rel:.3e}")
-        if not rel <= 1e-4:
-            raise AssertionError(f"slice: kernels and plain versions differ "
-                                 f"by {rel} in {name} after 8 steps")
-    return launches, steps_per_s
+        secs = time.perf_counter() - t0
+        launches[name] = dict(_build.launches)
+        check_launches(launches[name], CERT_STEPS, per_step, name)
+        log(f"{name}: {CERT_STEPS} steps at {RES}^3 in {secs:.3f} s "
+            f"({secs / CERT_STEPS * 1e3:.3f} ms/step)")
+        divs[name] = final_check(state, name)
+        finals[name] = (state, m, net, bcs)
+    if not divs["pcg"] < divs["jacobi34"]:
+        raise AssertionError(f"PCG ||div||_2 {divs['pcg']} is not below "
+                             f"jacobi-34's {divs['jacobi34']}: a broken "
+                             f"solver")
+    for name in ("jacobi34", "convnet_p8"):
+        kernels_vs_plain_rollout(*finals[name], name)
+    return launches, divs
 
 
 def main():
@@ -286,10 +434,13 @@ def main():
     from fluidnet_tpu_torch.ops.cuda import _build
     from fluidnet_tpu_torch.utils.checkpoint import load_mconf, load_params
 
-    secs = _build.build(force=True)
+    secs, ptxas = _build.build(force=True)
     _build.library()
     log(f"build: nvcc {_build.ARCH}, {secs:.2f} s -> "
         f"{os.path.relpath(_build.LIB_PATH)}")
+    for line in ptxas.splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.split('ptxas info    : ')[-1]}")
 
     mconf = load_mconf(BUNDLED).replace(**BENCH_KNOBS)
     model = FluidNet(mconf, device=dev).load_jax_params(load_params(BUNDLED))
@@ -297,14 +448,30 @@ def main():
         f"{mconf.conv_compute_dtype} trunk)")
 
     errs, times = kernels_phase(dev, mconf, model)
-    launches, steps_per_s = slice_phase(dev, mconf, model)
+    launches, steps_per_s, div_cnn = slice_phase(dev, mconf, model)
+    cert_launches, divs = cert_phase(dev, mconf, model)
 
+    total = dict(launches)
+    for per in cert_launches.values():
+        for key, n in per.items():
+            total[key] = total.get(key, 0) + n
+    for key in KERNELS:
+        if not total.get(key):
+            raise AssertionError(f"kernel {key} was not launched on any "
+                                 f"driven path")
     kernels = [{"name": key, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches.get(key, 0),
+                "replaces": rep, "launches": total[key],
                 "max_abs_err": errs[key], "ms": times[key][0],
-                "plain_ms": times[key][1]}
+                "plain_ms": times[key][1], "bound_ms": times[key][2],
+                "bound_by": times[key][3], "library_ms": None}
                for key, (src, rep) in KERNELS.items()]
     log(json.dumps({"steps_per_s": steps_per_s, "res": RES}))
+    log(json.dumps({"final_div_l2_convnet": div_cnn,
+                    "final_div_l2_jacobi34": divs["jacobi34"],
+                    "final_div_l2_pcg": divs["pcg"],
+                    "final_div_l2_convnet_p8": divs["convnet_p8"],
+                    "residual_ok": bool(div_cnn <= divs["jacobi34"]),
+                    "steps": CERT_STEPS}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ nvcc at first use and bound with ctypes (`ops/cuda/`). Each kernel keeps a
 plain PyTorch version beside it, which is what runs when its tensors lie on
 the CPU.
 
-Ported so far: the 3-D ConvNet plume rollout (`sim.simulate.rollout` with
-maccormackOurs advection, the fused projection prologue and the fast-trunk
-default/yang model). Layout, argument order and semantics follow the JAX
+Ported so far: the 3-D plume rollout (`sim.simulate.rollout` with
+maccormackOurs advection) with the ConvNet projection (the fused
+projection prologue and the fast-trunk default/yang model, optionally
+followed by Jacobi polish sweeps) and with the Jacobi and PCG solvers
+(`solvers/`). Constructors build on the CUDA device unless given
+device="cpu". Layout, argument order and semantics follow the JAX
 package: every field is a 5-D (batch, channel, z, y, x) tensor.
 
 This package never imports jax, flax, msgpack or fluidnet_tpu.

@@ -59,10 +59,23 @@ def get_dx(flags_or_shape) -> float:
     return 1.0 / float(max(x, max(y, z)))
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a constructor builds on: `device` if given, else the
+    CUDA device. Without a CUDA device that raises RuntimeError: the port
+    runs on the card unless the caller asks for the CPU (device="cpu")."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port builds on the GPU by "
+                           "default; pass device='cpu' to build on the CPU")
+    return torch.device("cuda")
+
+
 def border_mask(shape, is_3d: bool, bnd: int = 1,
                 device=None) -> torch.Tensor:
     """Boolean (1, 1, z, y, x) mask, True on the `bnd`-wide domain border
-    (the z border only in 3-D)."""
+    (the z border only in 3-D). Built on resolve_device(device)."""
+    device = resolve_device(device)
     z, y, x = shape[-3], shape[-2], shape[-1]
     xi = torch.arange(x, device=device).view(1, 1, 1, 1, x)
     yi = torch.arange(y, device=device).view(1, 1, 1, y, 1)
@@ -76,7 +89,7 @@ def border_mask(shape, is_3d: bool, bnd: int = 1,
 def empty_domain(shape, is_3d: bool, bnd: int = 1, device=None,
                  dtype=torch.int32) -> torch.Tensor:
     """Flags grid: TypeFluid inside, TypeObstacle on a bnd-wide border.
-    `shape` is (batch, 1, z, y, x)."""
+    `shape` is (batch, 1, z, y, x). Built on resolve_device(device)."""
     if len(shape) != 5 or shape[1] != 1:
         raise ValueError(f"flags shape must be (b, 1, z, y, x), got {shape}")
     m = border_mask(shape, is_3d, bnd, device)

@@ -1,30 +1,37 @@
-// K2: the fused projection prologue.
+// K2: the fused forces block and projection prologue.
 //
 // Replaces the TPU kernel fluidnet_tpu/ops/pallas/forces_kernel.py::_fb_kernel
-// in its prologue form (epi=True, has_ubc), as launched by _pro_pallas_impl
-// for ops/prologue.projection_prologue: once per simulation step, between
-// advection and the ConvNet. In order, per cell:
-//   slab BC on u (rows y < YB: u * inv + bc)
+// in both its forms, one kernel template (EPI) here:
+//   - EPI = true, the projection prologue (epi=True, has_ubc), as launched by
+//     _pro_pallas_impl for ops/prologue.projection_prologue: once per
+//     ConvNet step, between advection and the ConvNet;
+//   - EPI = false, the forces block (epi=False), as launched by
+//     _fb_pallas_impl for ops/forces.forces_block: once per jacobi or PCG
+//     step. It stops after the force stage: no slab BC, no setWallBcs, no
+//     divergence, 3 output channels.
+// In order, per cell:
+//   [EPI] slab BC on u (rows y < YB: u * inv + bc)
 //   -> buoyancy 0.5 * s * (rho(i) + rho(i-1)) on fluid-fluid faces
 //   -> gravity on fluid/empty faces
 //   -> vorticity confinement: centered u -> curl and |curl| -> normalized
 //      grad|curl| x curl * amp -> face-averaged AddForceField
-//   -> slab BC again -> setWallBcs (incl. TypeStick)
-//   -> Manta-RHS divergence of the result (4th output channel).
+//   [EPI] -> slab BC again -> setWallBcs (incl. TypeStick)
+//   [EPI] -> Manta-RHS divergence of the result (4th output channel).
 // The chain reaches 4 cells out: confinement is 3 deep and the divergence
-// reads the wall-BC'ed velocity at +1.
+// reads the wall-BC'ed velocity at +1 (the forces block needs 3 of the 4).
 //
 // What bounds it on the H100: data reuse, not arithmetic. Compulsory HBM
-// traffic is u(3) + rho + flags in and u(3) + div out, 36 B/cell, but each
-// output depends on a 9^3 neighbourhood through five dependent stencils;
-// done as separate elementwise passes (the plain version) that is ~40 full
-// field passes through HBM.
+// traffic is u(3) + rho + flags in and u(3) [+ div] out, 32 [36] B/cell, but
+// each output depends on a 7^3 [9^3] neighbourhood through four [five]
+// dependent stencils; done as separate elementwise passes (the plain
+// version) that is ~40 full field passes through HBM.
 //
 // Design: one kernel over a shared-memory tile. A block owns an 8^3 output
 // tile and loads a 16^3 input tile (halo 4) into shared memory once; the
 // stages then run in order with __syncthreads() between them, each on a
 // region one cell smaller than the last (u' on [1,16), centered u on
-// [1,15), curl on [2,14), force on [3,13), wall-BC'ed u on [4,13), outputs
+// [1,15), curl on [2,14), force on [3,13), force-applied u on [4,12) for the
+// forces block or, wall-BC'ed, on [4,13) for the prologue, whose outputs are
 // on [4,12)). Stages that overwrite a buffer their neighbours still read
 // stage their results in registers across a barrier. Shared memory: 7
 // floats + 1 flag byte per tile cell = 116 KB, one 512-thread block per SM.
@@ -70,6 +77,7 @@ __device__ __forceinline__ int region_cell(int q, int lo, int w, int* lz,
   return (*lz * kN + *ly) * kN + *lx;
 }
 
+template <bool EPI>
 __global__ void __launch_bounds__(kThreads)
 prologue_kernel(const float* __restrict__ u, const int* __restrict__ flags,
                 const float* __restrict__ rho, const float* __restrict__ ubc,
@@ -241,6 +249,32 @@ prologue_kernel(const float* __restrict__ u, const int* __restrict__ flags,
   }
   __syncthreads();
 
+  // Forces block (EPI = false): AddForceField on the output tile [4, 12),
+  // written straight out; nothing after it.
+  if constexpr (!EPI) {
+    constexpr int lo = kH, w = kT;
+    for (int q = tid; q < w * w * w; q += kThreads) {
+      int lz, ly, lx;
+      const int t = region_cell(q, lo, w, &lz, &ly, &lx);
+      const int gz = z0 + lz, gy = y0 + ly, gx = x0 + lx;
+      if (!in_domain(gz, gy, gx)) continue;
+      const unsigned char fc = sm.f[t];
+      const bool fl = fc & kFluid, em = fc & kEmpty;
+      const bool cur = (fl || em) && interior(gz, gy, gx);
+      float* O = out + (size_t)b * 3 * n + ((size_t)gz * Y + gy) * X + gx;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const unsigned char fm = sm.f[t - off[c]];
+        const bool fl_m = fm & kFluid, em_m = fm & kEmpty;
+        float x = sm.u[c][t];
+        if (cur && (fl_m || (fl && em_m)))
+          x = x + 0.5f * (sm.a[c][t - off[c]] + sm.a[c][t]);
+        O[c * n] = x;
+      }
+    }
+    return;
+  }
+
   // Stage 4 on [4, 13): AddForceField, the second slab BC, setWallBcs.
   // Written over u' after a barrier (the divergence reads +1 neighbours).
   {
@@ -317,26 +351,40 @@ prologue_kernel(const float* __restrict__ u, const int* __restrict__ flags,
   }
 }
 
+template <bool EPI>
+int launch(const float* u, const int* flags, const float* rho,
+           const float* ubc, const float* uinv, float* out, int B, int Z,
+           int Y, int X, int YB, const Scal& sc, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(Smem));
+  cudaError_t err = cudaFuncSetAttribute(
+      prologue_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((X + kT - 1) / kT, (Y + kT - 1) / kT,
+                  ((Z + kT - 1) / kT) * B);
+  prologue_kernel<EPI><<<grid, kThreads, smem, stream>>>(
+      u, flags, rho, ubc, uinv, out, Z, Y, X, YB, sc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// u (B,3,Z,Y,X) f32, flags (B,1,Z,Y,X) int32, rho (B,1,Z,Y,X) f32,
-// ubc/uinv (B,3,Z,YB,X) f32 or null, out (B,4,Z,Y,X) f32.
-// scal7 = [bx, by, bz, gx, gy, gz, amp] as ops/prologue.py builds it.
-// Returns cudaGetLastError().
+// u (B,3,Z,Y,X) f32, flags (B,1,Z,Y,X) int32, rho (B,1,Z,Y,X) f32.
+// epi != 0, the prologue: ubc/uinv (B,3,Z,YB,X) f32 or null, out
+// (B,4,Z,Y,X) f32. epi == 0, the forces block: ubc/uinv null, out
+// (B,3,Z,Y,X) f32. scal7 = [bx, by, bz, gx, gy, gz, amp] as
+// ops/cuda/forces_kernel.py builds it. Returns cudaGetLastError().
 extern "C" int fluidnet_prologue(const float* u, const int* flags,
                                  const float* rho, const float* ubc,
                                  const float* uinv, float* out, int B, int Z,
-                                 int Y, int X, int YB, float bx, float by,
-                                 float bz, float gx, float gy, float gz,
-                                 float amp, void* stream) {
-  const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(
-      prologue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                                 int Y, int X, int YB, int epi, float bx,
+                                 float by, float bz, float gx, float gy,
+                                 float gz, float amp, void* stream) {
   const Scal sc{{bx, by, bz}, {gx, gy, gz}, amp};
-  const dim3 grid((X + kT - 1) / kT, (Y + kT - 1) / kT,
-                  ((Z + kT - 1) / kT) * B);
-  prologue_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      u, flags, rho, ubc, uinv, out, Z, Y, X, YB, sc);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (epi)
+    return launch<true>(u, flags, rho, ubc, uinv, out, B, Z, Y, X, YB, sc,
+                        st);
+  return launch<false>(u, flags, rho, nullptr, nullptr, out, B, Z, Y, X, 0,
+                       sc, st);
 }

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fluidnet_tpu_torch.core.config import ModelConfig
-from fluidnet_tpu_torch.core.grids import flags_to_occupancy
+from fluidnet_tpu_torch.core.grids import flags_to_occupancy, resolve_device
 from fluidnet_tpu_torch.ops.boundary import set_wall_bcs
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
@@ -125,7 +125,10 @@ class FluidNet(nn.Module):
     `precomputed_div`: the projection prologue (ops.prologue) already
     applied setWallBcs to u_div and computed its divergence; passing it
     skips both input ops. Passing it is the explicit capability signal
-    the JAX package probed with try/except (fault F2)."""
+    the JAX package probed with try/except (fault F2).
+
+    The weights are built on `device`, the CUDA device by default
+    (core.grids.resolve_device: no silent fall back to the CPU)."""
 
     def __init__(self, mconf: ModelConfig, device=None):
         super().__init__()
@@ -133,6 +136,7 @@ class FluidNet(nn.Module):
         _check_fast_trunk(mconf, psize, usize)
         if mconf.conv_compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(mconf.conv_compute_dtype)
+        device = resolve_device(device)
         self.mconf = mconf
         in_c = num_input_channels(mconf)
         self.stages = nn.ModuleList()
@@ -211,5 +215,6 @@ class FluidNet(nn.Module):
 
 
 def from_jax_params(params, mconf: ModelConfig, device=None) -> FluidNet:
-    """A FluidNet holding the JAX params pytree (numpy leaves)."""
+    """A FluidNet holding the JAX params pytree (numpy leaves), on
+    `device` (the CUDA device by default)."""
     return FluidNet(mconf, device=device).load_jax_params(params)

@@ -1,16 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-Every `fluidnet_tpu_torch/csrc/*.cu` is compiled in ONE nvcc call into a
-shared library with a plain C interface,
+Every `fluidnet_tpu_torch/csrc/*.cu` is compiled by its own nvcc process,
+all started together, into an object file, and the objects are linked
+into one shared library with a plain C interface,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/kernels/libfluidnet_tpu_torch.so
+         -Xptxas -v -Xcompiler -fPIC -c -o build/kernels/<source>.o <source>
+    nvcc -shared -o build/kernels/libfluidnet_tpu_torch.so build/kernels/*.o
 
 at first use (or when a source is newer than the library), and loaded with
 ctypes. No PyTorch headers are compiled, which keeps the build to seconds.
 `-fmad=false` stops nvcc from contracting a*b+c into one FMA, so a kernel
 rounds each operation as PyTorch's elementwise ops do and matches its
-plain version to the last bits.
+plain version to the last bits. `build` returns ptxas's report
+(registers, shared memory, spills per kernel) beside its time.
 
 Conventions of every C entry point: pointers and the stream are
 `c_void_p`, the kernel launches on the given stream (the caller passes
@@ -18,7 +21,8 @@ torch.cuda.current_stream()), it never synchronises or allocates, and it
 returns cudaGetLastError() — `check` raises if that is not 0.
 
 `launches` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else (K3 counts one per solve, whatever
+its number of sweeps).
 """
 
 import collections
@@ -45,8 +49,10 @@ _SIGNATURES = {
     # u, s, m, fwd_u, fwd_s, free, out, B, Z, Y, X, dcoef, strength, lim,
     # is_bwd, ours, renorm, stream
     "fluidnet_mac_sweep": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
-    # u, flags, rho, ubc, uinv, out, B, Z, Y, X, YB, scal7[7], stream
-    "fluidnet_prologue": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P],
+    # u, flags, rho, ubc, uinv, out, B, Z, Y, X, YB, epi, scal7[7], stream
+    "fluidnet_prologue": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    # div, flags, p0, p1, B, Z, Y, X, n_sweeps, stream
+    "fluidnet_jacobi": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -71,24 +77,51 @@ def _stale(sources):
     return any(os.path.getmtime(s) > built for s in deps)
 
 
-def build(force: bool = False) -> float:
+def build(force: bool = False):
     """Compiles csrc/*.cu into LIB_PATH if it is missing or stale (or
-    `force`). Returns the seconds spent compiling (0.0 if up to date).
-    Raises RuntimeError with nvcc's output if the build fails."""
+    `force`), one nvcc process per source, all at once. Returns (seconds
+    spent compiling, ptxas's report), (0.0, "") if up to date. Raises
+    RuntimeError with nvcc's output if the build fails."""
     sources = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
     if not force and not _stale(sources):
-        return 0.0
+        return 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-fmad=false",
-           "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-o", tmp] + sources
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return time.perf_counter() - t0
+    jobs = []
+    for src in sources:
+        obj = os.path.join(BUILD_DIR, os.path.basename(src)[:-3] +
+                           f".{tag}.o")
+        cmd = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-fmad=false",
+               "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c",
+               "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    report, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        report.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}"
+        cmd = [nvcc, "-gencode", ARCH, "-shared", "-o", tmp] + objs
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n"
+                               f"{res.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return time.perf_counter() - t0, "".join(report)
 
 
 def library():

@@ -2,9 +2,10 @@
 
 Port of fluidnet_tpu.ops.forces (Main_addBuoyancy tfluids.cc:1162-1233,
 Main_addGravity :1239-1306, Main_vorticityConfinement :1312-1458) in plain
-PyTorch. Force scales are one (3,) gravity vector and a scalar
-confinement strength; the per-sample (B, 3) / (B,) scales of the JAX
-package are not ported yet (ROADMAP queue 1).
+PyTorch, and `forces_block`, the dispatch of the fused forces block onto
+kernel K2 (ops/cuda/forces_kernel.py). A gravity vector is (3,) or, for
+per-sample force scales, (B, 3); a confinement strength is a scalar or
+(B,).
 """
 
 import torch
@@ -16,29 +17,29 @@ from fluidnet_tpu_torch.ops import stencil as st
 _VEC3_EPS = 1e-6  # vec3 kEpsilon (generic/vec3.cu.h:21).
 
 
-def _vec3(gravity, like):
-    g = torch.as_tensor(gravity, dtype=like.dtype, device=like.device)
-    if g.dim() != 1:
-        raise NotImplementedError(
-            "per-sample (B, 3) force scales are not ported yet "
-            "(ROADMAP queue 1, batched scales)")
-    return g
+def _gcomp(gravity, c):
+    """Component c of a (3,) or (B, 3) gravity vector, shaped to broadcast
+    against (B, z, y, x) fields."""
+    if gravity.dim() == 1:
+        return gravity[c]
+    return gravity[:, c].reshape(-1, 1, 1, 1)
 
 
-def _scalar(strength, like):
+def _samp(strength, like):
+    """A scalar or (B,) confinement strength, shaped to broadcast against
+    (B, z, y, x) fields."""
     s = torch.as_tensor(strength, dtype=like.dtype, device=like.device)
-    if s.dim() != 0:
-        raise NotImplementedError(
-            "per-sample (B,) confinement strengths are not ported yet "
-            "(ROADMAP queue 1, batched scales)")
-    return s
+    if s.dim() == 0:
+        return s
+    return s.reshape(s.shape + (1, 1, 1))
 
 
 def add_buoyancy(u, flags, density, gravity, dt):
     """U += 0.5 * strength * (rho(i) + rho(i-1)) on fluid-fluid faces,
     strength = -gravity * dt / dx (tfluids.cc:1190-1191)."""
     is_3d = check_shapes(u, flags, density)
-    strength = -_vec3(gravity, u) * (dt / get_dx(flags))
+    gravity = torch.as_tensor(gravity, dtype=u.dtype, device=u.device)
+    strength = -gravity * (dt / get_dx(flags))
 
     fl = is_fluid(flags)[:, 0]
     interior = ~border_mask(flags.shape, is_3d, 1, u.device)[:, 0]
@@ -48,10 +49,11 @@ def add_buoyancy(u, flags, density, gravity, dt):
         add = 0.5 * s * (rho + rho_m)
         return torch.where(fl & fl_m & interior, uc + add, uc)
 
-    ux = face(u[:, 0], strength[0], st.xm(fl, False), st.xm(rho))
-    uy = face(u[:, 1], strength[1], st.ym(fl, False), st.ym(rho))
+    ux = face(u[:, 0], _gcomp(strength, 0), st.xm(fl, False), st.xm(rho))
+    uy = face(u[:, 1], _gcomp(strength, 1), st.ym(fl, False), st.ym(rho))
     if is_3d:
-        uz = face(u[:, 2], strength[2], st.zm(fl, False), st.zm(rho))
+        uz = face(u[:, 2], _gcomp(strength, 2), st.zm(fl, False),
+                  st.zm(rho))
         return torch.stack([ux, uy, uz], dim=1)
     return torch.stack([ux, uy], dim=1)
 
@@ -61,7 +63,8 @@ def add_gravity(u, flags, gravity, dt):
     (tfluids.cc:1280-1300): the current cell is fluid or empty; add
     force.x if fluid(i-1) or (cur fluid and empty(i-1))."""
     is_3d = check_shapes(u, flags)
-    force = _vec3(gravity, u) * (dt / get_dx(flags))
+    gravity = torch.as_tensor(gravity, dtype=u.dtype, device=u.device)
+    force = gravity * (dt / get_dx(flags))
 
     fl = is_fluid(flags)[:, 0]
     em = is_empty(flags)[:, 0]
@@ -70,10 +73,11 @@ def add_gravity(u, flags, gravity, dt):
     def face(uc, f, fl_m, em_m):
         return torch.where(cur & (fl_m | (fl & em_m)), uc + f, uc)
 
-    ux = face(u[:, 0], force[0], st.xm(fl, False), st.xm(em, False))
-    uy = face(u[:, 1], force[1], st.ym(fl, False), st.ym(em, False))
+    ux = face(u[:, 0], _gcomp(force, 0), st.xm(fl, False), st.xm(em, False))
+    uy = face(u[:, 1], _gcomp(force, 1), st.ym(fl, False), st.ym(em, False))
     if is_3d:
-        uz = face(u[:, 2], force[2], st.zm(fl, False), st.zm(em, False))
+        uz = face(u[:, 2], _gcomp(force, 2), st.zm(fl, False),
+                  st.zm(em, False))
         return torch.stack([ux, uy, uz], dim=1)
     return torch.stack([ux, uy], dim=1)
 
@@ -136,7 +140,7 @@ def vorticity_confinement_xla(u, flags, strength):
     inv = torch.where(safe, 1.0 / torch.where(safe, g_norm, 1.0), 0.0)
     gx, gy, gz = gx * inv, gy * inv, gz * inv
 
-    s = _scalar(strength, u)
+    s = _samp(strength, u)
     fx = (gy * curl[:, 2] - gz * curl[:, 1]) * s
     fy = (gz * curl[:, 0] - gx * curl[:, 2]) * s
     fz = (gx * curl[:, 1] - gy * curl[:, 0]) * s
@@ -147,10 +151,28 @@ def vorticity_confinement_xla(u, flags, strength):
 def forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt):
     """The simulate() forces block as one composition: buoyancy -> gravity
     -> vorticity confinement (simulate.lua:216-239 ordering). Zero scales
-    are exact no-ops. Keeps the JAX name."""
+    are exact no-ops. Keeps the JAX name; K2's forces-block form is
+    checked against it."""
     u = add_buoyancy(u, flags, density, buoy_g, dt)
     u = add_gravity(u, flags, grav_g, dt)
     return vorticity_confinement_xla(u, flags, amp)
+
+
+def forces_block(u, flags, density, buoy_g, grav_g, amp, dt):
+    """The fused forces block (JAX ops/forces.py:202-214). 3-D with one
+    (3,) gravity vector per force and a scalar amp runs K2's forces-block
+    form (ops/cuda/forces_kernel.forces_block_cuda) on CUDA tensors and
+    its plain version forces_block_xla on CPU tensors; 2-D and per-sample
+    scales ((B, 3) vectors, an amp of ndim > 0) run forces_block_xla."""
+    batched = (torch.as_tensor(buoy_g).dim() > 1 or
+               torch.as_tensor(grav_g).dim() > 1 or
+               torch.as_tensor(amp).dim() > 0)
+    if check_shapes(u, flags, density) and not batched and \
+            u.device.type != "cpu":
+        from fluidnet_tpu_torch.ops.cuda.forces_kernel import \
+            forces_block_cuda
+        return forces_block_cuda(u, flags, density, buoy_g, grav_g, amp, dt)
+    return forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt)
 
 
 def _add_force_field(u, flags, force, is_3d):

@@ -7,6 +7,7 @@ averaged around a face; shifted reads fill 0 at the domain edge.
 
 import torch
 
+from fluidnet_tpu_torch.core.grids import resolve_device
 from fluidnet_tpu_torch.ops import stencil as st
 
 
@@ -46,8 +47,10 @@ def get_at_mac_z(u, is_3d):
 
 
 def cell_center_positions(shape, dtype=torch.float32, device=None):
-    """(px, py, pz) tensors of cell-center coordinates, each (1, z, y, x)."""
+    """(px, py, pz) tensors of cell-center coordinates, each (1, z, y, x),
+    on resolve_device(device)."""
     _, _, Z, Y, X = shape
+    device = resolve_device(device)
     px = torch.arange(X, dtype=dtype, device=device).view(1, 1, 1, X) + 0.5
     py = torch.arange(Y, dtype=dtype, device=device).view(1, 1, Y, 1) + 0.5
     pz = torch.arange(Z, dtype=dtype, device=device).view(1, Z, 1, 1) + 0.5

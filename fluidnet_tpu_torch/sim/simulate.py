@@ -1,16 +1,21 @@
 """The time-integration loop: advect -> forces -> project.
 
-Port of the 3-D ConvNet branch of fluidnet_tpu.sim.simulate with both fused
+Port of the 3-D branches of fluidnet_tpu.sim.simulate with both fused
 knobs on (FLUIDNET_FUSED_EPILOGUE / FLUIDNET_FUSED_PROLOGUE default ON in
 the JAX package), mirroring simulate.lua:175-327. One step:
 
   1. Chebyshev free space (constant flags: computed once per rollout)
   2. forward + backward MacCormack sweep (K1, 2 launches), final clamp
-  3. slab BCs on p and density
-  4. the projection prologue (K2): u slab BC, buoyancy, gravity, vorticity
-     confinement, u slab BC, setWallBcs, divergence
-  5. the ConvNet projection on the prologue's divergence
-  6. slab BCs again, velocity clipped to +-1e6
+  3. ConvNet: slab BCs on p and density; the projection prologue (K2):
+     u slab BC, buoyancy, gravity, vorticity confinement, u slab BC,
+     setWallBcs, divergence; the ConvNet on that divergence; with
+     polish_iters > 0, that many Jacobi sweeps (K3) on its residual
+     divergence, the velocity update and p += dp.
+     Jacobi / PCG: slab BCs on u, p and density; the forces block (K2
+     forces-block form); setWallBcs; the slab BCs again; the divergence;
+     the solve (K3 fixed sweeps, or matrix-free PCG in PyTorch); the
+     velocity update.
+  4. slab BCs again, velocity clipped to +-1e6
 
 Inference only (torch.no_grad). The other branches of the JAX simulate()
 raise NotImplementedError naming the ROADMAP item that ports them.
@@ -27,11 +32,19 @@ from fluidnet_tpu_torch.core.config import ModelConfig
 from fluidnet_tpu_torch.core.grids import FluidState, get_dx
 from fluidnet_tpu_torch.ops.advect_fast import (advect_vel_scalar_fast,
                                                 chebyshev_free_space)
+from fluidnet_tpu_torch.ops.boundary import set_wall_bcs
 from fluidnet_tpu_torch.ops.cuda.forces_kernel import slab
 from fluidnet_tpu_torch.ops.cuda.mac_sweep import (advect_sweep_fused_ep,
                                                    sweep_fused_ep_plain)
+from fluidnet_tpu_torch.ops.divergence import velocity_divergence
+from fluidnet_tpu_torch.ops.forces import forces_block, forces_block_xla
 from fluidnet_tpu_torch.ops.prologue import (projection_prologue,
                                              prologue_ref)
+from fluidnet_tpu_torch.ops.velocity_update import velocity_update
+from fluidnet_tpu_torch.solvers.cg import solve_pcg
+from fluidnet_tpu_torch.solvers.components import connected_components
+from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_plain
+from fluidnet_tpu_torch.solvers.jacobi import solve_jacobi
 
 U_CLAMP = 1e6  # blow-up containment (simulate.lua:323-326)
 
@@ -106,57 +119,56 @@ def create_plume_bcs(state: FluidState, density_val, u_scale: float,
                       density_bc=d_bc, density_bc_inv_mask=d_inv)
 
 
-def _check_slice(state: FluidState, mconf: ModelConfig):
+def _check_slice(state: FluidState, mconf: ModelConfig, model):
     """Raises NotImplementedError for the simulate() branches not ported."""
     if not state.is_3d:
         raise NotImplementedError("2-D simulation is not ported yet "
                                   "(ROADMAP queue 1, 2-D paths)")
-    if mconf.sim_method != "convnet":
-        raise NotImplementedError(
-            f"sim_method {mconf.sim_method!r} is not ported yet (ROADMAP "
-            f"queue 1, solvers: K3 jacobi, PCG)")
-    if mconf.polish_iters > 0:
-        raise NotImplementedError("polish_iters > 0 needs the Jacobi "
-                                  "solver, not ported yet (ROADMAP queue "
-                                  "1, K3)")
+    if mconf.sim_method not in ("convnet", "jacobi", "pcg"):
+        raise ValueError(f"bad sim_method {mconf.sim_method}")
+    if mconf.sim_method == "convnet" and model is None:
+        raise ValueError("the convnet sim method needs a model")
     if mconf.adaptive_window and mconf.advection_window > 1:
         raise NotImplementedError("the adaptive advection window is not "
                                   "ported yet (ROADMAP queue 1, ops off the "
                                   "main path); set adaptive_window=False")
+    if state.density is None and mconf.vorticity_confinement_amp > 0:
+        raise NotImplementedError("a 3-D step without density runs the "
+                                  "standalone vorticity confinement (K4), "
+                                  "not ported yet (ROADMAP queue 1, ops off "
+                                  "the main path)")
     if state.density is None or state.density.shape[1] != 1:
         raise NotImplementedError("the port advects exactly one density "
                                   "channel (ROADMAP queue 1, unfused "
                                   "advection)")
 
 
-def simulate(state: FluidState, mconf: ModelConfig, model,
+def simulate(state: FluidState, mconf: ModelConfig, model=None,
              bcs: Optional[Boundaries] = None,
              use_kernels: bool = True) -> FluidState:
-    """One simulation step with the ConvNet projection `model` (a
-    models.fluidnet.FluidNet). `use_kernels=False` runs every kernel's
-    plain PyTorch version instead, on whatever device the state lives: the
-    reference the kernels are checked against."""
-    _check_slice(state, mconf)
+    """One simulation step with the projection mconf.sim_method: "convnet"
+    (the ConvNet `model`, a models.fluidnet.FluidNet, plus mconf.
+    polish_iters Jacobi sweeps), "jacobi" (mconf.max_iter fixed sweeps)
+    or "pcg" (mconf.max_iter, mconf.pcg_tol); `model` may be None for the
+    last two. `use_kernels=False` runs every kernel's plain PyTorch
+    version instead, on whatever device the state lives: the reference
+    the kernels are checked against."""
+    _check_slice(state, mconf, model)
     with torch.no_grad():
-        return _step(state, mconf, model, bcs, None, use_kernels)
+        return _step(state, mconf, model, bcs, _Consts(), use_kernels)
 
 
-def _step(state, mconf, model, bcs, free_space, use_kernels):
-    dt = mconf.dt
-    u, p, flags, density = state.u, state.p, state.flags, state.density
-    dx = get_dx(flags)
-    W = mconf.advection_window
-    if free_space is None and mconf.advection_method.endswith("Ours"):
-        free_space = chebyshev_free_space(flags, W + 1)
+@dataclasses.dataclass
+class _Consts:
+    """Fields that depend on the flags alone, which do not change within
+    a rollout: computed at the first step that needs them."""
+    free_space: Optional[torch.Tensor] = None
+    labels: Optional[torch.Tensor] = None
 
-    # 1.+2. Advection: density and all three MAC components, fused.
-    density, u = advect_vel_scalar_fast(
-        dt, density, u, flags, mconf.advection_method, False,
-        mconf.maccormack_strength, W, free=free_space,
-        sweep=advect_sweep_fused_ep if use_kernels else sweep_fused_ep_plain)
 
-    # Forces configuration (simulate.lua:216-239). The scaled vectors stay
-    # on the host: the kernel takes them as launch arguments.
+def _forces_config(mconf, dx):
+    """(buoy_g, grav_g, amp) of simulate.lua:216-239, on the host: the
+    kernels take them as launch arguments."""
     g_vec = torch.tensor([0.0, 1.0, 0.0] if mconf.gravity is None
                          else list(mconf.gravity), dtype=torch.float32)
     zero3 = torch.zeros(3)
@@ -166,52 +178,121 @@ def _step(state, mconf, model, bcs, free_space, use_kernels):
         if mconf.gravity_scale > 0 else zero3
     amp = torch.tensor(mconf.vorticity_confinement_amp) * dx \
         if mconf.vorticity_confinement_amp > 0 else torch.zeros(())
+    return buoy_g, grav_g, amp
 
-    # 3. External BCs on p and density; the u slab runs in the prologue.
+
+def _fixed_jacobi(flags, div, n_sweeps, use_kernels):
+    """n fixed Jacobi sweeps from 0: K3 through solve_jacobi(p_tol=0), or
+    K3's plain version."""
+    if use_kernels:
+        return solve_jacobi(flags, div, p_tol=0.0, max_iter=n_sweeps)[0]
+    return jacobi_plain(flags, div, n_sweeps)
+
+
+def _step(state, mconf, model, bcs, consts, use_kernels):
+    dt = mconf.dt
+    u, flags, density = state.u, state.flags, state.density
+    dx = get_dx(flags)
+    W = mconf.advection_window
+    if consts.free_space is None and mconf.advection_method.endswith("Ours"):
+        consts.free_space = chebyshev_free_space(flags, W + 1)
+
+    # 1.+2. Advection: density and all three MAC components, fused.
+    density, u = advect_vel_scalar_fast(
+        dt, density, u, flags, mconf.advection_method, False,
+        mconf.maccormack_strength, W, free=consts.free_space,
+        sweep=advect_sweep_fused_ep if use_kernels else sweep_fused_ep_plain)
+    buoy_g, grav_g, amp = _forces_config(mconf, dx)
+    state = state.replace(u=u, density=density)
+    if mconf.sim_method == "convnet":
+        state = _convnet_projection(state, mconf, model, bcs, buoy_g,
+                                    grav_g, amp, use_kernels)
+    else:
+        state = _solver_projection(state, mconf, bcs, consts, buoy_g, grav_g,
+                                   amp, use_kernels)
+    state = apply_boundaries(state, bcs)
+    return state.replace(u=state.u.clamp(-U_CLAMP, U_CLAMP))
+
+
+def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp,
+                        use_kernels):
+    """The fused ConvNet path: p/density slab BCs, K2's prologue, the
+    ConvNet, the optional Jacobi polish. Returns the state before the
+    final BCs."""
+    flags = state.flags
+    # External BCs on p and density; the u slab runs in the prologue.
     bcs_nou = bcs
     if bcs is not None:
         bcs_nou = dataclasses.replace(bcs, u_bc=None, u_bc_inv_mask=None)
-    state = apply_boundaries(state.replace(u=u, p=p, density=density),
-                             bcs_nou)
-    p, density = state.p, state.density
+    state = apply_boundaries(state, bcs_nou)
 
-    # 4.-6. The projection prologue: slab BC, forces, slab BC, setWallBcs,
+    # The projection prologue: slab BC, forces, slab BC, setWallBcs,
     # divergence, in one K2 launch.
     u_bc = bcs.u_bc if bcs is not None else None
     u_inv = bcs.u_bc_inv_mask if bcs is not None else None
     prologue = projection_prologue if use_kernels else prologue_ref
-    u, div = prologue(u, flags, density[:, 0:1], buoy_g, grav_g, amp, dt,
-                      u_bc, u_inv)
+    u, div = prologue(state.u, flags, state.density[:, 0:1], buoy_g, grav_g,
+                      amp, mconf.dt, u_bc, u_inv)
 
-    # 7. Projection. The p/density slabs are idempotent masks, reapplied
-    # as the JAX step does.
-    state = apply_boundaries(state.replace(u=u, p=p, density=density),
-                             bcs_nou)
+    # The p/density slabs are idempotent masks, reapplied as the JAX step
+    # does.
+    state = apply_boundaries(state.replace(u=u), bcs_nou)
     p, u = model(state.p, u, flags, precomputed_div=div)
-    state = apply_boundaries(state.replace(u=u, p=p), bcs)
-    return state.replace(u=state.u.clamp(-U_CLAMP, U_CLAMP))
+    if mconf.polish_iters > 0:
+        # Hybrid projection: Jacobi sweeps on the ConvNet's residual.
+        res_div = velocity_divergence(u, flags)
+        dp = _fixed_jacobi(flags, res_div, mconf.polish_iters, use_kernels)
+        u = velocity_update(u, flags, dp)
+        p = p + dp
+    return state.replace(u=u, p=p)
 
 
-def rollout(state: FluidState, mconf: ModelConfig, n_steps: int, model,
-            bcs: Optional[Boundaries] = None, save_every: int = 0,
-            use_kernels: bool = True):
+def _solver_projection(state, mconf, bcs, consts, buoy_g, grav_g, amp,
+                       use_kernels):
+    """The Jacobi / PCG path: full BCs, the forces block (K2's forces-block
+    form), setWallBcs, BCs, divergence, solve, velocity update. Returns
+    the state before the final BCs."""
+    flags = state.flags
+    state = apply_boundaries(state, bcs)
+    u = state.u
+    if mconf.buoyancy_scale > 0 or mconf.gravity_scale > 0 or \
+            mconf.vorticity_confinement_amp > 0:
+        block = forces_block if use_kernels else forces_block_xla
+        u = block(u, flags, state.density[:, 0:1], buoy_g, grav_g, amp,
+                  mconf.dt)
+    u = set_wall_bcs(u, flags)
+    state = apply_boundaries(state.replace(u=u), bcs)
+    u = state.u
+    div = velocity_divergence(u, flags)
+    if mconf.sim_method == "pcg":
+        if consts.labels is None:
+            consts.labels = connected_components(flags)
+        p, _ = solve_pcg(flags, div, tol=mconf.pcg_tol,
+                         max_iter=mconf.max_iter, labels=consts.labels)
+    else:
+        p = _fixed_jacobi(flags, div, mconf.max_iter, use_kernels)
+    return state.replace(u=velocity_update(u, flags, p), p=p)
+
+
+def rollout(state: FluidState, mconf: ModelConfig, n_steps: int,
+            model=None, bcs: Optional[Boundaries] = None,
+            save_every: int = 0, use_kernels: bool = True):
     """Runs `n_steps` simulate() steps as a Python loop (the JAX package
-    scans on device; a CUDA graph of this loop is later work). The free
-    space is computed once: the flags do not change.
+    scans on device; a CUDA graph of this loop is later work). What
+    depends on the flags alone, which do not change, is computed once:
+    the free space, and for PCG the connected-component labels.
 
     Returns the final state; with `save_every > 0` also the density every
     `save_every` steps, stacked (n_steps // save_every, b, c, z, y, x)."""
     if save_every > 1 and n_steps % save_every:
         raise ValueError(f"n_steps ({n_steps}) must be divisible by "
                          f"save_every ({save_every})")
-    _check_slice(state, mconf)
-    free = None
-    if mconf.advection_method.endswith("Ours"):
-        free = chebyshev_free_space(state.flags, mconf.advection_window + 1)
+    _check_slice(state, mconf, model)
+    consts = _Consts()
     frames = []
     with torch.no_grad():
         for i in range(n_steps):
-            state = _step(state, mconf, model, bcs, free, use_kernels)
+            state = _step(state, mconf, model, bcs, consts, use_kernels)
             if save_every and (i + 1) % save_every == 0:
                 frames.append(state.density)
     if save_every:

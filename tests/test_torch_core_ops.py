@@ -46,7 +46,7 @@ from fluidnet_tpu_torch.ops.advect_fast import \
     chebyshev_free_space as t_chebyshev
 from fluidnet_tpu_torch.sim import simulate as tsim
 
-from tests.torch_port_util import assert_close, random_flags, tt
+from tests.torch_port_util import DEV, assert_close, random_flags, tt
 
 RTOL, ATOL = 1e-5, 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,9 +115,9 @@ def test_grids(is3d):
     shape = (2, 1, 10, 16, 24) if is3d else (2, 1, 1, 16, 24)
     for bnd in (1, 2):
         np.testing.assert_array_equal(
-            tgrids.border_mask(shape, is3d, bnd).numpy(),
+            tgrids.border_mask(shape, is3d, bnd, DEV).numpy(),
             np.asarray(jgrids.border_mask(shape, is3d, bnd)))
-        tflags = tgrids.empty_domain(shape, is3d, bnd)
+        tflags = tgrids.empty_domain(shape, is3d, bnd, DEV)
         assert tflags.dtype == torch.int32
         np.testing.assert_array_equal(
             tflags.numpy(), np.asarray(jgrids.empty_domain(shape, is3d,
@@ -133,8 +133,36 @@ def test_grids(is3d):
     with pytest.raises(ValueError):
         tgrids.check_shapes(u, torch.zeros((2, 1, 3, 3, 3)))
     st = tgrids.FluidState(u=u, p=torch.zeros(shape),
-                           flags=tgrids.empty_domain(shape, is3d))
+                           flags=tgrids.empty_domain(shape, is3d,
+                                                   device=DEV))
     assert st.is_3d == is3d and st.replace(density=u).density is u
+
+
+def test_constructors_default_to_cuda():
+    """Without a device the public constructors build on the CUDA device;
+    with no CUDA device they raise instead of building on the CPU."""
+    from fluidnet_tpu_torch.core.config import ModelConfig
+    from fluidnet_tpu_torch.models.fluidnet import FluidNet, from_jax_params
+    shape = (1, 1, 4, 5, 6)
+    mconf = ModelConfig(is_3d=True)
+    makers = [lambda: tgrids.empty_domain(shape, True),
+              lambda: tgrids.border_mask(shape, True),
+              lambda: tinterp.cell_center_positions(shape)[0],
+              lambda: FluidNet(mconf).final.weight]
+    cpu_net = FluidNet(mconf, device=DEV)
+    assert cpu_net.final.weight.device.type == "cpu"
+    params = {"stages": [[{"conv": {"w": m.weight.detach().numpy(),
+                                    "b": m.bias.detach().numpy()}}]
+                         for m in cpu_net.stages],
+              "final": {"conv": {"w": cpu_net.final.weight.detach().numpy(),
+                                 "b": cpu_net.final.bias.detach().numpy()}}}
+    makers.append(lambda: from_jax_params(params, mconf).final.weight)
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
 
 
 # --- 4. ops/stencil --------------------------------------------------------
@@ -167,7 +195,7 @@ def test_interp_mac_and_positions(is3d):
         assert_close(getattr(tinterp, fn)(tt(u), is3d),
                      getattr(jinterp, fn)(jnp.asarray(u), is3d), RTOL,
                      ATOL, fn)
-    for a, b in zip(tinterp.cell_center_positions(u.shape),
+    for a, b in zip(tinterp.cell_center_positions(u.shape, device=DEV),
                     jinterp.cell_center_positions(u.shape)):
         assert_close(a, b, 0, 0)
 
@@ -236,11 +264,22 @@ def test_forces(is3d):
 
 
 def test_forces_batched_scales_raise():
+    """Per-sample (B, 3) gravity vectors and (B,) strengths: the plain
+    force ops take them as JAX does; the fused prologue still raises."""
     flags, u, rho, _ = _case(11, True)
-    with pytest.raises(NotImplementedError):
-        tforces.add_gravity(tt(u), tt(flags), np.zeros((1, 3)), 0.1)
-    with pytest.raises(NotImplementedError):
-        tforces.vorticity_confinement_xla(tt(u), tt(flags), np.ones(1))
+    b = u.shape[0]
+    g = np.linspace(-0.2, 0.1, 3 * b, dtype=np.float32).reshape(b, 3)
+    amp = np.linspace(0.3, 0.9, b, dtype=np.float32)
+    tf, jf, tu, ju = tt(flags), jnp.asarray(flags), tt(u), jnp.asarray(u)
+    assert_close(tforces.add_buoyancy(tu, tf, tt(rho), g, 0.1),
+                 jforces.add_buoyancy(ju, jf, jnp.asarray(rho), g, 0.1),
+                 RTOL, ATOL, "add_buoyancy, (B, 3)")
+    assert_close(tforces.add_gravity(tu, tf, g, 0.1),
+                 jforces.add_gravity(ju, jf, g, 0.1), RTOL, ATOL,
+                 "add_gravity, (B, 3)")
+    assert_close(tforces.vorticity_confinement_xla(tu, tf, amp),
+                 jforces.vorticity_confinement_xla(ju, jf, amp), RTOL, ATOL,
+                 "vorticity_confinement_xla, (B,)")
     with pytest.raises(NotImplementedError):
         tprologue.projection_prologue(tt(u), tt(flags), tt(rho),
                                       np.zeros(3), np.zeros(3),

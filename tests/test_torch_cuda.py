@@ -7,7 +7,9 @@ has no JAX, so run this file without the suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Both sides run the same float32 operations (the kernels are built with
--fmad=false), so the tolerance is 1e-5 of each field's largest value.
+-fmad=false), so the tolerance is 1e-5 of each field's largest value
+(PCG is plain PyTorch in both rollouts of a comparison; its index_add_
+sums use atomics, whose order moves the last bits).
 Batch 2 and odd extents exercise the kernels' indexing.
 """
 
@@ -18,6 +20,8 @@ import torch
 from fluidnet_tpu_torch.core.celltype import is_fluid
 from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
 from fluidnet_tpu_torch.ops.cuda import _build, forces_kernel, mac_sweep
+from fluidnet_tpu_torch.ops.forces import forces_block, forces_block_xla
+from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_cuda, jacobi_plain
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -32,14 +36,21 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _case(dev, seed=3):
-    rng = np.random.default_rng(seed)
-    flags = np.where(rng.random(SHAPE) < 0.15, 2, 1)
+def _flags(rng, shape):
+    """15% obstacles, an obstacle border (x/y only in 2-D), Stick and
+    Empty cells."""
+    flags = np.where(rng.random(shape) < 0.15, 2, 1)
     flags[..., 0, :] = flags[..., -1, :] = 2
     flags[..., :, 0] = flags[..., :, -1] = 2
-    flags[:, :, 0] = flags[:, :, -1] = 2
-    flags = np.where((flags == 1) & (rng.random(SHAPE) < 0.08), 128, flags)
-    flags = np.where((flags == 1) & (rng.random(SHAPE) < 0.05), 4, flags)
+    if shape[2] > 1:
+        flags[:, :, 0] = flags[:, :, -1] = 2
+    flags = np.where((flags == 1) & (rng.random(shape) < 0.08), 128, flags)
+    return np.where((flags == 1) & (rng.random(shape) < 0.05), 4, flags)
+
+
+def _case(dev, seed=3):
+    rng = np.random.default_rng(seed)
+    flags = _flags(rng, SHAPE)
     Z, X = SHAPE[2], SHAPE[4]
 
     def t(a):
@@ -97,6 +108,35 @@ def test_prologue_kernel_matches_plain(dev, with_bc):
     assert _build.launches["prologue"] == before + 1
 
 
+def test_forces_block_kernel_matches_plain(dev):
+    """K2's forces-block form (epi=False) against forces_block_xla, direct
+    and through the ops.forces.forces_block dispatch."""
+    c = _case(dev, 6)
+    args = (c["u"], c["flags"], c["s"], [0.01, -0.2, 0.03],
+            [0.0, -0.05, 0.02], 0.7, 0.1)
+    before = _build.launches["forces_block"]
+    ref = forces_block_xla(*args)
+    _close(forces_kernel.forces_block_cuda(*args), ref, "forces block")
+    _close(forces_block(*args), ref, "forces_block dispatch")
+    torch.cuda.synchronize()
+    assert _build.launches["forces_block"] == before + 2
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 9, 13, 17), (2, 1, 1, 13, 17)])
+def test_jacobi_kernel_matches_plain(dev, shape):
+    """K3 in 3-D and 2-D at 0, 1, 2 and 34 sweeps: one count per solve."""
+    rng = np.random.default_rng(8)
+    flags = torch.tensor(_flags(rng, shape).astype(np.int32), device=dev)
+    div = torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                       device=dev)
+    before = _build.launches["jacobi"]
+    for n in (0, 1, 2, 34):
+        _close(jacobi_cuda(flags, div, n), jacobi_plain(flags, div, n),
+               f"jacobi {n} sweeps")
+    torch.cuda.synchronize()
+    assert _build.launches["jacobi"] == before + 4
+
+
 def test_wrappers_reject_bad_arguments(dev):
     c = _case(dev)
     m = is_fluid(c["flags"]).to(torch.float32)
@@ -107,23 +147,43 @@ def test_wrappers_reject_bad_arguments(dev):
     with pytest.raises(ValueError):
         forces_kernel.prologue_cuda(c["u"].transpose(3, 4), c["flags"],
                                     c["s"], [0.0] * 3, [0.0] * 3, 0.0, 0.1)
+    with pytest.raises(ValueError):
+        forces_kernel.forces_block_cuda(c["u"], c["flags"].float(), c["s"],
+                                        [0.0] * 3, [0.0] * 3, 0.0, 0.1)
+    with pytest.raises(ValueError):
+        jacobi_cuda(c["flags"].float(), c["s"], 3)
 
 
-def test_rollout_kernels_match_plain(dev):
+# Launches per step of each projection: K1 twice, then K2's prologue
+# (ConvNet) or forces block (jacobi, PCG), K3 for jacobi and the polish.
+PROJECTIONS = {
+    "convnet": ({}, {"prologue": 1}),
+    "convnet_p8": (dict(polish_iters=8), {"prologue": 1, "jacobi": 1}),
+    "jacobi34": (dict(sim_method="jacobi", max_iter=34),
+                 {"forces_block": 1, "jacobi": 1}),
+    "pcg": (dict(sim_method="pcg", max_iter=100, pcg_tol=1e-4),
+            {"forces_block": 1}),
+}
+
+
+@pytest.mark.parametrize("name", list(PROJECTIONS))
+def test_rollout_kernels_match_plain(dev, name):
     """Batch-2 plume rollout: 3 steps with the kernels against 3 with the
-    plain versions, launch counters 2 x K1 and 1 x K2 per step."""
+    plain versions, and the launch counters of each projection."""
     from fluidnet_tpu_torch.core.config import ModelConfig
     from fluidnet_tpu_torch.core.grids import FluidState
     from fluidnet_tpu_torch.models.fluidnet import FluidNet
     from fluidnet_tpu_torch.sim.simulate import create_plume_bcs, rollout
 
+    kw, per_step = PROJECTIONS[name]
     torch.manual_seed(0)
     mconf = ModelConfig(is_3d=True, dt=0.1, buoyancy_scale=2.0,
                         vorticity_confinement_amp=3.0,
                         maccormack_strength=0.6,
                         advection_method="maccormackOurs",
-                        adaptive_window=False, advection_window=1)
-    model = FluidNet(mconf, device=dev)
+                        adaptive_window=False, advection_window=1, **kw)
+    model = FluidNet(mconf, device=dev) if \
+        mconf.sim_method == "convnet" else None
     c = _case(dev, 5)
     state = FluidState(u=c["u"] * 0.2, p=torch.zeros_like(c["s"]),
                        flags=c["flags"], density=c["s"])
@@ -131,8 +191,9 @@ def test_rollout_kernels_match_plain(dev):
     _build.launches.clear()
     kern = rollout(state, mconf, 3, model, bcs)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"mac_sweep_fwd": 3, "mac_sweep_bwd": 3,
-                                     "prologue": 3}
+    expect = {"mac_sweep_fwd": 3, "mac_sweep_bwd": 3}
+    expect.update({k: 3 * v for k, v in per_step.items()})
+    assert dict(_build.launches) == expect
     plain = rollout(state, mconf, 3, model, bcs, use_kernels=False)
-    for name in ("u", "p", "density"):
-        _close(getattr(kern, name), getattr(plain, name), name)
+    for field in ("u", "p", "density"):
+        _close(getattr(kern, field), getattr(plain, field), field)

@@ -38,7 +38,8 @@ from fluidnet_tpu_torch.models.fluidnet import FluidNet, from_jax_params
 from fluidnet_tpu_torch.utils.checkpoint import (load_mconf, load_params,
                                                  load_state)
 
-from tests.torch_port_util import assert_close, np_, random_flags, tt
+from tests.torch_port_util import (DEV, assert_close, np_, random_flags,
+                                   tt)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNDLED = os.path.join(REPO, "data", "models_bundled")
@@ -94,7 +95,7 @@ def test_fluidnet_matches_apply_model(dtype, model_type, precomputed):
         div = j_velocity_divergence(ju, jf)
     jp_out, ju_out = apply_model(params, jm, jnp.asarray(p), ju, jf,
                                  precomputed_div=div)
-    model = from_jax_params(_tree_np(params), tm)
+    model = from_jax_params(_tree_np(params), tm, device=DEV)
     with torch.no_grad():
         tp_out, tu_out = model(tt(p), tt(ju), tt(flags),
                                precomputed_div=None if div is None
@@ -154,7 +155,7 @@ def test_bundled_checkpoint_matches_jax_loader():
     p, u, flags = _inputs(41)
     jp_out, ju_out = apply_model(state.params, jm, jnp.asarray(p),
                                  jnp.asarray(u), jnp.asarray(flags))
-    model = FluidNet(tm).load_jax_params(ours)
+    model = FluidNet(tm, device=DEV).load_jax_params(ours)
     with torch.no_grad():
         tp_out, tu_out = model(tt(p), tt(u), tt(flags))
     _assert_trunk_close(tp_out, tu_out, np_(jp_out), np_(ju_out),
@@ -167,4 +168,4 @@ def test_bundled_checkpoint_matches_jax_loader():
                                 dict(add_batch_norm=True)])
 def test_unported_models_raise(kw):
     with pytest.raises(NotImplementedError):
-        FluidNet(ModelConfig(**{"is_3d": True, **kw}))
+        FluidNet(ModelConfig(**{"is_3d": True, **kw}), device=DEV)

@@ -1,5 +1,6 @@
-"""The whole ported slice against the JAX package: the 3-D ConvNet plume
-step (`simulate`) and its `rollout`.
+"""The whole ported slice against the JAX package: the 3-D plume step
+(`simulate`) and its `rollout`, with the ConvNet, the ConvNet plus Jacobi
+polish, jacobi-34 and PCG projections.
 
 Plume BCs, the bench's knobs (maccormackOurs, W=1, fixed window, dt 0.1,
 buoyancy 2.0, vorticity 3.0, MacCormack strength 0.6), a random-init
@@ -8,9 +9,10 @@ obstacles and a random initial velocity and density. The JAX side runs
 with FLUIDNET_FUSED_EPILOGUE=1 and FLUIDNET_FUSED_PROLOGUE=1 (the
 package's defaults, which tests/conftest.py turns off for the rest of the
 suite; the knobs are read at trace time), so both sides take the same
-fused path: K1 twice and K2 once per step. Tolerance: rtol 1e-4,
-atol 1e-5 (one step holds a float32 convnet, whose sums XLA:CPU and
-PyTorch order differently, plus the kernels' parity budgets).
+fused path: K1 twice per step, then K2's prologue (ConvNet) or its forces
+block (jacobi, PCG). Tolerance: rtol 1e-4, atol 1e-5 (one step holds a
+float32 convnet or a solver, whose sums XLA:CPU and PyTorch order
+differently, plus the kernels' parity budgets).
 """
 
 import numpy as np
@@ -33,7 +35,8 @@ from fluidnet_tpu_torch.models.fluidnet import from_jax_params
 from fluidnet_tpu_torch.sim.simulate import (create_plume_bcs, rollout,
                                              simulate)
 
-from tests.torch_port_util import assert_close, np_, random_flags, tt
+from tests.torch_port_util import (DEV, assert_close, np_, random_flags,
+                                   tt)
 
 RTOL, ATOL = 1e-4, 1e-5
 N = 16
@@ -68,7 +71,7 @@ def case():
         "tm": tm, "tstate": tstate,
         "tbcs": create_plume_bcs(tstate, [1.0], u_scale=0.6, rad=0.15),
         "tmodel": from_jax_params(jax.tree_util.tree_map(np.asarray, params),
-                                  tm),
+                                  tm, device=DEV),
     }
 
 
@@ -107,12 +110,47 @@ def test_rollout_three_steps(case, fused_knobs):
                          case["tbcs"]).u, ts.u, 0, 0, "save_every=0")
 
 
-@pytest.mark.parametrize("kw", [dict(sim_method="jacobi"),
-                                dict(sim_method="pcg"),
-                                dict(polish_iters=8),
-                                dict(adaptive_window=True,
-                                     advection_window=2)])
+# The certification projections of bench.py:184-195 and the hybrid.
+PROJECTIONS = {"jacobi34": dict(sim_method="jacobi", max_iter=34),
+               "pcg": dict(sim_method="pcg", max_iter=100, pcg_tol=1e-4),
+               "convnet_p8": dict(polish_iters=8)}
+
+
+@pytest.mark.parametrize("name", list(PROJECTIONS))
+def test_simulate_two_steps_projections(case, fused_knobs, name):
+    kw = PROJECTIONS[name]
+    jm, tm = case["jm"].replace(**kw), case["tm"].replace(**kw)
+    net = name.startswith("convnet")
+    js, ts = case["jstate"], case["tstate"]
+    for step in range(2):
+        js = j_simulate(js, jm, case["jmodel"] if net else None,
+                        case["params"] if net else None, case["jbcs"])
+        ts = simulate(ts, tm, case["tmodel"] if net else None, case["tbcs"])
+        assert torch.isfinite(ts.u).all()
+        _assert_state_close(ts, js, f"{name} step {step + 1}")
+
+
+@pytest.mark.parametrize("name", list(PROJECTIONS))
+def test_rollout_three_steps_projections(case, fused_knobs, name):
+    kw = PROJECTIONS[name]
+    jm, tm = case["jm"].replace(**kw), case["tm"].replace(**kw)
+    net = name.startswith("convnet")
+    js = j_rollout(case["jstate"], jm, 3, case["jmodel"] if net else None,
+                   case["params"] if net else None, case["jbcs"])
+    ts = rollout(case["tstate"], tm, 3, case["tmodel"] if net else None,
+                 case["tbcs"])
+    _assert_state_close(ts, js, f"{name} rollout")
+
+
+@pytest.mark.parametrize("kw", [dict(adaptive_window=True,
+                                     advection_window=2),
+                                dict(no_density=True)])
 def test_unported_branches_raise(case, kw):
+    """The adaptive advection window, and a step without density, which
+    needs the standalone vorticity confinement (K4)."""
+    state = case["tstate"]
+    if kw.pop("no_density", False):
+        state = state.replace(density=None)
     with pytest.raises(NotImplementedError):
-        simulate(case["tstate"], case["tm"].replace(**kw), case["tmodel"],
+        simulate(state, case["tm"].replace(**kw), case["tmodel"],
                  case["tbcs"])

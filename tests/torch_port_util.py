@@ -14,6 +14,10 @@ from tests import reference_impl as ref
 # oversubscribing the cores.
 torch.set_num_threads(2)
 
+# The port's constructors build on the CUDA device unless told otherwise;
+# the parity tests run on the CPU and say so.
+DEV = torch.device("cpu")
+
 
 def np_(x):
     """numpy view of a torch tensor or a JAX array."""
