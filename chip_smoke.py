@@ -3,45 +3,74 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths of the 3-D 128^3 plume that bench.py times for the
-JAX package (the ConvNet rollout and the jacobi-34 / PCG / ConvNet +
-Jacobi-polish certification rollouts) on the card, in five phases:
+Drives the port's paths on the card: the 3-D 128^3 plume that bench.py
+times for the JAX package (the ConvNet rollout and the jacobi-34 / PCG /
+ConvNet + Jacobi-polish certification rollouts), and the 2-D interactive
+demo server (cli/serve.py with the bundled m2d ConvNet at 128^2), in
+these phases:
 
   1. device: fails without CUDA; prints the card's name and power limit.
   2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
              at once, into build/kernels/) and prints the seconds it took
              and ptxas's registers and spills per kernel.
-  3. kernels vs plain: each kernel (K1 forward, K1 backward, K2 prologue,
-             K2 forces block, K3 Jacobi) against its plain PyTorch version
-             on the same CUDA inputs: on the 128^3 plume state after a few
-             steps, on a 1x37x45x61 grid with random obstacles, Stick and
-             Empty cells and slab BCs, and (K3) on a 2-D 2x1x45x61 grid.
-             Fails above 1e-5 of the field's largest value. Times both
-             versions at 128^3 with CUDA events (K3 at 34 sweeps).
-  4. slice:  the bundled checkpoint (data/models_bundled/m3d_v5_bestRollout,
+  3. kernels vs plain: each 3-D kernel (K1 forward, K1 backward, K2
+             prologue, K2 forces block, K3 Jacobi) against its plain
+             PyTorch version on the same CUDA inputs: on the 128^3 plume
+             state after a few steps, on a 1x37x45x61 grid with random
+             obstacles, Stick and Empty cells and slab BCs, and (K3) on a
+             2-D 2x1x45x61 grid. Fails above 1e-5 of the field's largest
+             value. Times both versions at 128^3 with CUDA events (K3 at 34
+             sweeps).
+  4. warp (K5) vs plain: every K5 call that one 2-D step makes, for each
+             advection method at windows 1 and 2, recorded on a 128^2 serve
+             plume after a few steps and on a random 2x1x1x45x61 grid with
+             15% obstacles and fast flow (positions past the borders),
+             replayed against the plain version; plus a 3-D 1x37x45x61
+             case, trilinear with min/max and nearest. Same limit. Times
+             the serve's forms at 128^2 and the G=1 F=1 min/max form at
+             128^3 beside torch grid_sample (timed, never used).
+  5. slice:  the bundled checkpoint (data/models_bundled/m3d_v5_bestRollout,
              read by the port's own reader) with bench.py's knobs on a
              128^3 plume: 30 warm-up steps, then 4 x 30 timed steps. The
              launch counters must show K1 twice and K2's prologue once per
              step; the final state must be finite. Then 8 steps with the
              kernels against 8 with the plain versions, from that state.
-  5. certification, as bench.py:168-195: from a fresh t = 0 plume, 150
+  6. certification, as bench.py:168-195: from a fresh t = 0 plume, 150
              steps each of jacobi-34, PCG (100 iterations, tol 1e-4) and
              the ConvNet with 8 Jacobi polish sweeps, each with its launch
              counters read on their own. Every final state must be finite
              and PCG's ||div||_2 below jacobi-34's. Then 8 jacobi-34 and 8
              ConvNet + p8 steps with the kernels against 8 of each with the
              plain versions, from the certification states.
+  7. serve:  DemoSim(res=128, model=m2d) on the card, its loop thread and
+             the HTTP server on 127.0.0.1: GET /, /frame.png (a 128x128 PNG
+             checked with zlib), /stats (frames advancing, fps > 0), POST
+             /splat and /toggle (200), a bad toggle (400). Then the toggles
+             sim_method=jacobi, advection=maccormack, euler and back, each
+             step's K5 launches (8, 20, 4 for maccormackOurs, maccormack,
+             euler) and K3's (once per jacobi step) counted; a strong splat
+             must force window 2, the calm plume window 1.
+  8. 2-D timing and certification with the serve's knobs on a fresh 128^2
+             plume: 30 warm-up and 4 x 30 timed steps; 150 steps each of the
+             ConvNet, jacobi-34 and PCG, finite, PCG's ||div||_2 below
+             jacobi-34's; 8 ConvNet and 8 jacobi-34 steps with the kernels
+             against 8 with the plain versions.
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}. Any failure
 raises: the exit code is then not 0 and no result line is printed.
 """
 
+
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -54,6 +83,8 @@ PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3 memory rate
 PEAK_F32_S = 67e12       # H100 SXM float32 outside the tensor cores
 BUNDLED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "models_bundled", "m3d_v5_bestRollout")
+M2D = os.path.join(os.path.dirname(BUNDLED), "m2d")
+RES2 = 128                      # the server's default resolution
 BENCH_KNOBS = dict(sim_method="convnet", dt=0.1, buoyancy_scale=2.0,
                    vorticity_confinement_amp=3.0, maccormack_strength=0.6,
                    advection_method="maccormackOurs", adaptive_window=False,
@@ -76,7 +107,22 @@ KERNELS = {
                      "fluidnet_tpu/ops/pallas/forces_kernel.py:219"),
     "jacobi": ("fluidnet_tpu_torch/csrc/jacobi.cu",
                "fluidnet_tpu/solvers/pallas_jacobi.py:35"),
+    "warp": ("fluidnet_tpu_torch/csrc/warp.cu",
+             "fluidnet_tpu/ops/pallas/warp.py:159"),
 }
+# K5's forms on the 2-D path, by (G, source channel counts, nearest,
+# minmax) of ops/warp.py::warp_group.
+WARP_FORMS = {(1, (1, 1, 1, 1, 1), False, (0, 1)): "five_sources",
+              (1, (1, 1, 1), False, False): "warp_fluid",
+              (2, (1,), False, True): "group_minmax",
+              (2, (1, 1), False, True): "group_two_sources",
+              (1, (1,), False, False): "trilinear_shared",
+              (2, (1,), False, False): "trilinear",
+              (1, (2,), True, False): "gather_cells_packed",
+              (1, (1,), True, False): "gather_cells_obstacle"}
+# K5 launches per 2-D step with RGB density, by advection method.
+SERVE_K5_PER_STEP = {"maccormackOurs": 8, "maccormack": 20, "euler": 4,
+                     "eulerOurs": 4}
 # Float operations per cell, counted from each kernel's source (adds,
 # multiplies, divisions, square roots, min/max; selects not counted).
 # K3 counts per active (interior, non-obstacle) cell and sweep: 5 adds, the
@@ -118,6 +164,22 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n, reps=5):
+    """Mean milliseconds of one fn() replayed from a CUDA graph of n
+    captured calls: the device time, without the host's cost of issuing
+    each call (which bounds a kernel of a few microseconds)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, reps) / n
 
 
 def bound(nbytes, flops):
@@ -177,19 +239,22 @@ def random_case(dev, seed=7):
     }
 
 
-def max_err(out, ref, what):
+def max_err(out, ref, what, quiet=False):
     """Per-channel max abs error; raises above TOL x the channel's largest
     value (the +-1e30 'no fluid corner' sentinels excluded from the
-    scale, not from the error)."""
+    scale, not from the error). `quiet` logs nothing."""
     worst = 0.0
     for c in range(ref.shape[1]):
         r, o = ref[:, c], out[:, c]
-        err = (o - r).abs().max().item()
+        # Equal values count as no error, +-inf (no corner in the window)
+        # included.
+        err = torch.where(o == r, 0.0, (o - r).abs()).max().item()
         finite = r.abs() < 1e29
         scale = max(r[finite].abs().max().item() if finite.any() else 0.0,
                     1.0)
-        log(f"  {what}[{c}]: max abs err {err:.3e} (field max {scale:.3e})"
-            f"{'; bit-identical' if torch.equal(o, r) else ''}")
+        if not quiet:
+            log(f"  {what}[{c}]: max abs err {err:.3e} (field max "
+                f"{scale:.3e}){'; bit-identical' if torch.equal(o, r) else ''}")
         if not err <= TOL * scale:
             raise AssertionError(f"{what} channel {c}: kernel vs plain max "
                                  f"abs err {err} > {TOL} x {scale}")
@@ -354,8 +419,14 @@ def kernels_vs_plain_rollout(state, mconf, model, bcs, what):
         torch.cuda.synchronize()
         log(f"{what}: 8 steps with {'kernels' if use_kernels else 'plain'}"
             f": {(time.perf_counter() - t0) / 8 * 1e3:.3f} ms/step")
+    compare_states(runs[True], runs[False], what)
+
+
+def compare_states(kern, plain, what):
+    """Fails above a relative L2 difference of 1e-4 between the states of
+    8 steps with the kernels and 8 with the plain versions."""
     for name in ("u", "p", "density"):
-        a, b = getattr(runs[True], name), getattr(runs[False], name)
+        a, b = getattr(kern, name), getattr(plain, name)
         rel = (torch.linalg.norm(a - b) /
                torch.linalg.norm(b).clamp_min(1e-30)).item()
         log(f"{what}: 8 steps kernels vs plain, relative L2 difference of "
@@ -426,6 +497,404 @@ def cert_phase(dev, mconf, model):
     return launches, divs
 
 
+def warp_form(call):
+    """The name of a recorded K5 call's form (WARP_FORMS)."""
+    fields, px, _, _, _, nearest, minmax = call
+    fs = fields if isinstance(fields, tuple) else (fields,)
+    key = (px.shape[1], tuple(f.shape[2] for f in fs), bool(nearest), minmax)
+    return WARP_FORMS.get(key, str(key))
+
+
+def record_warp_calls(fn):
+    """Runs fn() and returns the arguments of every K5 launch it made."""
+    from fluidnet_tpu_torch.ops import warp as warp_mod
+    real, calls = warp_mod.warp_group_cuda, []
+
+    def record(fields, px, py, pz, window, nearest=False, minmax=False):
+        calls.append((fields, px, py, pz, window, nearest, minmax))
+        return real(fields, px, py, pz, window, nearest, minmax)
+    warp_mod.warp_group_cuda = record
+    try:
+        fn()
+    finally:
+        warp_mod.warp_group_cuda = real
+    return calls
+
+
+def serve_sim(dev, **kw):
+    """A DemoSim on the card with the bundled m2d model (the server)."""
+    from fluidnet_tpu_torch.cli.serve import DemoSim
+    return DemoSim(res=RES2, model=M2D, device=dev, **kw)
+
+
+def serve_steps(state, mconf, model, bcs, n, consts, use_kernels=True):
+    """n steps with the server's step arguments (DemoSim.advance)."""
+    from fluidnet_tpu_torch.sim.simulate import simulate
+    net = model if mconf.sim_method == "convnet" else None
+    for _ in range(n):
+        state = simulate(state, mconf, net, bcs, use_kernels=use_kernels,
+                         dt=mconf.dt, buoyancy_scale=mconf.buoyancy_scale,
+                         vorticity_amp=mconf.vorticity_confinement_amp,
+                         consts=consts)
+    return state
+
+
+def random_2d_case(dev, mconf):
+    """2x1x1x45x61 with 15% obstacles, Stick and Empty cells, RGB density
+    and flow of ~3 cells a step: positions reach past the borders."""
+    from fluidnet_tpu_torch.core.grids import FluidState
+    rng = np.random.default_rng(21)
+    shape = (2, 1, 1, 45, 61)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    state = FluidState(u=t(rng.standard_normal((2, 2, 1, 45, 61)) * 30.0),
+                       p=t(np.zeros(shape)),
+                       flags=torch.tensor(random_flags(rng, shape),
+                                          device=dev),
+                       density=t(rng.random((2, 3, 1, 45, 61))))
+    return state
+
+
+def warp_3d_case(dev, shape, W, reach, seed):
+    """Random F=1 field and positions up to `reach` cells from the centres,
+    (b, 1, ...) groups."""
+    rng = np.random.default_rng(seed)
+    b, _, Z, Y, X = shape
+    field = torch.tensor(rng.standard_normal((b, 1, 1, Z, Y, X)).astype(
+        np.float32), device=dev)
+    pos = []
+    for n, axis in ((X, 4), (Y, 3), (Z, 2)):
+        base = np.arange(n).reshape([n if a == axis else 1
+                                     for a in range(5)]) + 0.5
+        d = rng.uniform(-reach, reach, (b, 1, Z, Y, X))
+        pos.append(torch.tensor((base + d).astype(np.float32), device=dev))
+    return field, pos
+
+
+def grid_sample_args(fields, px, py, pz):
+    """torch grid_sample's (input, grid) for the same interpolation:
+    normalized coordinates 2 p / n - 1 (align_corners=False), border
+    padding = BUILD_INDEX's clamp; groups become the batch."""
+    fs = fields if isinstance(fields, tuple) else (fields,)
+    b, G, _, Z, Y, X = fs[0].shape
+    src = torch.cat(fs, dim=2).reshape(b * G, -1, Z, Y, X)
+    gx, gy, gz = (2.0 * p / n - 1.0 for p, n in ((px, X), (py, Y), (pz, Z)))
+    if Z == 1:
+        return src[:, :, 0], torch.stack([gx, gy], -1).reshape(
+            b * G, Y, X, 2)
+    return src, torch.stack([gx, gy, gz], -1).reshape(b * G, Z, Y, X, 3)
+
+
+def warp_bound(call):
+    """(ms, what bounds it) of one K5 call: positions (2 in 2-D), the
+    source channels and the outputs once each; per cell ~5 flops an axis,
+    per corner a weight product, a multiply-add per accumulated channel
+    and the min/max."""
+    fields, px, _, _, _, nearest, minmax = call
+    fs = fields if isinstance(fields, tuple) else (fields,)
+    b, G, _, Z, Y, X = fs[0].shape
+    cells = b * G * Z * Y * X
+    F = sum(f.shape[2] for f in fs)
+    acc = F - (2 if isinstance(minmax, tuple) else 0)
+    axes = 3 if Z > 1 else 2
+    Fo = F + (2 if minmax else 0)
+    nb = 4 * cells * (axes + F + Fo)
+    corners = 1 if nearest else 2 ** axes
+    flops = cells * (5 * axes + corners * (1 + 2 * acc +
+                                           (2 if minmax else 0)))
+    return bound(nb, flops)
+
+
+def warp_phase(dev):
+    """K5 against its plain version on every call the 2-D path makes, and
+    its times. Returns (max error, times for the kernels line)."""
+    from fluidnet_tpu_torch.cli.demo2d import sphere_force_splat
+    from fluidnet_tpu_torch.ops.warp import warp_group, warp_group_plain
+    from fluidnet_tpu_torch.sim.simulate import FlagConsts
+
+    sim = serve_sim(dev)
+    state, bcs, consts = sim.state, sim.bcs, sim.consts
+    state = serve_steps(state, sim.mconf, sim.model, bcs, 10, consts)
+    state = sphere_force_splat(state, (60.0, 64.0), (20.0, 30.0), 12.8)
+    state = serve_steps(state, sim.mconf, sim.model, bcs, 2, consts)
+    cases = ((f"plume 1x1x1x{RES2}^2", state, sim.mconf, sim.model, bcs),
+             ("random 2x1x1x45x61", random_2d_case(dev, sim.mconf),
+              sim.mconf, sim.model, None))
+    worst, timed = 0.0, {}
+    for name, st, mconf, model, case_bcs in cases:
+        log(f"K5 vs plain on {name}:")
+        for method in SERVE_K5_PER_STEP:
+            for W in (1, 2):
+                m = mconf.replace(advection_method=method,
+                                  adaptive_window=False, advection_window=W)
+                calls = record_warp_calls(lambda: serve_steps(
+                    st, m, model, case_bcs, 1, FlagConsts()))
+                if len(calls) != SERVE_K5_PER_STEP[method]:
+                    raise AssertionError(f"{method}: {len(calls)} K5 calls "
+                                         f"in a step")
+                errs, same = [], True
+                for call in calls:
+                    what = f"K5 {method} W={W} {warp_form(call)}"
+                    ref = warp_group_plain(*call)
+                    out = warp_group(*call)
+                    torch.cuda.synchronize()
+                    errs.append(max_err(out.flatten(1, 2), ref.flatten(1, 2),
+                                        what, quiet=True))
+                    same = same and torch.equal(out, ref)
+                    if name.startswith("plume") and method == \
+                            "maccormackOurs" and W == 1:
+                        timed.setdefault(warp_form(call), call)
+                forms = sorted({warp_form(c) for c in calls})
+                log(f"  {method} W={W}: {len(calls)} calls ({', '.join(forms)})"
+                    f", max abs err {max(errs):.3e}"
+                    f"{'; bit-identical' if same else ''}")
+                worst = max([worst] + errs)
+    log("K5 vs plain on 3-D 1x37x45x61, W=1:")
+    for nearest, minmax in ((False, True), (True, False)):
+        field, (px, py, pz) = warp_3d_case(dev, (1, 1, 37, 45, 61), 1, 2.0,
+                                           23)
+        if nearest:
+            px, py, pz = (torch.floor(p) + 0.5 for p in (px, py, pz))
+        call = (field, px, py, pz, 1, nearest, minmax)
+        ref, out = warp_group_plain(*call), warp_group(*call)
+        torch.cuda.synchronize()
+        worst = max(worst, max_err(out.flatten(1, 2), ref.flatten(1, 2),
+                                   f"K5 3-D nearest={nearest} "
+                                   f"minmax={minmax}"))
+
+    # Times, in turns: plain, kernel, kernel, plain, each call issued from
+    # Python (CUDA events over n calls); then the kernel and grid_sample
+    # (the interpolation alone) replayed from CUDA graphs: their device
+    # times. The serve's forms (a) and (c) at 128^2, then the G=1 F=1
+    # min/max form at 128^3.
+    field, pos = warp_3d_case(dev, (1, 1, RES, RES, RES), 1, 0.999, 24)
+    runs = [(f"{RES2}^2 {form}", timed[form])
+            for form in ("five_sources", "group_minmax")]
+    runs.append((f"{RES}^3 G=1 F=1 minmax", (field, *pos, 1, False, True)))
+    times = {}
+    for what, call in runs:
+        fields, px, py, pz, W, nearest, minmax = call
+        fs = fields if isinstance(fields, tuple) else (fields,)
+        acc = tuple(f for i, f in enumerate(fs)
+                    if not (isinstance(minmax, tuple) and i in minmax))
+        inp, grid = grid_sample_args(acc if len(acc) > 1 else acc[0], px,
+                                     py, pz)
+        n = 200 if "^2" in what else 20
+        p1 = cuda_ms(lambda: warp_group_plain(*call), max(n // 10, 2))
+        k1 = cuda_ms(lambda: warp_group(*call), n)
+        k2 = cuda_ms(lambda: warp_group(*call), n)
+        p2 = cuda_ms(lambda: warp_group_plain(*call), max(n // 10, 2))
+        kg = graph_ms(lambda: warp_group(*call), 50)
+        lib = graph_ms(lambda: torch.nn.functional.grid_sample(
+            inp, grid, mode="bilinear", padding_mode="border",
+            align_corners=False), 50)
+        b_ms, b_by = warp_bound(call)
+        times[what] = (kg, (p1 + p2) / 2, b_ms, b_by, lib)
+        log(f"time K5 {what}: issued from Python, kernel {k1:.4f} / "
+            f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; from a CUDA graph, "
+            f"kernel {kg:.5f} ms, grid_sample {lib:.5f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by})")
+    return worst, times
+
+
+def check_counts(launches, n, per_step, what):
+    """The counters of one 2-D path's run: exactly per_step x n."""
+    expect = {k: v * n for k, v in per_step.items() if v}
+    log(f"{what}: launches {launches} in {n} steps")
+    if launches != expect:
+        raise AssertionError(f"{what}: launches {launches} in {n} steps, "
+                             f"expected {expect}")
+
+
+def png_size(data):
+    """(width, height) of an 8-bit RGB PNG, its chunks' CRCs and its pixel
+    data checked with zlib."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, size, idat = 8, None, b""
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        crc = int.from_bytes(data[pos + 8 + n:pos + 12 + n], "big")
+        if zlib.crc32(tag + body) & 0xffffffff != crc:
+            raise AssertionError(f"PNG chunk {tag} fails its CRC")
+        if tag == b"IHDR":
+            size = (int.from_bytes(body[:4], "big"),
+                    int.from_bytes(body[4:8], "big"))
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    if len(zlib.decompress(idat)) != h * (1 + 3 * w):
+        raise AssertionError("PNG pixel data has the wrong length")
+    return size
+
+
+def serve_phase(dev):
+    """The demo server on the card: its loop thread and HTTP endpoints,
+    then the toggles with each step's launches counted. Returns the
+    launches of the counted runs."""
+    from http.server import ThreadingHTTPServer
+    from fluidnet_tpu_torch.cli.serve import make_handler
+    from fluidnet_tpu_torch.ops.cuda import _build
+
+    sim = serve_sim(dev, target_fps=1e6)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(sim))
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    threads = [threading.Thread(target=srv.serve_forever, daemon=True),
+               threading.Thread(target=sim.loop, daemon=True)]
+    for t in threads:
+        t.start()
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=60).read()
+
+    def post(path):
+        req = urllib.request.Request(base + path, method="POST")
+        try:
+            return urllib.request.urlopen(req, timeout=60).status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    total = {}
+    try:
+        if b"fluidnet_tpu_torch" not in get("/"):
+            raise AssertionError("GET / does not serve the page")
+        time.sleep(1.0)
+        if png_size(get("/frame.png")) != (RES2, RES2):
+            raise AssertionError("GET /frame.png is not a 128x128 PNG")
+        s1 = json.loads(get("/stats"))
+        if post("/splat?x=0.5&y=0.3&fx=0.02&fy=-0.01") != 200 or \
+                post("/toggle?k=vorticity&v=cycle") != 200 or \
+                post("/toggle?k=vorticity&v=0") != 200:
+            raise AssertionError("POST /splat or /toggle refused")
+        if post("/toggle?k=bogus&v=1") != 400 or \
+                post("/toggle?k=dt&v=fast") != 400:
+            raise AssertionError("a bad toggle was not refused with 400")
+        time.sleep(1.0)
+        s2 = json.loads(get("/stats"))
+        log(f"serve: /stats {s1} -> {s2}")
+        if not (s2["frame"] > s1["frame"] and s2["fps"] > 0):
+            raise AssertionError("serve: the frame count does not advance")
+    finally:
+        sim.running = False
+        threads[1].join()
+
+    # The toggles, stepped on this thread, each step's launches counted
+    # and its advection window read from its first K5 call.
+    windows = {}
+    runs = [("calm plume", [], 20, {"warp": 8}),
+            ("strong splat", ["/splat?x=0.5&y=0.4&fx=0.5&fy=-0.3"], 6,
+             {"warp": 8}),
+            ("sim_method=jacobi", ["/toggle?k=sim_method&v=jacobi"], 10,
+             {"warp": 8, "jacobi": 1}),
+            ("convnet, advection=maccormack",
+             ["/toggle?k=sim_method&v=convnet",
+              "/toggle?k=advection&v=maccormack"], 10, {"warp": 20}),
+            ("advection=euler", ["/toggle?k=advection&v=euler"], 10,
+             {"warp": 4}),
+            ("advection=maccormackOurs",
+             ["/toggle?k=advection&v=maccormackOurs"], 10, {"warp": 8})]
+    try:
+        for what, posts, n, per_step in runs:
+            for path in posts:
+                if post(path) != 200:
+                    raise AssertionError(f"POST {path} refused")
+            torch.cuda.synchronize()
+            _build.launches.clear()
+            for _ in range(n):
+                W = record_warp_calls(sim.advance)[0][4]
+                windows[W] = windows.get(W, 0) + 1
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            check_counts(launches, n, per_step, f"serve {what}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            if not torch.isfinite(sim.state.u).all():
+                raise AssertionError(f"serve {what}: non-finite velocity")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    log(f"serve: steps by advection window {windows}")
+    if not (windows.get(1) and windows.get(2)):
+        raise AssertionError(f"serve: both adaptive windows must be taken, "
+                             f"got {windows}")
+    return total, windows
+
+
+def serve_cert_phase(dev):
+    """The server's step unthrottled on a fresh 128^2 plume: its time, then
+    150 steps of each projection, and kernels against plain versions."""
+    from fluidnet_tpu_torch.ops.cuda import _build
+    from fluidnet_tpu_torch.sim.simulate import FlagConsts
+
+    sim = serve_sim(dev)
+    mconf, model = sim.mconf, sim.model
+    total = {}
+
+    def counted(fn, per_step, n, what):
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        check_counts(launches, n, per_step, what)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    state, bcs, consts = sim.state, sim.bcs, sim.consts
+    torch.cuda.reset_peak_memory_stats()
+    state = counted(lambda: serve_steps(state, mconf, model, bcs, WARMUP,
+                                        consts), {"warp": 8}, WARMUP,
+                    "2-D serve warm-up")
+    rep_s = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = serve_steps(state, mconf, model, bcs, STEPS, consts)
+        torch.cuda.synchronize()
+        rep_s.append(time.perf_counter() - t0)
+    steps_per_s = STEPS * REPS / sum(rep_s)
+    log(f"2-D serve: per-rep seconds for {STEPS} steps: "
+        f"{[round(x, 4) for x in rep_s]}")
+    log(f"2-D serve: {steps_per_s:.2f} steps/s ({1e3 / steps_per_s:.3f} "
+        f"ms/step), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+    projections = {"convnet": (dict(sim_method="convnet"), {"warp": 8}),
+                   "jacobi34": (dict(sim_method="jacobi", max_iter=34),
+                                {"warp": 8, "jacobi": 1}),
+                   "pcg": (dict(sim_method="pcg", max_iter=100,
+                                pcg_tol=1e-4), {"warp": 8})}
+    divs, finals = {}, {}
+    for name, (kw, per_step) in projections.items():
+        m = mconf.replace(**kw)
+        fresh = serve_sim(dev)
+        consts = FlagConsts()
+        t0 = time.perf_counter()
+        st = counted(lambda: serve_steps(fresh.state, m, model, fresh.bcs,
+                                         CERT_STEPS, consts),
+                     per_step, CERT_STEPS, f"2-D {name}")
+        secs = time.perf_counter() - t0
+        log(f"2-D {name}: {CERT_STEPS} steps at {RES2}^2 in {secs:.3f} s "
+            f"({secs / CERT_STEPS * 1e3:.3f} ms/step)")
+        divs[name] = final_check(st, f"2-D {name}")
+        finals[name] = (st, m, fresh.bcs)
+    if not divs["pcg"] < divs["jacobi34"]:
+        raise AssertionError(f"2-D PCG ||div||_2 {divs['pcg']} is not below "
+                             f"jacobi-34's {divs['jacobi34']}")
+    for name in ("convnet", "jacobi34"):
+        st, m, b = finals[name]
+        runs = {}
+        for use_kernels in (True, False):
+            runs[use_kernels] = serve_steps(st, m, model, b, 8, FlagConsts(),
+                                            use_kernels)
+        compare_states(runs[True], runs[False], f"2-D {name}")
+    return total, steps_per_s, divs
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
@@ -448,11 +917,16 @@ def main():
         f"{mconf.conv_compute_dtype} trunk)")
 
     errs, times = kernels_phase(dev, mconf, model)
+    errs["warp"], warp_times = warp_phase(dev)
+    times["warp"] = warp_times[f"{RES2}^2 five_sources"]
     launches, steps_per_s, div_cnn = slice_phase(dev, mconf, model)
     cert_launches, divs = cert_phase(dev, mconf, model)
+    serve_launches, windows = serve_phase(dev)
+    cert2_launches, steps2_per_s, divs2 = serve_cert_phase(dev)
 
     total = dict(launches)
-    for per in cert_launches.values():
+    for per in list(cert_launches.values()) + [serve_launches,
+                                               cert2_launches]:
         for key, n in per.items():
             total[key] = total.get(key, 0) + n
     for key in KERNELS:
@@ -463,9 +937,17 @@ def main():
                 "replaces": rep, "launches": total[key],
                 "max_abs_err": errs[key], "ms": times[key][0],
                 "plain_ms": times[key][1], "bound_ms": times[key][2],
-                "bound_by": times[key][3], "library_ms": None}
+                "bound_by": times[key][3],
+                "library_ms": times[key][4] if len(times[key]) > 4 else None}
                for key, (src, rep) in KERNELS.items()]
     log(json.dumps({"steps_per_s": steps_per_s, "res": RES}))
+    log(json.dumps({"serve_2d_steps_per_s": steps2_per_s, "res": RES2,
+                    "serve_windows": windows,
+                    "final_div_l2_2d": divs2,
+                    "warp_times_ms": {k: {"ms": v[0], "plain_ms": v[1],
+                                          "bound_ms": v[2],
+                                          "library_ms": v[4]}
+                                      for k, v in warp_times.items()}}))
     log(json.dumps({"final_div_l2_convnet": div_cnn,
                     "final_div_l2_jacobi34": divs["jacobi34"],
                     "final_div_l2_pcg": divs["pcg"],

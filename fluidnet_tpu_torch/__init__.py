@@ -11,7 +11,9 @@ Ported so far: the 3-D plume rollout (`sim.simulate.rollout` with
 maccormackOurs advection) with the ConvNet projection (the fused
 projection prologue and the fast-trunk default/yang model, optionally
 followed by Jacobi polish sweeps) and with the Jacobi and PCG solvers
-(`solvers/`). Constructors build on the CUDA device unless given
+(`solvers/`); the 2-D step of the interactive demo (`cli/serve.py`,
+`cli/demo2d.py`: windowed advection on the warp kernel, the 2-D ConvNet,
+the adaptive window). Constructors build on the CUDA device unless given
 device="cpu". Layout, argument order and semantics follow the JAX
 package: every field is a 5-D (batch, channel, z, y, x) tensor.
 

@@ -63,12 +63,11 @@ def resolve_device(device=None) -> torch.device:
     """The device a constructor builds on: `device` if given, else the
     CUDA device. Without a CUDA device that raises RuntimeError: the port
     runs on the card unless the caller asks for the CPU (device="cpu")."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port builds on the GPU by "
                            "default; pass device='cpu' to build on the CPU")
-    return torch.device("cuda")
+    return device
 
 
 def border_mask(shape, is_3d: bool, bnd: int = 1,

@@ -1,23 +1,29 @@
 """The learned pressure-projection ConvNet.
 
-Port of fluidnet_tpu.models.fluidnet along its fast-trunk path
-(`_trunk_fast_ok`, fluidnet.py:278-304): the 3-D default and yang models
-(no banks, pooling, batch norm, upsampling, gates, low rank or pressure
-skip). Forward pass, like the reference (model.lua:27-401):
+Port of fluidnet_tpu.models.fluidnet for the default and yang models (no
+banks, pooling, batch norm, upsampling, gates, low rank or pressure skip),
+in 3-D along the fast trunk (`_trunk_fast_ok`, fluidnet.py:278-304) and in
+2-D along the generic stage path (fluidnet.py:561-613). Forward pass, like
+the reference (model.lua:27-401):
 
   input {pDiv, UDiv, flags}
   -> setWallBcs(UDiv), div = velocityDivergence(UDiv)  (or the prologue's)
   -> per-sample std scale s of UDiv (or pDiv / div)
   -> concat([pDiv,] [UDiv,] [div,] occupancy(flags))
   -> conv trunk (stride 1, same padding) + nonlinearity, 1-channel head
+     (2-D: on the input squeezed to (b, c, y, x), p unsqueezed after)
   -> U = velocityUpdate(p, UDiv, flags); p, U *= s; setWallBcs(U)
 
-The trunk runs in mconf.conv_compute_dtype. With bfloat16 it keeps the
-activations AND the bias add in bf16 between layers and upcasts once at
-the end, as the JAX trunk does (fluidnet.py:290-304, 236); the convs run
-channels_last_3d. The JAX z-fold is the same math in another summation
-order and is not ported. The conv trunk is cuDNN's (the JAX package left
-it to XLA too); the physics around it stays float32.
+The trunk runs in mconf.conv_compute_dtype and rounds where JAX rounds. The
+3-D fast trunk keeps the activations AND the bias add in bf16 between
+layers and upcasts once at the end (fluidnet.py:290-304, 236); its convs
+run channels_last_3d, and the JAX z-fold (the same math in another
+summation order) is not ported. The 2-D stage path casts each layer's
+input and weights to the compute dtype, convolves to that dtype, upcasts
+to float32 and adds the bias in float32, with the nonlinearity in float32
+between layers (`_conv`, fluidnet.py:190-195). The convolutions are
+cuDNN's (the JAX package left them to XLA too); the physics around them
+stays float32.
 """
 
 from __future__ import annotations
@@ -75,16 +81,17 @@ def num_input_channels(mconf: ModelConfig) -> int:
             1 + int(ic.div))
 
 
-def _check_fast_trunk(mconf, psize, usize):
-    """The JAX `_trunk_fast_ok` preconditions, the only trunk ported."""
-    if not (mconf.is_3d and mconf.banks_num == 1
+def _check_ported(mconf, psize, usize):
+    """The ported trunks: the JAX `_trunk_fast_ok` preconditions in 3-D,
+    and the same plain conv stack on the generic stage path in 2-D."""
+    if not (mconf.banks_num == 1
             and not mconf.add_batch_norm and not mconf.add_pressure_skip
             and all(p == 1 for p in psize) and all(u == 1 for u in usize)):
         raise NotImplementedError(
             f"model {mconf.model_type!r} (is_3d={mconf.is_3d}, banks, batch "
             f"norm, pressure skip, pooling or upsampling) is not ported yet: "
-            f"only the 3-D default/yang fast trunk is (ROADMAP queue 1, "
-            f"rest of models/fluidnet.py)")
+            f"only the default/yang conv stacks are (ROADMAP queue 1, rest "
+            f"of models/fluidnet.py)")
 
 
 def _nonlin(x, kind):
@@ -133,19 +140,20 @@ class FluidNet(nn.Module):
     def __init__(self, mconf: ModelConfig, device=None):
         super().__init__()
         osize, ksize, psize, usize = layer_spec(mconf)
-        _check_fast_trunk(mconf, psize, usize)
+        _check_ported(mconf, psize, usize)
         if mconf.conv_compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(mconf.conv_compute_dtype)
         device = resolve_device(device)
         self.mconf = mconf
         in_c = num_input_channels(mconf)
+        conv = nn.Conv3d if mconf.is_3d else nn.Conv2d
         self.stages = nn.ModuleList()
         for o, k in zip(osize[:-1], ksize[:-1]):
-            self.stages.append(nn.Conv3d(in_c, o, k, padding=k // 2,
-                                         device=device))
+            self.stages.append(conv(in_c, o, k, padding=k // 2,
+                                    device=device))
             in_c = o
-        self.final = nn.Conv3d(in_c, osize[-1], ksize[-1],
-                               padding=ksize[-1] // 2, device=device)
+        self.final = conv(in_c, osize[-1], ksize[-1], padding=ksize[-1] // 2,
+                          device=device)
 
     @property
     def compute_dtype(self):
@@ -155,14 +163,15 @@ class FluidNet(nn.Module):
     def load_jax_params(self, params):
         """Loads the JAX params pytree (numpy leaves):
         {"stages": [[{"conv": {"w", "b"}}], ...], "final": {"conv": ...}}.
-        `w` is (O, I, kz, ky, kx), already Conv3d's layout."""
+        `w` is (O, I, kz, ky, kx) or in 2-D (O, I, ky, kx), already
+        Conv3d's / Conv2d's layout."""
         convs = [st[0]["conv"] for st in params["stages"]] + \
             [params["final"]["conv"]]
         mods = list(self.stages) + [self.final]
         if len(convs) != len(mods) or any(len(st) != 1 or set(st[0]) !=
                                           {"conv"}
                                           for st in params["stages"]):
-            raise ValueError("params do not match the fast-trunk layout "
+            raise ValueError("params do not match the conv-stack layout "
                              f"of model {self.mconf.model_type!r}")
         with torch.no_grad():
             for mod, conv in zip(mods, convs):
@@ -176,7 +185,9 @@ class FluidNet(nn.Module):
         return self
 
     def trunk(self, x):
-        """Conv trunk in the compute dtype, one cast in and one out."""
+        """The conv trunk: the 3-D fast trunk, or in 2-D the stage path."""
+        if not self.mconf.is_3d:
+            return self._stages_2d(x[:, :, 0])[:, :, None]
         cdt = self.compute_dtype
         h = x.to(cdt).contiguous(memory_format=torch.channels_last_3d)
         mods = list(self.stages) + [self.final]
@@ -186,6 +197,20 @@ class FluidNet(nn.Module):
             if li < len(mods) - 1:
                 h = _nonlin(h, self.mconf.nonlin_type)
         return h.to(torch.float32).contiguous()
+
+    def _stages_2d(self, h):
+        """The generic stage path on (b, c, y, x): each conv from
+        compute-dtype operands to a compute-dtype result, then float32 and
+        the float32 bias; the nonlinearity in float32."""
+        cdt = self.compute_dtype
+        mods = list(self.stages) + [self.final]
+        for li, mod in enumerate(mods):
+            h = F.conv2d(h.to(cdt), mod.weight.to(cdt), None,
+                         padding=mod.padding)
+            h = h.to(torch.float32) + mod.bias.view(1, -1, 1, 1)
+            if li < len(mods) - 1:
+                h = _nonlin(h, self.mconf.nonlin_type)
+        return h
 
     def forward(self, p_div, u_div, flags, precomputed_div=None):
         mconf = self.mconf
@@ -218,3 +243,21 @@ def from_jax_params(params, mconf: ModelConfig, device=None) -> FluidNet:
     """A FluidNet holding the JAX params pytree (numpy leaves), on
     `device` (the CUDA device by default)."""
     return FluidNet(mconf, device=device).load_jax_params(params)
+
+
+def random_model(mconf: ModelConfig, seed: int = 0,
+                 device=None) -> FluidNet:
+    """A FluidNet with the torch default conv init the JAX package also
+    uses (`_init_conv`: weights and biases U(-s, s), s = 1 / sqrt(fan_in)),
+    drawn from an explicit CPU torch.Generator seeded `seed`, so the draw
+    does not depend on the device or the global RNG. (JAX's PRNG gives
+    other numbers from the same seed.)"""
+    net = FluidNet(mconf, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in list(net.stages) + [net.final]:
+            s = 1.0 / float(np.sqrt(mod.weight[0].numel()))
+            for t in (mod.weight, mod.bias):
+                draw = torch.rand(t.shape, generator=gen) * (2 * s) - s
+                t.copy_(draw)
+    return net

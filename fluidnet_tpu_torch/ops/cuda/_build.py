@@ -22,7 +22,7 @@ returns cudaGetLastError() — `check` raises if that is not 0.
 
 `launches` counts kernel launches by name; each wrapper adds one where it
 launches its kernel and nowhere else (K3 counts one per solve, whatever
-its number of sweeps).
+its number of sweeps; K5 one per warp call).
 """
 
 import collections
@@ -53,6 +53,9 @@ _SIGNATURES = {
     "fluidnet_prologue": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
     # div, flags, p0, p1, B, Z, Y, X, n_sweeps, stream
     "fluidnet_jacobi": [_P] * 4 + [_I] * 5 + [_P],
+    # srcs[], fs[], n_src, px, py, pz, out, B, G, Z, Y, X, window, nearest,
+    # minmax, cmin, cmax, skip_pair, stream
+    "fluidnet_warp": [_P, _P, _I] + [_P] * 4 + [_I] * 11 + [_P],
 }
 
 _lock = threading.Lock()

@@ -148,6 +148,17 @@ def vorticity_confinement_xla(u, flags, strength):
     return _add_force_field(u, flags, force, is_3d)
 
 
+def vorticity_confinement(u, flags, strength):
+    """Adds the vorticity-confinement force (tfluids.cc:1312-1458). 2-D, and
+    per-sample (B,) strengths, run vorticity_confinement_xla as in JAX; the
+    3-D form with a scalar strength is the TPU kernel K4, not ported yet."""
+    if check_shapes(u, flags) and torch.as_tensor(strength).dim() == 0:
+        raise NotImplementedError("the standalone 3-D vorticity confinement "
+                                  "(K4) is not ported yet (ROADMAP queue 1, "
+                                  "training slice)")
+    return vorticity_confinement_xla(u, flags, strength)
+
+
 def forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt):
     """The simulate() forces block as one composition: buoyancy -> gravity
     -> vorticity confinement (simulate.lua:216-239 ordering). Zero scales

@@ -27,8 +27,9 @@ def projection_prologue(u, flags, density, buoy_g, grav_g, amp, dt,
 
     CPU tensors run prologue_ref; CUDA tensors launch K2."""
     if u.shape[1] != 3:
-        raise NotImplementedError("the 2-D prologue is not ported yet "
-                                  "(ROADMAP queue 1, 2-D paths)")
+        raise NotImplementedError("the fused projection prologue is 3-D "
+                                  "only, as in JAX: a 2-D step runs the "
+                                  "unfused forces")
     if torch.as_tensor(buoy_g).dim() > 1 or \
             torch.as_tensor(grav_g).dim() > 1 or \
             torch.as_tensor(amp).dim() > 0:

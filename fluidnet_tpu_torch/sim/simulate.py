@@ -1,8 +1,9 @@
 """The time-integration loop: advect -> forces -> project.
 
-Port of the 3-D branches of fluidnet_tpu.sim.simulate with both fused
-knobs on (FLUIDNET_FUSED_EPILOGUE / FLUIDNET_FUSED_PROLOGUE default ON in
-the JAX package), mirroring simulate.lua:175-327. One step:
+Port of fluidnet_tpu.sim.simulate, mirroring simulate.lua:175-327.
+
+3-D, with both fused knobs on (FLUIDNET_FUSED_EPILOGUE /
+FLUIDNET_FUSED_PROLOGUE default ON in the JAX package), one step is:
 
   1. Chebyshev free space (constant flags: computed once per rollout)
   2. forward + backward MacCormack sweep (K1, 2 launches), final clamp
@@ -17,6 +18,17 @@ the JAX package), mirroring simulate.lua:175-327. One step:
      velocity update.
   4. slab BCs again, velocity clipped to +-1e6
 
+2-D (the interactive demo's step, any number of density channels):
+
+  1. the window: with adaptive_window, W = 1 when max|u| dt <= 1 - 1e-3,
+     else advection_window (one host read per step)
+  2. each density channel advected on its own, then the velocity, every
+     interpolation through the windowed warp (K5)
+  3. BCs; buoyancy, gravity and vorticity confinement unfused, in PyTorch
+  4. the projection: setWallBcs (solvers), BCs, then the ConvNet (plus
+     polish_iters Jacobi sweeps, K3), or jacobi (K3) / PCG with the
+     velocity update; BCs again, velocity clipped to +-1e6
+
 Inference only (torch.no_grad). The other branches of the JAX simulate()
 raise NotImplementedError naming the ROADMAP item that ports them.
 """
@@ -30,6 +42,7 @@ import torch
 
 from fluidnet_tpu_torch.core.config import ModelConfig
 from fluidnet_tpu_torch.core.grids import FluidState, get_dx
+from fluidnet_tpu_torch.ops.advect import advect_scalar, advect_vel
 from fluidnet_tpu_torch.ops.advect_fast import (advect_vel_scalar_fast,
                                                 chebyshev_free_space)
 from fluidnet_tpu_torch.ops.boundary import set_wall_bcs
@@ -37,7 +50,9 @@ from fluidnet_tpu_torch.ops.cuda.forces_kernel import slab
 from fluidnet_tpu_torch.ops.cuda.mac_sweep import (advect_sweep_fused_ep,
                                                    sweep_fused_ep_plain)
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
-from fluidnet_tpu_torch.ops.forces import forces_block, forces_block_xla
+from fluidnet_tpu_torch.ops.forces import (add_buoyancy, add_gravity,
+                                           forces_block, forces_block_xla,
+                                           vorticity_confinement)
 from fluidnet_tpu_torch.ops.prologue import (projection_prologue,
                                              prologue_ref)
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
@@ -119,65 +134,122 @@ def create_plume_bcs(state: FluidState, density_val, u_scale: float,
                       density_bc=d_bc, density_bc_inv_mask=d_inv)
 
 
-def _check_slice(state: FluidState, mconf: ModelConfig, model):
+@dataclasses.dataclass(frozen=True)
+class _Forces:
+    """dt and the force scales of one step: simulate()'s overrides, else
+    mconf's, with the JAX has_* logic (simulate.py:170-181): a force runs
+    when its override is given (a zero one is an exact no-op) or when
+    mconf's scale is positive."""
+    dt: object
+    b_scale: object
+    g_scale: object
+    v_amp: object
+    has_buoy: bool
+    has_grav: bool
+    has_vc: bool
+
+
+def _resolve_forces(state, mconf, dt, buoyancy_scale, gravity_scale,
+                    vorticity_amp):
+    return _Forces(
+        dt=mconf.dt if dt is None else dt,
+        b_scale=mconf.buoyancy_scale if buoyancy_scale is None
+        else buoyancy_scale,
+        g_scale=mconf.gravity_scale if gravity_scale is None
+        else gravity_scale,
+        v_amp=mconf.vorticity_confinement_amp if vorticity_amp is None
+        else vorticity_amp,
+        has_buoy=state.density is not None and (
+            buoyancy_scale is not None or mconf.buoyancy_scale > 0),
+        has_grav=gravity_scale is not None or mconf.gravity_scale > 0,
+        has_vc=vorticity_amp is not None or
+        mconf.vorticity_confinement_amp > 0)
+
+
+def _check_slice(state: FluidState, mconf: ModelConfig, model, forces):
     """Raises NotImplementedError for the simulate() branches not ported."""
-    if not state.is_3d:
-        raise NotImplementedError("2-D simulation is not ported yet "
-                                  "(ROADMAP queue 1, 2-D paths)")
     if mconf.sim_method not in ("convnet", "jacobi", "pcg"):
         raise ValueError(f"bad sim_method {mconf.sim_method}")
     if mconf.sim_method == "convnet" and model is None:
         raise ValueError("the convnet sim method needs a model")
+    if not mconf.advection_window:
+        raise NotImplementedError("the exact gather advection (window 0) is "
+                                  "not ported (ROADMAP queue 1, ops off the "
+                                  "main path)")
+    if not state.is_3d:
+        return
     if mconf.adaptive_window and mconf.advection_window > 1:
-        raise NotImplementedError("the adaptive advection window is not "
-                                  "ported yet (ROADMAP queue 1, ops off the "
-                                  "main path); set adaptive_window=False")
-    if state.density is None and mconf.vorticity_confinement_amp > 0:
+        raise NotImplementedError("the adaptive advection window in 3-D is "
+                                  "not ported yet (ROADMAP queue 1, ops off "
+                                  "the main path); set adaptive_window="
+                                  "False")
+    if state.density is None and forces.has_vc:
         raise NotImplementedError("a 3-D step without density runs the "
                                   "standalone vorticity confinement (K4), "
-                                  "not ported yet (ROADMAP queue 1, ops off "
-                                  "the main path)")
-    if state.density is None or state.density.shape[1] != 1:
-        raise NotImplementedError("the port advects exactly one density "
-                                  "channel (ROADMAP queue 1, unfused "
-                                  "advection)")
+                                  "not ported yet (ROADMAP queue 1, "
+                                  "training slice)")
+    if state.density is None or state.density.shape[1] != 1 or \
+            mconf.advection_method == "maccormack":
+        raise NotImplementedError("3-D advection is ported on the fused "
+                                  "sweep only: one density channel, "
+                                  "maccormackOurs / euler / eulerOurs "
+                                  "(ROADMAP queue 1, K1 unfused)")
 
 
 def simulate(state: FluidState, mconf: ModelConfig, model=None,
              bcs: Optional[Boundaries] = None,
-             use_kernels: bool = True) -> FluidState:
+             use_kernels: bool = True, dt=None, buoyancy_scale=None,
+             gravity_scale=None, vorticity_amp=None,
+             consts: Optional["FlagConsts"] = None) -> FluidState:
     """One simulation step with the projection mconf.sim_method: "convnet"
     (the ConvNet `model`, a models.fluidnet.FluidNet, plus mconf.
     polish_iters Jacobi sweeps), "jacobi" (mconf.max_iter fixed sweeps)
     or "pcg" (mconf.max_iter, mconf.pcg_tol); `model` may be None for the
     last two. `use_kernels=False` runs every kernel's plain PyTorch
     version instead, on whatever device the state lives: the reference
-    the kernels are checked against."""
-    _check_slice(state, mconf, model)
+    the kernels are checked against.
+
+    `dt`, `buoyancy_scale`, `gravity_scale` and `vorticity_amp` override
+    mconf's (floats or 0-d tensors); a given force runs even at zero, as
+    in JAX. `consts`: a FlagConsts reused across steps while the flags
+    stay the same (the interactive server keeps one); None computes the
+    flag-derived fields anew."""
+    forces = _resolve_forces(state, mconf, dt, buoyancy_scale,
+                             gravity_scale, vorticity_amp)
+    _check_slice(state, mconf, model, forces)
     with torch.no_grad():
-        return _step(state, mconf, model, bcs, _Consts(), use_kernels)
+        return _step(state, mconf, model, bcs,
+                     FlagConsts() if consts is None else consts,
+                     use_kernels, forces)
 
 
 @dataclasses.dataclass
-class _Consts:
+class FlagConsts:
     """Fields that depend on the flags alone, which do not change within
-    a rollout: computed at the first step that needs them."""
-    free_space: Optional[torch.Tensor] = None
+    a rollout: computed at the first step that needs them. free_space maps
+    the free-space cap (window + 1) to its field; labels are PCG's
+    connected components."""
+    free_space: dict = dataclasses.field(default_factory=dict)
     labels: Optional[torch.Tensor] = None
 
+    def free(self, flags, max_d: int):
+        if max_d not in self.free_space:
+            self.free_space[max_d] = chebyshev_free_space(flags, max_d)
+        return self.free_space[max_d]
 
-def _forces_config(mconf, dx):
-    """(buoy_g, grav_g, amp) of simulate.lua:216-239, on the host: the
-    kernels take them as launch arguments."""
+
+def _forces_config(mconf, dx, forces):
+    """(buoy_g, grav_g, amp) of simulate.lua:216-239, on the host: the 3-D
+    kernels take them as launch arguments, the 2-D force ops as tensors."""
     g_vec = torch.tensor([0.0, 1.0, 0.0] if mconf.gravity is None
                          else list(mconf.gravity), dtype=torch.float32)
     zero3 = torch.zeros(3)
-    buoy_g = g_vec * (-(dx / 4.0) * mconf.buoyancy_scale) \
-        if mconf.buoyancy_scale > 0 else zero3
-    grav_g = g_vec * (-(dx / 4.0) * mconf.gravity_scale) \
-        if mconf.gravity_scale > 0 else zero3
-    amp = torch.tensor(mconf.vorticity_confinement_amp) * dx \
-        if mconf.vorticity_confinement_amp > 0 else torch.zeros(())
+    buoy_g = g_vec * (-(dx / 4.0) * float(forces.b_scale)) \
+        if forces.has_buoy else zero3
+    grav_g = g_vec * (-(dx / 4.0) * float(forces.g_scale)) \
+        if forces.has_grav else zero3
+    amp = torch.tensor(float(forces.v_amp)) * dx if forces.has_vc \
+        else torch.zeros(())
     return buoy_g, grav_g, amp
 
 
@@ -189,32 +261,100 @@ def _fixed_jacobi(flags, div, n_sweeps, use_kernels):
     return jacobi_plain(flags, div, n_sweeps)
 
 
-def _step(state, mconf, model, bcs, consts, use_kernels):
-    dt = mconf.dt
+def _step(state, mconf, model, bcs, consts, use_kernels, forces):
+    if not state.is_3d:
+        return _step_2d(state, mconf, model, bcs, consts, use_kernels,
+                        forces)
+    dt = forces.dt
     u, flags, density = state.u, state.flags, state.density
     dx = get_dx(flags)
     W = mconf.advection_window
-    if consts.free_space is None and mconf.advection_method.endswith("Ours"):
-        consts.free_space = chebyshev_free_space(flags, W + 1)
+    free = consts.free(flags, W + 1) \
+        if mconf.advection_method.endswith("Ours") else None
 
     # 1.+2. Advection: density and all three MAC components, fused.
     density, u = advect_vel_scalar_fast(
         dt, density, u, flags, mconf.advection_method, False,
-        mconf.maccormack_strength, W, free=consts.free_space,
+        mconf.maccormack_strength, W, free=free,
         sweep=advect_sweep_fused_ep if use_kernels else sweep_fused_ep_plain)
-    buoy_g, grav_g, amp = _forces_config(mconf, dx)
+    buoy_g, grav_g, amp = _forces_config(mconf, dx, forces)
     state = state.replace(u=u, density=density)
     if mconf.sim_method == "convnet":
         state = _convnet_projection(state, mconf, model, bcs, buoy_g,
-                                    grav_g, amp, use_kernels)
+                                    grav_g, amp, dt, use_kernels)
     else:
+        has_forces = forces.has_buoy or forces.has_grav or forces.has_vc
         state = _solver_projection(state, mconf, bcs, consts, buoy_g, grav_g,
-                                   amp, use_kernels)
+                                   amp, dt, use_kernels, has_forces)
     state = apply_boundaries(state, bcs)
     return state.replace(u=state.u.clamp(-U_CLAMP, U_CLAMP))
 
 
-def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp,
+def _step_2d(state, mconf, model, bcs, consts, use_kernels, forces):
+    """The 2-D step (simulate.py:117-290 with 2-D shapes): per-channel and
+    velocity advection on K5, unfused forces, the projection."""
+    dt = forces.dt
+    u, flags, density = state.u, state.flags, state.density
+    plain = not use_kernels
+    W = mconf.advection_window
+    if mconf.adaptive_window and W > 1:
+        # The window only limits displacements: when the step's CFL
+        # number fits one cell, W = 1 is exact (simulate.py:155-164).
+        if bool(u.abs().max() * dt <= 1.0 - 1e-3):
+            W = 1
+    method = mconf.advection_method
+    free = consts.free(flags, W + 1) if method.endswith("Ours") else None
+
+    # 1.+2. Advection: each density channel, then the velocity (last,
+    # simulate.lua:183-199).
+    kw = dict(method=method, maccormack_strength=mconf.maccormack_strength,
+              window=W, free_space=free, plain=plain)
+    if density is not None:
+        density = torch.cat([
+            advect_scalar(dt, density[:, c:c + 1], u, flags,
+                          sample_outside_fluid=False, **kw)
+            for c in range(density.shape[1])], dim=1)
+    u = advect_vel(dt, u, flags, **kw)
+
+    # 3. External BCs; 4.-6. forces (simulate.py:233-241).
+    state = apply_boundaries(state.replace(u=u, density=density), bcs)
+    u, density = state.u, state.density
+    buoy_g, grav_g, amp = _forces_config(mconf, get_dx(flags), forces)
+    if forces.has_buoy:
+        u = add_buoyancy(u, flags, density[:, 0:1], buoy_g, dt)
+    if forces.has_grav:
+        u = add_gravity(u, flags, grav_g, dt)
+    if forces.has_vc:
+        u = vorticity_confinement(u, flags, amp)
+
+    # 7. Projection (simulate.py:248-290).
+    if mconf.sim_method != "convnet":
+        u = set_wall_bcs(u, flags)
+    state = apply_boundaries(state.replace(u=u), bcs)
+    u, p = state.u, state.p
+    if mconf.sim_method == "convnet":
+        p, u = model(p, u, flags)
+        if mconf.polish_iters > 0:
+            res_div = velocity_divergence(u, flags)
+            dp = _fixed_jacobi(flags, res_div, mconf.polish_iters,
+                               use_kernels)
+            u = velocity_update(u, flags, dp)
+            p = p + dp
+    else:
+        div = velocity_divergence(u, flags)
+        if mconf.sim_method == "pcg":
+            if consts.labels is None:
+                consts.labels = connected_components(flags)
+            p, _ = solve_pcg(flags, div, tol=mconf.pcg_tol,
+                             max_iter=mconf.max_iter, labels=consts.labels)
+        else:
+            p = _fixed_jacobi(flags, div, mconf.max_iter, use_kernels)
+        u = velocity_update(u, flags, p)
+    state = apply_boundaries(state.replace(u=u, p=p), bcs)
+    return state.replace(u=state.u.clamp(-U_CLAMP, U_CLAMP))
+
+
+def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp, dt,
                         use_kernels):
     """The fused ConvNet path: p/density slab BCs, K2's prologue, the
     ConvNet, the optional Jacobi polish. Returns the state before the
@@ -232,7 +372,7 @@ def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp,
     u_inv = bcs.u_bc_inv_mask if bcs is not None else None
     prologue = projection_prologue if use_kernels else prologue_ref
     u, div = prologue(state.u, flags, state.density[:, 0:1], buoy_g, grav_g,
-                      amp, mconf.dt, u_bc, u_inv)
+                      amp, float(dt), u_bc, u_inv)
 
     # The p/density slabs are idempotent masks, reapplied as the JAX step
     # does.
@@ -247,19 +387,18 @@ def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp,
     return state.replace(u=u, p=p)
 
 
-def _solver_projection(state, mconf, bcs, consts, buoy_g, grav_g, amp,
-                       use_kernels):
+def _solver_projection(state, mconf, bcs, consts, buoy_g, grav_g, amp, dt,
+                       use_kernels, has_forces):
     """The Jacobi / PCG path: full BCs, the forces block (K2's forces-block
     form), setWallBcs, BCs, divergence, solve, velocity update. Returns
     the state before the final BCs."""
     flags = state.flags
     state = apply_boundaries(state, bcs)
     u = state.u
-    if mconf.buoyancy_scale > 0 or mconf.gravity_scale > 0 or \
-            mconf.vorticity_confinement_amp > 0:
+    if has_forces:
         block = forces_block if use_kernels else forces_block_xla
         u = block(u, flags, state.density[:, 0:1], buoy_g, grav_g, amp,
-                  mconf.dt)
+                  float(dt))
     u = set_wall_bcs(u, flags)
     state = apply_boundaries(state.replace(u=u), bcs)
     u = state.u
@@ -287,12 +426,14 @@ def rollout(state: FluidState, mconf: ModelConfig, n_steps: int,
     if save_every > 1 and n_steps % save_every:
         raise ValueError(f"n_steps ({n_steps}) must be divisible by "
                          f"save_every ({save_every})")
-    _check_slice(state, mconf, model)
-    consts = _Consts()
+    forces = _resolve_forces(state, mconf, None, None, None, None)
+    _check_slice(state, mconf, model, forces)
+    consts = FlagConsts()
     frames = []
     with torch.no_grad():
         for i in range(n_steps):
-            state = _step(state, mconf, model, bcs, consts, use_kernels)
+            state = _step(state, mconf, model, bcs, consts, use_kernels,
+                          forces)
             if save_every and (i + 1) % save_every == 0:
                 frames.append(state.density)
     if save_every:

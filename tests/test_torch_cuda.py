@@ -21,6 +21,7 @@ from fluidnet_tpu_torch.core.celltype import is_fluid
 from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
 from fluidnet_tpu_torch.ops.cuda import _build, forces_kernel, mac_sweep
 from fluidnet_tpu_torch.ops.forces import forces_block, forces_block_xla
+from fluidnet_tpu_torch.ops.warp import warp_group, warp_group_plain
 from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_cuda, jacobi_plain
 
 pytestmark = pytest.mark.cuda
@@ -64,7 +65,9 @@ def _case(dev, seed=3):
 
 def _close(out, ref, what):
     scale = max(ref[ref.abs() < 1e29].abs().max().item(), 1.0)
-    err = (out - ref).abs().max().item()
+    # Equal values are no error, +-inf min/max (no corner in the window)
+    # included.
+    err = torch.where(out == ref, 0.0, (out - ref).abs()).max().item()
     assert err <= TOL * scale, f"{what}: max abs err {err} (scale {scale})"
 
 
@@ -194,6 +197,109 @@ def test_rollout_kernels_match_plain(dev, name):
     expect = {"mac_sweep_fwd": 3, "mac_sweep_bwd": 3}
     expect.update({k: 3 * v for k, v in per_step.items()})
     assert dict(_build.launches) == expect
+    plain = rollout(state, mconf, 3, model, bcs, use_kernels=False)
+    for field in ("u", "p", "density"):
+        _close(getattr(kern, field), getattr(plain, field), field)
+
+
+# K5: every form the 2-D advection launches (ops/advect_fast.py), by
+# (G, source channel counts, nearest, minmax).
+WARP_FORMS = {"five_sources": (1, (1, 1, 1, 1, 1), False, (0, 1)),
+              "warp_fluid": (1, (1, 1, 1), False, False),
+              "group_minmax": (2, (1,), False, True),
+              "group_two_sources": (2, (1, 1), False, True),
+              "trilinear_shared": (1, (1,), False, False),
+              "trilinear": (2, (1,), False, False),
+              "gather_cells": (1, (2,), True, False)}
+
+
+def _warp_case(dev, shape, G, Fs, W, seed):
+    """Sources with +-1e30 sentinels where flags are obstacles, positions up
+    to W + 1 cells from the centres (past both borders and the window)."""
+    rng = np.random.default_rng(seed)
+    b, _, Z, Y, X = shape
+    obst = rng.random((b, G, 1, Z, Y, X)) < 0.15
+    srcs = []
+    for i, F in enumerate(Fs):
+        a = rng.standard_normal((b, G, F, Z, Y, X))
+        if i < 2 and len(Fs) == 5:
+            a = np.where(obst, 1e30 if i == 0 else -1e30, a)
+        srcs.append(torch.tensor(a.astype(np.float32), device=dev))
+    pos = []
+    for n, axis in ((X, 4), (Y, 3), (Z, 2)):
+        base = np.arange(n).reshape([n if a == axis else 1
+                                     for a in range(5)]) + 0.5
+        d = rng.uniform(-W - 1, W + 1, (b, G, Z, Y, X)) if n > 1 else \
+            np.zeros((b, G, Z, Y, X))
+        pos.append(torch.tensor((base + d).astype(np.float32), device=dev))
+    return tuple(srcs) if len(srcs) > 1 else srcs[0], pos
+
+
+@pytest.mark.parametrize("shape,windows", [((2, 1, 1, 45, 61), (1, 2)),
+                                           ((1, 1, 9, 13, 17), (1, 2))])
+@pytest.mark.parametrize("form", list(WARP_FORMS))
+def test_warp_kernel_matches_plain(dev, form, shape, windows):
+    """K5 against warp_group_plain on the same CUDA inputs, 2-D and 3-D,
+    each launch counted once."""
+    G, Fs, nearest, minmax = WARP_FORMS[form]
+    before = _build.launches["warp"]
+    for W in windows:
+        fields, (px, py, pz) = _warp_case(dev, shape, G, Fs, W, 11 + W)
+        if nearest:
+            px, py, pz = (torch.floor(p) + 0.5 for p in (px, py, pz))
+        ref = warp_group_plain(fields, px, py, pz, W, nearest, minmax)
+        out = warp_group(fields, px, py, pz, W, nearest, minmax)
+        torch.cuda.synchronize()
+        _close(out, ref, f"{form} W={W}")
+    assert _build.launches["warp"] == before + len(windows)
+
+
+def test_warp_rejects_bad_arguments(dev):
+    fields, (px, py, pz) = _warp_case(dev, (1, 1, 1, 8, 9), 1, (1,), 1, 1)
+    with pytest.raises(ValueError):
+        warp_group(fields, px.transpose(3, 4).contiguous().transpose(3, 4),
+                   py, pz, 1)
+    with pytest.raises(ValueError):
+        warp_group(fields.double(), px, py, pz, 1)
+    with pytest.raises(ValueError):
+        warp_group(fields, px, py, pz, 1, nearest=True, minmax=True)
+    with pytest.raises(ValueError):
+        warp_group(fields.expand(1, 1, 9, 1, 8, 9).contiguous(), px, py, pz,
+                   1)
+
+
+# K5 launches per 2-D step with 3 density channels, by advection method.
+SERVE_K5_PER_STEP = {"maccormackOurs": 8, "maccormack": 20, "euler": 4,
+                     "eulerOurs": 4}
+
+
+@pytest.mark.parametrize("method", list(SERVE_K5_PER_STEP))
+def test_rollout_2d_kernels_match_plain(dev, method):
+    """The server's 2-D step (RGB density, adaptive window, buoyancy 1):
+    3 steps with the kernels against 3 with the plain versions, and K5's
+    launches per step."""
+    from fluidnet_tpu_torch.core.config import ModelConfig
+    from fluidnet_tpu_torch.core.grids import FluidState, empty_domain
+    from fluidnet_tpu_torch.models.fluidnet import random_model
+    from fluidnet_tpu_torch.sim.simulate import create_plume_bcs, rollout
+
+    torch.backends.cudnn.allow_tf32 = False
+    mconf = ModelConfig(is_3d=False, dt=0.1, buoyancy_scale=1.0,
+                        advection_method=method, conv_compute_dtype="float32")
+    model = random_model(mconf, 0, dev)
+    rng = np.random.default_rng(12)
+    shape = (1, 1, 1, 40, 40)
+    u = torch.tensor((rng.standard_normal((1, 2, 1, 40, 40)) * 6.0).astype(
+        np.float32), device=dev)
+    state = FluidState(u=u, p=torch.zeros(shape, device=dev),
+                       flags=empty_domain(shape, False, device=dev),
+                       density=torch.tensor(rng.random((1, 3, 1, 40, 40))
+                                            .astype(np.float32), device=dev))
+    bcs = create_plume_bcs(state, [1.0, 0.8, 0.3], u_scale=0.6, rad=0.15)
+    _build.launches.clear()
+    kern = rollout(state, mconf, 3, model, bcs)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"warp": 3 * SERVE_K5_PER_STEP[method]}
     plain = rollout(state, mconf, 3, model, bcs, use_kernels=False)
     for field in ("u", "p", "density"):
         _close(getattr(kern, field), getattr(plain, field), field)

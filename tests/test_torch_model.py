@@ -163,7 +163,7 @@ def test_bundled_checkpoint_matches_jax_loader():
 
 
 @pytest.mark.parametrize("kw", [dict(model_type="tog"),
-                                dict(is_3d=False),
+                                dict(is_3d=False, model_type="tog"),
                                 dict(banks_num=2),
                                 dict(add_batch_norm=True)])
 def test_unported_models_raise(kw):
