@@ -55,6 +55,29 @@ these phases:
              ConvNet, jacobi-34 and PCG, finite, PCG's ||div||_2 below
              jacobi-34's; 8 ConvNet and 8 jacobi-34 steps with the kernels
              against 8 with the plain versions.
+  9. training kernels vs plain: K1's unfused forms (both sweeps, with and
+             without the scalar and its renormalisation, ours or not), K6
+             (the sweep's own positions for u and the scalar, positions past
+             the window, nearest, W 1 and 2, a 2-D case) and K4 on random
+             6x64^3 (the training shape) and 1x128^3 grids with 15%
+             obstacles; fails above a max abs error of 1e-6. Times each at
+             both shapes, K6 beside grid_sample's input-gradient backward
+             (timed, never used).
+ 10. data:   the port's generate_dataset with gen3d_v5's settings at 64^3,
+             cut to 6 train and 2 test scenes of 16 frames (12 samples),
+             into build/smoke_train/; seconds and max PCG residual.
+ 11. train cli: cli/train.main with train3d_v5.sh's flags (the m3d_v5
+             recipe, batch 6) for 2 epochs with the horizon curriculum
+             [[0,2,4],[1,4,8]] and an 8-step rollout selection, then a
+             resume from '_lastEpoch' for a third: finite losses, the TSV
+             log, '_lastEpoch', '_bestRollout' and '_ema' written.
+ 12. train steps: train_step at n = 4 and n = 16 on a generated batch:
+             ms per step, peak memory, loss, grad_norm, rejected, and each
+             step's launches against train_launches(n); one step with
+             augment_without_targets launches K4 once.
+ 13. train grads: one loss_fn at n = 4 with the kernels against one with
+             every plain version (deterministic cuDNN): the loss and every
+             parameter's gradient within 1e-4 relative L2.
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}. Any failure
@@ -64,6 +87,7 @@ raises: the exit code is then not 0 and no result line is printed.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -84,6 +108,9 @@ PEAK_F32_S = 67e12       # H100 SXM float32 outside the tensor cores
 BUNDLED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "models_bundled", "m3d_v5_bestRollout")
 M2D = os.path.join(os.path.dirname(BUNDLED), "m2d")
+# The generated dataset and the CLI's models (removed at the end).
+TRAIN_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_train")
 RES2 = 128                      # the server's default resolution
 BENCH_KNOBS = dict(sim_method="convnet", dt=0.1, buoyancy_scale=2.0,
                    vorticity_confinement_amp=3.0, maccormack_strength=0.6,
@@ -109,6 +136,14 @@ KERNELS = {
                "fluidnet_tpu/solvers/pallas_jacobi.py:35"),
     "warp": ("fluidnet_tpu_torch/csrc/warp.cu",
              "fluidnet_tpu/ops/pallas/warp.py:159"),
+    "mac_sweep_unfused_fwd": ("fluidnet_tpu_torch/csrc/mac_sweep.cu",
+                              "fluidnet_tpu/ops/pallas/mac_sweep.py:57"),
+    "mac_sweep_unfused_bwd": ("fluidnet_tpu_torch/csrc/mac_sweep.cu",
+                              "fluidnet_tpu/ops/pallas/mac_sweep.py:57"),
+    "warp_transpose": ("fluidnet_tpu_torch/csrc/warp_transpose.cu",
+                       "fluidnet_tpu/ops/pallas/warp.py:364"),
+    "vorticity": ("fluidnet_tpu_torch/csrc/prologue.cu",
+                  "fluidnet_tpu/ops/pallas/forces_kernel.py:33"),
 }
 # K5's forms on the 2-D path, by (G, source channel counts, nearest,
 # minmax) of ops/warp.py::warp_group.
@@ -128,8 +163,51 @@ SERVE_K5_PER_STEP = {"maccormackOurs": 8, "maccormack": 20, "euler": 4,
 # K3 counts per active (interior, non-obstacle) cell and sweep: 5 adds, the
 # div add and one division in 3-D.
 FLOPS_PER_CELL = {"mac_sweep_fwd": 378, "mac_sweep_bwd": 378,
-                  "prologue": 81, "forces_block": 76}
+                  "prologue": 81, "forces_block": 76,
+                  "mac_sweep_unfused_fwd": 370, "mac_sweep_unfused_bwd": 354,
+                  "vorticity": 70}
 JACOBI_FLOPS_3D = 7
+# K6 per cell and field group: 3 axes' corner and weights (9) and, for each
+# of the 8 (source, target) pairs a trilinear source reaches, 3 weight
+# products and 4 for the term and its sum.
+WARP_T_FLOPS = 9 + 8 * 7
+TRAIN_RES, TRAIN_B = 64, 6      # gen3d_v5's grid, train3d_v5.sh's batch
+TRAIN_REPS = 3                  # timed train steps per horizon
+EXACT = 1e-6                    # the new kernels vs plain: max abs error
+GRAD_TOL = 1e-4                 # train grads, kernels vs plain: rel. L2
+# The flags of scripts/train3d_v5.sh (the m3d_v5 recipe), batch 6.
+RECIPE = ["-batch_size", "6", "-seed", "17", "-profile", "false",
+          "-rollout_select_steps", "8", "-ema_decay", "0.999",
+          "-horizon_schedule", "[[0,2,4],[1,4,8]]",
+          "-lr_epoch_mults", "[[16,0.5],[24,0.5],[30,0.5]]",
+          "-new_model.is_3d", "true",
+          "-new_model.advection_method", "maccormackOurs",
+          "-new_model.adaptive_window", "false",
+          "-new_model.advection_window", "1",
+          "-new_model.maccormack_strength", "0.75",
+          "-new_model.augment_without_targets", "false",
+          "-new_model.train_buoyancy_prob", "0.5",
+          "-new_model.train_buoyancy_scale", "2.0",
+          "-new_model.train_vorticity_confinement_prob", "0.3",
+          "-new_model.train_vorticity_confinement_amp", "3.0",
+          "-new_model.long_term_div_lambda", "1.0",
+          "-new_model.long_term_grad_mode", "full",
+          "-new_model.loss_div_lambda", "1.0",
+          "-new_model.loss_reject_threshold", "0.1",
+          "-new_model.optim.learning_rate", "0.0005"]
+
+
+def train_launches(n):
+    """Kernel launches of one 'full'-mode train_step at unroll horizon n:
+    K1 fused n forward + n - 1 recomputed per direction; K1 unfused and K6
+    (two per sweep) for the n - 1 steps whose input depends on the
+    parameters (the first step's does not, and autograd skips its
+    adjoint); K2's prologue 2(n - 1); its forces block once (the last,
+    output_div, step)."""
+    return {"mac_sweep_fwd": 2 * n - 1, "mac_sweep_bwd": 2 * n - 1,
+            "mac_sweep_unfused_fwd": n - 1, "mac_sweep_unfused_bwd": n - 1,
+            "warp_transpose": 4 * (n - 1), "prologue": 2 * (n - 1),
+            "forces_block": 1}
 
 
 def log(*a):
@@ -895,6 +973,332 @@ def serve_cert_phase(dev):
     return total, steps_per_s, divs
 
 
+# --- the training slice -----------------------------------------------------
+
+
+def max_abs(out, ref, what):
+    """Max abs error of a kernel's output against its plain version, equal
+    values (the +-1e30 'no fluid corner' sentinels included) counting 0;
+    raises above EXACT."""
+    err = torch.where(out == ref, 0.0, (out - ref).abs()).max().item()
+    log(f"  {what}: max abs err {err:.3e}"
+        f"{'; bit-identical' if torch.equal(out, ref) else ''}")
+    if not err <= EXACT:
+        raise AssertionError(f"{what}: kernel vs plain max abs err {err} > "
+                             f"{EXACT}")
+    return err
+
+
+def train_case(dev, b, res, seed):
+    """b x res^3 with 15% obstacles, Stick and Empty cells, a random
+    density and flow of up to ~1.5 cells a step at dt 0.1 (past the
+    W = 1 window)."""
+    from fluidnet_tpu_torch.core.celltype import is_fluid
+    from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
+    rng = np.random.default_rng(seed)
+    shape = (b, 1, res, res, res)
+    flags = torch.tensor(random_flags(rng, shape), device=dev)
+    return {"flags": flags,
+            "u": torch.tensor((rng.standard_normal((b, 3) + shape[2:]) * 5.0)
+                              .astype(np.float32), device=dev),
+            "s": torch.tensor(rng.random(shape).astype(np.float32),
+                              device=dev),
+            "m": is_fluid(flags).to(torch.float32),
+            "free": chebyshev_free_space(flags, 2)}
+
+
+def grid_sample_backward(g, px, py, pz):
+    """One PyTorch call for K6's function: grid_sample's input gradient
+    (trilinear, border padding, align_corners=False) at the same positions,
+    the groups as the batch. Returns a closure."""
+    b, G, F, Z, Y, X = g.shape
+    grid = torch.stack([2.0 * p / n - 1.0 for p, n in
+                        ((px, X), (py, Y), (pz, Z))], -1).reshape(
+        b * G, Z, Y, X, 3)
+    go = g.reshape(b * G, F, Z, Y, X)
+    inp = torch.zeros_like(go)       # its values do not enter the gradient
+    return lambda: torch.ops.aten.grid_sampler_3d_backward(
+        go, inp, grid, 0, 1, False, [True, False])
+
+
+def train_kernels_phase(dev):
+    """K1's unfused forms, K6 and K4 against their plain versions at the
+    training shapes (6 x 64^3) and K6's other forms (nearest, W = 2,
+    positions past the window, 2-D); then each timed at 6 x 64^3 and at
+    1 x 128^3 in turns (plain, kernel, kernel, plain) against its bound
+    and, for K6, grid_sample's backward. Returns (errors, times at the
+    training shape)."""
+    from fluidnet_tpu_torch.ops.cuda import mac_sweep
+    from fluidnet_tpu_torch.ops.cuda.forces_kernel import vorticity_cuda
+    from fluidnet_tpu_torch.ops.cuda.warp_transpose import (
+        warp_transpose_cuda, warp_transpose_plain)
+    from fluidnet_tpu_torch.ops.forces import vorticity_confinement_xla
+
+    dt, amp = 0.1, 3.0 / TRAIN_RES
+    errs = {"mac_sweep_unfused_fwd": 0.0, "mac_sweep_unfused_bwd": 0.0,
+            "warp_transpose": 0.0, "vorticity": 0.0}
+    times = {}
+    for b, res in ((TRAIN_B, TRAIN_RES), (1, RES)):
+        c = train_case(dev, b, res, 31 + b)
+        at = f"{b}x{res}^3"
+        log(f"training kernels vs plain on {at} (15% obstacles):")
+        calls = {}
+        fwd_s = None
+        for is_bwd, ours, with_scalar, renorm in (
+                (False, True, True, True), (True, True, True, True),
+                (False, False, True, False), (True, False, True, False),
+                (False, True, False, False), (True, False, False, False)):
+            fwd = None
+            if is_bwd:
+                fwd = mac_sweep.sweep_plain(c["u"], c["s"], c["m"], None,
+                                            None, c["free"], -dt, 1, ours,
+                                            True, renorm)
+                fwd_s = fwd[:, 9:10].contiguous() if with_scalar else None
+                fwd = fwd[:, 0:3].contiguous()
+            args = (c["u"], None if is_bwd else c["s"],
+                    c["m"] if with_scalar else None, fwd, fwd_s,
+                    c["free"] if ours else None, dt if is_bwd else -dt, 1,
+                    ours, with_scalar, renorm)
+            key = "mac_sweep_unfused_" + ("bwd" if is_bwd else "fwd")
+            ref = mac_sweep.sweep_plain(*args)
+            out = mac_sweep.sweep_cuda(*args)
+            torch.cuda.synchronize()
+            errs[key] = max(errs[key], max_abs(
+                out, ref, f"K1 unfused {'bwd' if is_bwd else 'fwd'} ours="
+                f"{ours} scalar={with_scalar} renorm={renorm} "
+                f"({ref.shape[1]} channels)"))
+            if ours and with_scalar and renorm:
+                calls[key] = (mac_sweep.sweep_plain, mac_sweep.sweep_cuda,
+                              args, nbytes(*args[:6], ref),
+                              FLOPS_PER_CELL[key] * c["m"].numel(), None)
+        # K6 at the sweep's own positions (u: G = 3, the scalar: G = 2),
+        # then nearest, W = 2 and positions past the window.
+        px, py, pz = mac_sweep.positions_for_vjp(c["u"], c["free"], -dt, 1,
+                                                 True)
+        rng = torch.Generator(device=dev).manual_seed(5)
+        g = torch.randn((b, 3, 1, res, res, res), device=dev, generator=rng)
+        cases = [("G=3 F=1 W=1 (u)", g, (px, py, pz), 1, False)]
+        cpx, cpy, cpz = mac_sweep.positions_for_vjp(
+            c["u"], c["free"], -dt, 1, True, center=True, m=c["m"])
+        cases.append(("G=2 F=1 W=1 (scalar)", g[:, :2].contiguous(),
+                      tuple(p.repeat(1, 2, 1, 1, 1) for p in (cpx, cpy, cpz)),
+                      1, False))
+        far = tuple((p + torch.randn(p.shape, device=dev, generator=rng) *
+                     1.5).contiguous() for p in (px, py, pz))
+        for W in (1, 2):
+            cases.append((f"G=3 W={W} past the window", g, far, W, False))
+            cases.append((f"G=3 W={W} nearest", g,
+                          tuple(torch.floor(p) + 0.5 for p in far), W, True))
+        if b == TRAIN_B:
+            g2 = torch.randn((b, 2, 2, 1, 128, 128), device=dev,
+                             generator=rng)
+            p2 = tuple((torch.rand((b, 2, 1, 128, 128), device=dev,
+                                   generator=rng) * 4 - 2 + base).contiguous()
+                       for base in (torch.arange(128, device=dev) + 0.5,
+                                    (torch.arange(128, device=dev) + 0.5)
+                                    [:, None], torch.full((1,), 0.5,
+                                                          device=dev)))
+            cases.append(("2-D G=2 F=2 W=1 past the window", g2, p2, 1,
+                          False))
+        for what, gg, pos, W, nearest in cases:
+            ref = warp_transpose_plain(gg, *pos, W, nearest)
+            out = warp_transpose_cuda(gg, *pos, W, nearest)
+            torch.cuda.synchronize()
+            errs["warp_transpose"] = max(errs["warp_transpose"], max_abs(
+                out, ref, f"K6 {what}"))
+        calls["warp_transpose"] = (
+            warp_transpose_plain, warp_transpose_cuda,
+            (g, px, py, pz, 1, False), nbytes(g, px, py, pz, g),
+            WARP_T_FLOPS * g.numel(), grid_sample_backward(g, px, py, pz))
+        va = (c["u"], c["flags"], amp)
+        errs["vorticity"] = max(errs["vorticity"], max_abs(
+            vorticity_cuda(*va), vorticity_confinement_xla(*va),
+            "K4 vorticity confinement"))
+        calls["vorticity"] = (vorticity_confinement_xla, vorticity_cuda, va,
+                              nbytes(c["u"], c["flags"], c["u"]),
+                              FLOPS_PER_CELL["vorticity"] * c["m"].numel(),
+                              None)
+        for key, (plain, kern, args, nb, flops, lib) in calls.items():
+            p1 = cuda_ms(lambda: plain(*args), 3)
+            k1 = cuda_ms(lambda: kern(*args), 20)
+            k2 = cuda_ms(lambda: kern(*args), 20)
+            p2 = cuda_ms(lambda: plain(*args), 3)
+            lib_ms = cuda_ms(lib, 20) if lib is not None else None
+            b_ms, b_by = bound(nb, flops)
+            if b == TRAIN_B:
+                times[key] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by,
+                              lib_ms)
+            log(f"time {key} at {at}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+                f"{p1:.4f} / {p2:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+                f"{nb / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)"
+                + (f"; grid_sample backward {lib_ms:.4f} ms"
+                   if lib_ms is not None else ""))
+    return errs, times
+
+
+def data_phase(dev, root):
+    """The port's generate_dataset at 64^3 with gen3d_v5's settings
+    (per-scene forces and plumes, PCG 300 iterations, every 8th frame,
+    6 scenes a batch), cut to 6 train and 2 test scenes of 16 frames."""
+    from fluidnet_tpu_torch.data.generate import generate_dataset
+    res = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_dataset(os.path.join(root, "gen3d"), n_tr=6, n_te=2, seed=29,
+                     scenes_per_batch=TRAIN_B,
+                     size_xyz=(TRAIN_RES,) * 3, is_3d=True, n_frames=16,
+                     save_every=8, max_iter=300, device=dev, residuals=res)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"data: 8 scenes x 16 frames at {TRAIN_RES}^3 in {secs:.3f} s, max "
+        f"PCG residual {max(res):.3e}")
+    if not np.isfinite(res).all():
+        raise AssertionError(f"data: non-finite PCG residual {res}")
+    return secs, max(res)
+
+
+def cli_phase(root):
+    """cli/train.main with train3d_v5.sh's flags for 2 epochs, then a resume
+    from '_lastEpoch' for a third. Returns the launches of both runs."""
+    from fluidnet_tpu_torch.cli.train import main as train_main
+    from fluidnet_tpu_torch.ops.cuda import _build
+    from fluidnet_tpu_torch.utils.logger import read_log
+
+    models = os.path.join(root, "models")
+    flags = RECIPE + ["-data_dir", root, "-dataset", "gen3d",
+                      "-model_dir", models, "-model_filename", "m3d"]
+    launches = {}
+    for epochs, resume in ((2, "false"), (3, "true")):
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        state, _ = train_main(flags + ["-max_epochs", str(epochs),
+                                       "-load_model", resume,
+                                       "-resume_training", resume])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for k, v in _build.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        _, rows = read_log(os.path.join(models, "m3d_log.tsv"))
+        log(f"train cli: {'resumed to ' if resume == 'true' else ''}"
+            f"{epochs} epochs in {secs:.3f} s, {state.step} steps, "
+            f"launches {dict(_build.launches)}")
+        log(f"train cli: log rows (epoch, tr_loss, .., te_loss, ..) "
+            f"{rows}")
+        if len(rows) != epochs or [r[0] for r in rows] != \
+                list(range(epochs)) or not np.isfinite(rows).all():
+            raise AssertionError(f"train cli: log rows {rows}")
+    for d in ("m3d_lastEpoch", "m3d_bestRollout", "m3d_ema"):
+        if not os.path.isfile(os.path.join(models, d, "mconf.json")):
+            raise AssertionError(f"train cli: {d} was not written")
+    return launches
+
+
+def train_batch(dev, root):
+    """The first 6-sample batch of the generated training set, on the
+    device."""
+    from fluidnet_tpu_torch.data.dataset import DeviceDataset, FluidDataset
+    ds = FluidDataset(root, "gen3d", "tr")
+    loader = DeviceDataset(ds, TRAIN_B, dev,
+                           keys=("p_div", "u_div", "flags", "density"),
+                           shuffle=False)
+    return loader.batch(next(loader.epoch_indices()))
+
+
+def recipe_mconf():
+    from fluidnet_tpu_torch.core.config import default_conf, parse_args
+    return parse_args(default_conf(), RECIPE).new_model
+
+
+def train_steps_phase(dev, batch):
+    """train_step at n = 4 and n = 16 from a fresh model on one batch:
+    ms per step over TRAIN_REPS single steps, peak memory, the loss
+    terms and each step's launches against train_launches(n); then one
+    step with augment_without_targets (K4 once more)."""
+    from fluidnet_tpu_torch.ops.cuda import _build
+    from fluidnet_tpu_torch.train.train import init_train_state, train_step
+    mconf = recipe_mconf()
+    launches, per_n = {}, {}
+
+    def step(state, m, n):
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        state, terms = train_step(state, batch,
+                                  torch.Generator().manual_seed(state.step),
+                                  m, n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(_build.launches)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return state, terms, ms, got
+
+    for n in (4, 16):
+        state = init_train_state(17, mconf, dev)
+        state = step(state, mconf, n)[0]          # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        reps = []
+        for _ in range(TRAIN_REPS):
+            state, terms, ms, got = step(state, mconf, n)
+            reps.append(ms)
+            if got != train_launches(n):
+                raise AssertionError(f"train step n={n}: launches {got}, "
+                                     f"expected {train_launches(n)}")
+            vals = {k: float(v) for k, v in terms.items()}
+            if not all(np.isfinite(list(vals.values()))):
+                raise AssertionError(f"train step n={n}: terms {vals}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_n[n] = (sorted(reps)[len(reps) // 2], reps, peak)
+        log(f"train step n={n} at {TRAIN_B}x{TRAIN_RES}^3: median "
+            f"{per_n[n][0]:.3f} ms/step, reps {[round(r, 3) for r in reps]}"
+            f" ms; peak memory {peak:.3f} GiB; last step loss "
+            f"{vals['total']:.6e}, grad_norm {vals['grad_norm']:.6e}, "
+            f"rejected {vals['rejected']:.0f}; launches/step {got}")
+    aug = mconf.replace(augment_without_targets=True)
+    state, terms, ms, got = step(init_train_state(17, aug, dev), aug, 4)
+    want = dict(train_launches(4), vorticity=1)
+    log(f"train step n=4 with augment_without_targets: {ms:.3f} ms, "
+        f"launches {got}")
+    if got != want:
+        raise AssertionError(f"augmented train step: launches {got}, "
+                             f"expected {want}")
+    return launches, per_n
+
+
+def train_grad_phase(dev, batch):
+    """One loss_fn at n = 4 with the kernels against one with every plain
+    version (deterministic cuDNN, the recipe's bf16 convolutions, every
+    force on): relative L2 difference of the loss and of each parameter's
+    gradient, each at most GRAD_TOL."""
+    from fluidnet_tpu_torch.train.train import draw, init_train_state, loss_fn
+    torch.backends.cudnn.deterministic = True
+    mconf = recipe_mconf()
+    model = init_train_state(17, mconf, dev).model
+    draws = draw(torch.Generator().manual_seed(4), mconf)._replace(
+        b_scale=torch.tensor(2.0), g_scale=torch.tensor(0.0),
+        v_amp=torch.tensor(3.0))
+    res = {}
+    for use_kernels in (True, False):
+        total, _ = loss_fn(model, batch, None, mconf, 4, draws=draws,
+                           use_kernels=use_kernels)
+        grads = torch.autograd.grad(total, list(model.parameters()))
+        torch.cuda.synchronize()
+        res[use_kernels] = [total.detach()] + list(grads)
+    torch.backends.cudnn.deterministic = False
+    names = ["loss"] + [k for k, _ in model.named_parameters()]
+    worst = 0.0
+    for name, a, b in zip(names, res[True], res[False]):
+        rel = (torch.linalg.norm((a - b).float()) /
+               torch.linalg.norm(b.float()).clamp_min(1e-30)).item()
+        log(f"train grads n=4 kernels vs plain: {name}: relative L2 "
+            f"{rel:.3e}")
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"train grads: {name} differs by {rel}")
+        worst = max(worst, rel)
+    return worst
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
@@ -924,9 +1328,23 @@ def main():
     serve_launches, windows = serve_phase(dev)
     cert2_launches, steps2_per_s, divs2 = serve_cert_phase(dev)
 
+    train_errs, train_times = train_kernels_phase(dev)
+    errs.update(train_errs)
+    times.update(train_times)
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    try:
+        data_s, data_res = data_phase(dev, TRAIN_ROOT)
+        cli_launches = cli_phase(TRAIN_ROOT)
+        batch = train_batch(dev, TRAIN_ROOT)
+    finally:
+        shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    step_launches, per_n = train_steps_phase(dev, batch)
+    grad_rel = train_grad_phase(dev, batch)
+
     total = dict(launches)
     for per in list(cert_launches.values()) + [serve_launches,
-                                               cert2_launches]:
+                                               cert2_launches, cli_launches,
+                                               step_launches]:
         for key, n in per.items():
             total[key] = total.get(key, 0) + n
     for key in KERNELS:
@@ -954,6 +1372,14 @@ def main():
                     "final_div_l2_convnet_p8": divs["convnet_p8"],
                     "residual_ok": bool(div_cnn <= divs["jacobi34"]),
                     "steps": CERT_STEPS}))
+    log(json.dumps({"train_shape": [TRAIN_B, TRAIN_RES, TRAIN_RES,
+                                    TRAIN_RES],
+                    "train_step_ms": {n: v[0] for n, v in per_n.items()},
+                    "train_step_reps_ms": {n: v[1] for n, v in per_n.items()},
+                    "train_peak_gib": {n: v[2] for n, v in per_n.items()},
+                    "train_grad_rel_l2_max": grad_rel,
+                    "data_gen_s": data_s, "data_max_pcg_residual": data_res,
+                    "train_cli_launches": cli_launches}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

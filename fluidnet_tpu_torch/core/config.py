@@ -1,14 +1,19 @@
-"""The model-owned configuration (the reference's `mconf`).
+"""Configuration: the conf / mconf split of the reference.
 
-Port of the ModelConfig / InputChannels / OptimConfig dataclasses of
-fluidnet_tpu.core.config: the same field names, order and defaults, so a
-`mconf.json` written by either package loads in the other. Pure Python (no
+Port of fluidnet_tpu.core.config: `ModelConfig` (with InputChannels and
+OptimConfig) is the model-owned config persisted with checkpoints (the
+reference's `mconf`), `Config` the training-harness config (its `conf`,
+default_conf.lua:22-162). The same field names, order and defaults, so a
+`mconf.json` written by either package loads in the other, and the same
+command-line overrides (`parse_args`, parse_args.lua: `--a.b.c value` for
+any nested scalar, with the reference's camelCase aliases). Pure Python (no
 torch), frozen and hashable.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Tuple
 
 
@@ -103,6 +108,135 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The reference conf (default_conf.lua:22-162). See
+    fluidnet_tpu.core.config.Config for what each field does. The port
+    adds `device`: where training runs, the CUDA device unless "cpu" is
+    asked for."""
+    batch_size: int = 16
+    data_dir: str = "data/datasets"
+    dataset: str = "gen2d_default"
+    eval_during_training: bool = True
+    ignore_frames: int = 0
+    load_model: bool = False
+    max_epochs: int = 5000
+    max_samples_per_epoch: int = 0         # 0 == unlimited (lua math.huge)
+    model_dir: str = "data/models"
+    model_filename: str = "conv_model"
+    num_data_threads: int = 8
+    device_data_cache: bool = True
+    device_data_cache_max_gb: float = 8.0
+    epoch_scan: bool = True
+    profile: bool = True
+    resume_training: bool = False
+    rollout_select_steps: int = 24
+    train: bool = True
+    seed: int = 1
+    lr_epoch_mults: Tuple[Tuple[int, float], ...] = ()
+    ema_decay: float = 0.0
+    horizon_schedule: Tuple[Tuple[int, int, int], ...] = ()
+    max_host_rss_gb: float = 0.0
+    max_wall_s: float = 0.0
+    new_model: ModelConfig = ModelConfig()
+    device: str = "cuda"
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+# --- CLI overrides (parse_args.lua equivalent) -------------------------------
+
+_SNAKE = {
+    # The reference's camelCase flag names, accepted as aliases.
+    "batchSize": "batch_size", "dataDir": "data_dir",
+    "modelDir": "model_dir", "modelFilename": "model_filename",
+    "loadModel": "load_model", "resumeTraining": "resume_training",
+    "maxEpochs": "max_epochs", "numDataThreads": "num_data_threads",
+    "newModel": "new_model", "advectionMethod": "advection_method",
+    "maccormackStrength": "maccormack_strength",
+    "buoyancyScale": "buoyancy_scale", "gravityScale": "gravity_scale",
+    "vorticityConfinementAmp": "vorticity_confinement_amp",
+    "simMethod": "sim_method", "maxIter": "max_iter", "pTol": "pcg_tol",
+    "modelType": "model_type", "addBatchNorm": "add_batch_norm",
+    "addPressureSkip": "add_pressure_skip", "nonlinType": "nonlin_type",
+    "poolType": "pool_type", "normalizeInput": "normalize_input",
+    "banksNum": "banks_num", "banksSplitStage": "banks_split_stage",
+    "banksJoinStage": "banks_join_stage", "banksType": "banks_type",
+    "banksAggregateMethod": "banks_aggregate_method",
+    "banksWeightShare": "banks_weight_share",
+    "lossPLambda": "loss_p_lambda", "lossULambda": "loss_u_lambda",
+    "lossDivLambda": "loss_div_lambda",
+    "longTermDivLambda": "long_term_div_lambda",
+    "longTermDivProbability": "long_term_div_probability",
+    "timeScaleSigma": "time_scale_sigma",
+    "trainTargetSource": "train_target_source",
+    "gradNormThreshold": "grad_norm_threshold",
+    "inputChannels": "input_channels", "pDiv": "p_div", "UDiv": "u_div",
+}
+
+
+def _parse_value(old, raw: str):
+    """Typed parse against the existing field value (parse_args.lua:82-201
+    does the same type checking)."""
+    if isinstance(old, bool):
+        if raw.lower() in ("true", "1", "yes"):
+            return True
+        if raw.lower() in ("false", "0", "no"):
+            return False
+        raise ValueError(f"expected bool, got {raw!r}")
+    if isinstance(old, int):
+        return int(raw)
+    if isinstance(old, float):
+        return float(raw)
+    if isinstance(old, str):
+        return raw
+    if isinstance(old, tuple) or old is None:
+        return tuple(json.loads(raw)) if raw.startswith("[") \
+            else json.loads(raw)
+    raise ValueError(f"cannot override field of type {type(old)}")
+
+
+def _set_path(obj, path, raw):
+    head = _SNAKE.get(path[0], path[0])
+    if not hasattr(obj, head):
+        raise KeyError(f"unknown config field: {head}")
+    old = getattr(obj, head)
+    if len(path) == 1:
+        return dataclasses.replace(obj, **{head: _parse_value(old, raw)})
+    return dataclasses.replace(obj, **{head: _set_path(old, path[1:], raw)})
+
+
+def parse_args(conf: Config, argv) -> Config:
+    """Applies `--a.b.c value` (or `-a.b.c value`) overrides to conf, type
+    checked against the defaults (torch.parseArgs, parse_args.lua)."""
+    i = 0
+    argv = list(argv)
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith("-"):
+            raise ValueError(f"expected -key, got {arg!r}")
+        key = arg.lstrip("-")
+        if key in ("help", "h"):
+            print(json.dumps(to_dict(conf), indent=2))
+            raise SystemExit(0)
+        if i + 1 >= len(argv):
+            raise ValueError(f"missing value for {arg}")
+        conf = _set_path(conf, key.split("."), argv[i + 1])
+        i += 2
+    return conf
+
+
+def save_parameters(conf: Config, path: str):
+    """Human-readable conf dump (save_parameters.lua:69 equivalent)."""
+    with open(path, "w") as f:
+        json.dump(to_dict(conf), f, indent=2, sort_keys=True)
+
+
+def default_conf() -> Config:
+    return Config()
 
 
 def from_dict(d) -> ModelConfig:

@@ -9,6 +9,7 @@ cell centers sit at integer + 0.5.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -73,9 +74,15 @@ def resolve_device(device=None) -> torch.device:
 def border_mask(shape, is_3d: bool, bnd: int = 1,
                 device=None) -> torch.Tensor:
     """Boolean (1, 1, z, y, x) mask, True on the `bnd`-wide domain border
-    (the z border only in 3-D). Built on resolve_device(device)."""
-    device = resolve_device(device)
-    z, y, x = shape[-3], shape[-2], shape[-1]
+    (the z border only in 3-D). Built on resolve_device(device), once per
+    shape and device: the mask is a read-only expanded view, so each step
+    reuses it instead of issuing its ops again."""
+    return _border_mask(int(shape[-3]), int(shape[-2]), int(shape[-1]),
+                        bool(is_3d), int(bnd), resolve_device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _border_mask(z, y, x, is_3d, bnd, device):
     xi = torch.arange(x, device=device).view(1, 1, 1, 1, x)
     yi = torch.arange(y, device=device).view(1, 1, 1, y, 1)
     m = (xi < bnd) | (xi > x - 1 - bnd) | (yi < bnd) | (yi > y - 1 - bnd)

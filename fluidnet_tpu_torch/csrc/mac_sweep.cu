@@ -1,9 +1,14 @@
-// K1: the fused MacCormack advection sweep, fused-epilogue form.
+// K1: the fused MacCormack advection sweep, in its two forms.
 //
 // Replaces the TPU kernel fluidnet_tpu/ops/pallas/mac_sweep.py::_sweep_kernel
-// as launched by advect_sweep_fused_ep (fuse_ep=True, with_scalar=True):
-// one forward sweep (dcoef = -dt) and one backward sweep (dcoef = +dt) per
-// simulation step. Per cell, the kernel
+// as launched by
+//   - advect_sweep_fused_ep (fuse_ep=True, with_scalar=True), the inference
+//     path: one forward sweep (dcoef = -dt) and one backward sweep
+//     (dcoef = +dt) per simulation step (FUSE = true);
+//   - advect_sweep / mac_vel_sweep (fuse_ep=False), the unfused forms that
+//     training differentiates: the raw warps, bounds and renormalisation
+//     channels, with or without the scalar (FUSE = false).
+// Per cell, the kernel
 //   1. derives the backtrace positions of the three MAC components
 //      (getAtMAC, zero-filled at the domain edge) and of the cell-centered
 //      scalar (getCentered, zero on the 1-cell border): d = dcoef * vel,
@@ -13,17 +18,21 @@
 //      mask-renormalized num/den, trilinearly with BUILD_INDEX border
 //      clamps; tracks min/max over the 2x2x2 corner support (of u on both
 //      sweeps, of the fluid-masked scalar on the forward sweep);
-//   3. applies the epilogue: fluid/border masks and the renorm combine
-//      (forward), the MacCormack correction with its per-component fluid
-//      skips (backward).
+//   3. FUSE: applies the epilogue: fluid/border masks and the renorm
+//      combine (forward), the MacCormack correction with its per-component
+//      fluid skips (backward). Otherwise writes the raw channels
+//      (mac_sweep.py:545-558): u_w(3), u_mn(3), u_mx(3), then with the
+//      scalar s_plain [, s_num, s_den] and on the forward sweep s_mn, s_mx:
+//      9 to 14 channels.
 //
 // What bounds it on the H100: memory traffic. Each cell reads ~18 velocity
 // neighbours for its positions and 8 corners per warped field (3 MAC
-// components + scalar, num/den from the same corners), and writes 12
-// (forward) or 10 (backward) floats: ~48 B/cell of compulsory HBM traffic
-// (inputs once, outputs once) against ~150 gathered reads per cell that
-// must hit L1/L2. At 128^3 every input field is 8 MB, so the whole working
-// set (u, s, m, free, fwd_u, fwd_s: 40 MB) fits the 50 MB L2.
+// components + scalar, num/den from the same corners), and writes 9 to 14
+// floats: 48 B/cell of compulsory HBM traffic for the fused forward sweep,
+// 80 B/cell for the unfused forward sweep with scalar and renorm (inputs
+// once, outputs once), against ~150 gathered reads per cell that must hit
+// L1/L2. At 128^3 every input field is 8 MB, so the whole working set (u, s,
+// m, free, fwd_u, fwd_s: 40 MB) fits the 50 MB L2.
 //
 // Design: the TPU's (2W+1)^3 roll-based tap window, z-blocking and lane
 // padding are gone. One thread per output cell (x fastest, so a warp reads
@@ -132,7 +141,9 @@ __device__ __forceinline__ Corners corners(const Pos& p, const Grid& g) {
   return c;
 }
 
-template <bool IS_BWD, bool OURS, bool RENORM>
+// SCALAR: the scalar group is warped too (always with FUSE). s is read by
+// the forward sweep and by the fused backward sweep, m whenever SCALAR.
+template <bool IS_BWD, bool OURS, bool RENORM, bool SCALAR, bool FUSE>
 __global__ void __launch_bounds__(256)
 mac_sweep_kernel(const float* __restrict__ u, const float* __restrict__ s,
                  const float* __restrict__ m,
@@ -141,6 +152,7 @@ mac_sweep_kernel(const float* __restrict__ u, const float* __restrict__ s,
                  const float* __restrict__ free_space,
                  float* __restrict__ out, int B, Grid g, float dcoef,
                  float strength, float lim) {
+  static_assert(SCALAR || !FUSE, "the fused epilogue warps the scalar");
   const int n = g.Z * g.Y * g.X;
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= B * n) return;
@@ -188,8 +200,7 @@ mac_sweep_kernel(const float* __restrict__ u, const float* __restrict__ s,
   const float allowed =
       OURS ? fmaxf(__ldg(free_space + (size_t)b * n + c0) - 0.5f - kEps, 0.f)
            : 0.f;
-  const float mc = __ldg(M + c0);
-  const bool fl = mc > 0.5f;
+  const bool fl = SCALAR ? __ldg(M + c0) > 0.5f : true;
 
   float acc[3], mn[3], mx[3];
 #pragma unroll
@@ -210,6 +221,18 @@ mac_sweep_kernel(const float* __restrict__ u, const float* __restrict__ s,
     acc[c] = a;
     mn[c] = lo;
     mx[c] = hi;
+  }
+
+  if constexpr (!SCALAR) {
+    // mac_vel_sweep: u_w(3), u_mn(3), u_mx(3).
+    const size_t ob = (size_t)b * 9 * n + c0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      out[ob + (size_t)c * n] = acc[c];
+      out[ob + (size_t)(3 + c) * n] = mn[c];
+      out[ob + (size_t)(6 + c) * n] = mx[c];
+    }
+    return;
   }
 
   // Scalar group. Forward 'Ours': non-fluid cells warp their own centers.
@@ -238,6 +261,29 @@ mac_sweep_kernel(const float* __restrict__ u, const float* __restrict__ s,
       smx = fmaxf(smx, sv);
     }
   }
+  if constexpr (!FUSE) {
+    // advect_sweep: u_w, u_mn, u_mx, s_plain [, s_num, s_den] [, s_mn,
+    // s_mx on the forward sweep].
+    constexpr int nx = 9 + (RENORM ? 3 : 1);
+    const size_t ob = (size_t)b * (nx + (IS_BWD ? 0 : 2)) * n + c0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      out[ob + (size_t)c * n] = acc[c];
+      out[ob + (size_t)(3 + c) * n] = mn[c];
+      out[ob + (size_t)(6 + c) * n] = mx[c];
+    }
+    out[ob + (size_t)9 * n] = plain;
+    if (RENORM) {
+      out[ob + (size_t)10 * n] = num;
+      out[ob + (size_t)11 * n] = den;
+    }
+    if (!IS_BWD) {
+      out[ob + (size_t)nx * n] = smn;
+      out[ob + (size_t)(nx + 1) * n] = smx;
+    }
+    return;
+  }
+
   float val = plain;
   if (RENORM && den > 1e-6f) val = num / den;
 
@@ -281,56 +327,74 @@ mac_sweep_kernel(const float* __restrict__ u, const float* __restrict__ s,
       fwd_sc + (fl ? strength * 0.5f * (__ldg(S + c0) - bwd_s) : 0.f);
 }
 
+struct Args {
+  const float *u, *s, *m, *fwd_u, *fwd_s, *fr;
+  float* out;
+  int B;
+  Grid g;
+  float dcoef, strength, lim;
+};
+
+template <bool IS_BWD, bool OURS, bool RENORM, bool SCALAR, bool FUSE>
+void launch(const Args& a, cudaStream_t st) {
+  const int total = a.B * a.g.Z * a.g.Y * a.g.X;
+  mac_sweep_kernel<IS_BWD, OURS, RENORM, SCALAR, FUSE>
+      <<<(total + 255) / 256, 256, 0, st>>>(a.u, a.s, a.m, a.fwd_u, a.fwd_s,
+                                            a.fr, a.out, a.B, a.g, a.dcoef,
+                                            a.strength, a.lim);
+}
+
+// The form: FUSE (fused epilogue, scalar), SCALAR (unfused with the
+// scalar) or neither (velocity only; renorm ignored).
 template <bool IS_BWD, bool OURS>
-void launch_renorm(bool renorm, dim3 grid, dim3 block, cudaStream_t st,
-                   const float* u, const float* s, const float* m,
-                   const float* fwd_u, const float* fwd_s, const float* fr,
-                   float* out, int B, Grid g, float dcoef, float strength,
-                   float lim) {
-  if (renorm)
-    mac_sweep_kernel<IS_BWD, OURS, true><<<grid, block, 0, st>>>(
-        u, s, m, fwd_u, fwd_s, fr, out, B, g, dcoef, strength, lim);
-  else
-    mac_sweep_kernel<IS_BWD, OURS, false><<<grid, block, 0, st>>>(
-        u, s, m, fwd_u, fwd_s, fr, out, B, g, dcoef, strength, lim);
+void launch_form(bool renorm, bool scalar, bool fuse, const Args& a,
+                 cudaStream_t st) {
+  if (fuse) {
+    if (renorm)
+      launch<IS_BWD, OURS, true, true, true>(a, st);
+    else
+      launch<IS_BWD, OURS, false, true, true>(a, st);
+  } else if (scalar) {
+    if (renorm)
+      launch<IS_BWD, OURS, true, true, false>(a, st);
+    else
+      launch<IS_BWD, OURS, false, true, false>(a, st);
+  } else {
+    launch<IS_BWD, OURS, false, false, false>(a, st);
+  }
 }
 
 }  // namespace
 
-// out: (B, 12, Z, Y, X) forward [u_w(3), u_mn(3), u_mx(3), s_val, s_mn,
-// s_mx], (B, 10, Z, Y, X) backward [u_w(3) = corrected u, u_mn(3),
-// u_mx(3), s_val = corrected s]. fwd_u/fwd_s are null on the forward
-// sweep, free_space is null unless `ours`. Returns cudaGetLastError().
+// fuse != 0: out (B, 12, Z, Y, X) forward [u_w(3), u_mn(3), u_mx(3), s_val,
+// s_mn, s_mx], (B, 10, Z, Y, X) backward [u_w(3) = corrected u, u_mn(3),
+// u_mx(3), s_val = corrected s]; s and m always read, fwd_s backward.
+// fuse == 0: the raw channels of mac_sweep.py:545-558, (B, 9, ...) without
+// the scalar (s, m, fwd_s unread, may be null), else (B, 9 + (renorm ? 3 :
+// 1) + (is_bwd ? 0 : 2), ...); s is read forward only. fwd_u/fwd_s are
+// null on the forward sweep, free_space is null unless `ours`. Returns
+// cudaGetLastError().
 extern "C" int fluidnet_mac_sweep(const float* u, const float* s,
                                   const float* m, const float* fwd_u,
                                   const float* fwd_s, const float* free_space,
                                   float* out, int B, int Z, int Y, int X,
                                   float dcoef, float strength, float lim,
                                   int is_bwd, int ours, int renorm,
-                                  void* stream) {
-  const int total = B * Z * Y * X;
-  const dim3 block(256);
-  const dim3 grid((total + 255) / 256);
-  const Grid g{Z, Y, X};
+                                  int scalar, int fuse, void* stream) {
+  if (fuse && !scalar) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{u, s, m, fwd_u, fwd_s, free_space, out, B, Grid{Z, Y, X},
+               dcoef, strength, lim};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bwd) {
     if (ours)
-      launch_renorm<true, true>(renorm, grid, block, st, u, s, m, fwd_u,
-                                fwd_s, free_space, out, B, g, dcoef,
-                                strength, lim);
+      launch_form<true, true>(renorm, scalar, fuse, a, st);
     else
-      launch_renorm<true, false>(renorm, grid, block, st, u, s, m, fwd_u,
-                                 fwd_s, free_space, out, B, g, dcoef,
-                                 strength, lim);
+      launch_form<true, false>(renorm, scalar, fuse, a, st);
   } else {
     if (ours)
-      launch_renorm<false, true>(renorm, grid, block, st, u, s, m, fwd_u,
-                                 fwd_s, free_space, out, B, g, dcoef,
-                                 strength, lim);
+      launch_form<false, true>(renorm, scalar, fuse, a, st);
     else
-      launch_renorm<false, false>(renorm, grid, block, st, u, s, m, fwd_u,
-                                  fwd_s, free_space, out, B, g, dcoef,
-                                  strength, lim);
+      launch_form<false, false>(renorm, scalar, fuse, a, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

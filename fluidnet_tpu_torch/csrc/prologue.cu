@@ -1,14 +1,22 @@
-// K2: the fused forces block and projection prologue.
+// K2: the fused forces block and projection prologue; K4: vorticity
+// confinement alone.
 //
 // Replaces the TPU kernel fluidnet_tpu/ops/pallas/forces_kernel.py::_fb_kernel
-// in both its forms, one kernel template (EPI) here:
+// in both its forms, and forces_kernel.py::_vc_kernel, with one kernel
+// template (EPI, RHO) here:
 //   - EPI = true, the projection prologue (epi=True, has_ubc), as launched by
 //     _pro_pallas_impl for ops/prologue.projection_prologue: once per
 //     ConvNet step, between advection and the ConvNet;
 //   - EPI = false, the forces block (epi=False), as launched by
 //     _fb_pallas_impl for ops/forces.forces_block: once per jacobi or PCG
 //     step. It stops after the force stage: no slab BC, no setWallBcs, no
-//     divergence, 3 output channels.
+//     divergence, 3 output channels;
+//   - EPI = false, RHO = false, K4 (_vc_pallas_impl for
+//     ops/forces.vorticity_confinement, 3-D with a scalar strength): no
+//     density is read and the buoyancy/gravity stage is skipped, so what
+//     remains is _vc_kernel's chain (border zeroing, the vec3-epsilon
+//     guards, the fluid/empty face gating of AddForceField). Compulsory
+//     traffic 28 B/cell: u(3) and flags in, u(3) out.
 // In order, per cell:
 //   [EPI] slab BC on u (rows y < YB: u * inv + bc)
 //   -> buoyancy 0.5 * s * (rho(i) + rho(i-1)) on fluid-fluid faces
@@ -77,7 +85,7 @@ __device__ __forceinline__ int region_cell(int q, int lo, int w, int* lz,
   return (*lz * kN + *ly) * kN + *lx;
 }
 
-template <bool EPI>
+template <bool EPI, bool RHO>
 __global__ void __launch_bounds__(kThreads)
 prologue_kernel(const float* __restrict__ u, const int* __restrict__ flags,
                 const float* __restrict__ rho, const float* __restrict__ ubc,
@@ -117,7 +125,7 @@ prologue_kernel(const float* __restrict__ u, const int* __restrict__ flags,
 #pragma unroll
       for (int c = 0; c < 3; ++c)
         sm.u[c][t] = slab(c, gz, gy, gx, __ldg(U + c * n + g));
-      sm.r[t] = __ldg(rho + (size_t)b * n + g);
+      sm.r[t] = RHO ? __ldg(rho + (size_t)b * n + g) : 0.f;
       sm.f[t] = static_cast<unsigned char>(
           __ldg(flags + (size_t)b * n + g) &
           (kFluid | kObstacle | kEmpty | kStick));
@@ -132,8 +140,9 @@ prologue_kernel(const float* __restrict__ u, const int* __restrict__ flags,
   const int off[3] = {1, kN, kNN};
 
   // Stage 0: u' = gravity(buoyancy(u)) in place on [1, 16): each cell
-  // reads only its own u plus rho/flags of its -axis neighbours.
-  {
+  // reads only its own u plus rho/flags of its -axis neighbours. K4 has no
+  // such stage.
+  if constexpr (RHO) {
     constexpr int lo = 1, w = kN - 1;
     for (int q = tid; q < w * w * w; q += kThreads) {
       int lz, ly, lx;
@@ -351,18 +360,18 @@ prologue_kernel(const float* __restrict__ u, const int* __restrict__ flags,
   }
 }
 
-template <bool EPI>
+template <bool EPI, bool RHO = true>
 int launch(const float* u, const int* flags, const float* rho,
            const float* ubc, const float* uinv, float* out, int B, int Z,
            int Y, int X, int YB, const Scal& sc, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaFuncSetAttribute(
-      prologue_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prologue_kernel<EPI, RHO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((X + kT - 1) / kT, (Y + kT - 1) / kT,
                   ((Z + kT - 1) / kT) * B);
-  prologue_kernel<EPI><<<grid, kThreads, smem, stream>>>(
+  prologue_kernel<EPI, RHO><<<grid, kThreads, smem, stream>>>(
       u, flags, rho, ubc, uinv, out, Z, Y, X, YB, sc);
   return static_cast<int>(cudaGetLastError());
 }
@@ -387,4 +396,15 @@ extern "C" int fluidnet_prologue(const float* u, const int* flags,
                         st);
   return launch<false>(u, flags, rho, nullptr, nullptr, out, B, Z, Y, X, 0,
                        sc, st);
+}
+
+// K4: u (B,3,Z,Y,X) f32, flags (B,1,Z,Y,X) int32 -> out (B,3,Z,Y,X) f32,
+// vorticity confinement of strength amp. Returns cudaGetLastError().
+extern "C" int fluidnet_vorticity(const float* u, const int* flags,
+                                  float* out, int B, int Z, int Y, int X,
+                                  float amp, void* stream) {
+  const Scal sc{{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, amp};
+  return launch<false, false>(u, flags, nullptr, nullptr, nullptr, out, B,
+                              Z, Y, X, 0, sc,
+                              static_cast<cudaStream_t>(stream));
 }

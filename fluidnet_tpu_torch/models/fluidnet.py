@@ -184,6 +184,15 @@ class FluidNet(nn.Module):
                 mod.bias.copy_(b)
         return self
 
+    def jax_named_parameters(self):
+        """[(JAX tree path, parameter)] in the JAX params layout: for each
+        stage i "stages/i/0/conv/w" and ".../b", then "final/conv/w" and
+        "final/conv/b". The optimizer state follows this order."""
+        mods = [(f"stages/{i}/0/conv", m) for i, m in enumerate(self.stages)]
+        mods.append(("final/conv", self.final))
+        return [(f"{path}/{k}", t) for path, m in mods
+                for k, t in (("w", m.weight), ("b", m.bias))]
+
     def trunk(self, x):
         """The conv trunk: the 3-D fast trunk, or in 2-D the stage path."""
         if not self.mconf.is_3d:
@@ -248,10 +257,11 @@ def from_jax_params(params, mconf: ModelConfig, device=None) -> FluidNet:
 def random_model(mconf: ModelConfig, seed: int = 0,
                  device=None) -> FluidNet:
     """A FluidNet with the torch default conv init the JAX package also
-    uses (`_init_conv`: weights and biases U(-s, s), s = 1 / sqrt(fan_in)),
-    drawn from an explicit CPU torch.Generator seeded `seed`, so the draw
-    does not depend on the device or the global RNG. (JAX's PRNG gives
-    other numbers from the same seed.)"""
+    uses (init_model's `_init_conv`: weights and biases U(-s, s),
+    s = 1 / sqrt(fan_in)), drawn from an explicit CPU torch.Generator
+    seeded `seed`, so the draw does not depend on the device or the global
+    RNG. (JAX's PRNG gives other numbers from the same seed.) Its
+    parameters train: train.train.init_train_state starts from it."""
     net = FluidNet(mconf, device=device)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():

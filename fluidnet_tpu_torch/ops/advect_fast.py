@@ -2,15 +2,17 @@
 
 Port of fluidnet_tpu.ops.advect_fast, in two parts:
 
-  - `advect_scalar_fast` and `advect_vel_fast` (2-D velocity): every
+  - `advect_scalar_fast` and `advect_vel_fast`: in 2-D every
     interpolation is a windowed warp (ops/warp.py, kernel K5) at positions
-    computed here in PyTorch. Methods maccormackOurs, maccormack, euler and
-    eulerOurs; rk2Ours / rk3Ours reduce to them as in JAX. The 3-D velocity
-    branch runs the unfused sweep (K1 unfused) and is not ported yet.
-  - `advect_vel_scalar_fast` (3-D, fused epilogue): the density and all
-    three MAC velocity components with one K1 launch per sweep
-    (ops/cuda/mac_sweep.py). Only the final two-direction MacCormack
-    clamp, which combines both sweeps' bounds, stays in PyTorch.
+    computed here in PyTorch; the 3-D velocity runs K1's unfused velocity
+    sweep. Methods maccormackOurs, maccormack, euler and eulerOurs;
+    rk2Ours / rk3Ours reduce to them as in JAX.
+  - `advect_vel_scalar_fast` (3-D): the density and all three MAC velocity
+    components with one K1 launch per sweep (ops/cuda/mac_sweep.py), in
+    the fused-epilogue form (only the final two-direction MacCormack clamp,
+    which combines both sweeps' bounds, stays in PyTorch) or the unfused
+    form. The fused form's gradient replays the unfused one, whose
+    gradient is the transposed warp (K6).
 
 `chebyshev_free_space` is the 'Ours' trace clamp of both. Same documented
 deviations from the exact reference as the JAX fast path: displacements
@@ -24,7 +26,8 @@ import torch
 from fluidnet_tpu_torch.core.celltype import is_fluid, is_obstacle
 from fluidnet_tpu_torch.core.grids import border_mask, check_shapes
 from fluidnet_tpu_torch.ops import stencil as st
-from fluidnet_tpu_torch.ops.cuda.mac_sweep import advect_sweep_fused_ep
+from fluidnet_tpu_torch.ops.cuda.mac_sweep import (advect_sweep_fused_ep,
+                                                   sweep_fused_ep_plain)
 from fluidnet_tpu_torch.ops.forces import get_centered
 from fluidnet_tpu_torch.ops.interp import (cell_center_positions,
                                            get_at_mac_x, get_at_mac_y)
@@ -268,11 +271,8 @@ def advect_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
 # --- MAC velocity self-advection ---------------------------------------------
 
 def _mac_positions(u, flags, dt, is_3d, W, ours, free=None):
-    """Per-component backtrace positions, each (b, c, z, y, x) (2-D)."""
-    if is_3d:
-        raise NotImplementedError("3-D velocity advection runs the unfused "
-                                  "sweep (K1 unfused), not ported yet "
-                                  "(ROADMAP queue 1, training slice)")
+    """Per-component backtrace positions, each (b, c, z, y, x) (2-D; the
+    3-D sweep computes its positions in-kernel)."""
     macs = [get_at_mac_x(u, is_3d), get_at_mac_y(u, is_3d)]
     px, py, pz = _positions(u.shape, u.shape[0], u.dtype, u.device)
     pxs, pys, pzs = [], [], []
@@ -289,11 +289,13 @@ def _mac_positions(u, flags, dt, is_3d, W, ours, free=None):
 
 def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
                     free=None, border=None, plain=False):
-    """Windowed MAC velocity self-advection, the non-fused 2-D branch of
-    advect_fast.py:304-391: one K5 launch per sweep with per-component
-    positions (G = 2); MacCormack sweeps carry the clamp bounds of u as
-    support min/max. Returns the advected u."""
+    """Windowed MAC velocity self-advection (advect_fast.py:304-391). 3-D
+    runs K1's unfused velocity sweep (mac_vel_sweep), one launch per sweep
+    with the positions in-kernel; 2-D one K5 launch per sweep with
+    per-component positions (G = 2). MacCormack sweeps carry the clamp
+    bounds of u as support min/max. Returns the advected u."""
     from fluidnet_tpu_torch.ops.advect import _maccormack_correct_mac
+    from fluidnet_tpu_torch.ops.cuda.mac_sweep import mac_vel_sweep
 
     is_3d = check_shapes(u, flags)
     W = int(window)
@@ -310,6 +312,7 @@ def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
     ours = method.endswith("Ours")
     if ours and free is None:
         free = chebyshev_free_space(flags, W + 1)
+    free_in = free if ours else None
 
     def apply_border(x):
         return torch.where(border, 0.0, x)
@@ -318,7 +321,11 @@ def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
         return _mac_positions(u, flags, dt_, is_3d, W, ours, free)
 
     if method in ("euler", "eulerOurs"):
-        out = warp_trilinear(u, *positions(dt), W, plain=plain)
+        if is_3d:
+            out = mac_vel_sweep(u, None, free_in, -dt, W, ours,
+                                plain=plain)[0]
+        else:
+            out = warp_trilinear(u, *positions(dt), W, plain=plain)
         if ours:
             out = torch.where(fl, out, u)
         return apply_border(out)
@@ -326,60 +333,43 @@ def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
     # MacCormack: the forward (-dt) and backward (+dt) sweeps visit the
     # clamp-lookup cells of MacCormackClampMAC's two directions, so each
     # emits min/max of u over its corner support.
-    o1 = warp_group(u[:, :, None], *positions(dt), W, minmax=True,
-                    plain=plain)
-    fwd = o1[:, :, 0]
-    if ours:
-        fwd = torch.where(fl, fwd, u)
+    if is_3d:
+        w1, mn_f, mx_f = mac_vel_sweep(u, None, free_in, -dt, W, ours,
+                                       plain=plain)
+    else:
+        o1 = warp_group(u[:, :, None], *positions(dt), W, minmax=True,
+                        plain=plain)
+        w1, mn_f, mx_f = o1[:, :, 0], o1[:, :, 1], o1[:, :, 2]
+    fwd = torch.where(fl, w1, u) if ours else w1
     fwd = apply_border(fwd)
-    mn_f, mx_f = o1[:, :, 1], o1[:, :, 2]
-    # Channel 0 stays u (the bounds' source), channel 1 is the forward
-    # field; two sources, no stacked copy.
-    o2 = warp_group((u[:, :, None], fwd[:, :, None]), *positions(-dt), W,
-                    minmax=True, plain=plain)
-    bwd = o2[:, :, 1]
-    if ours:
-        bwd = torch.where(fl, bwd, fwd)
+    if is_3d:
+        w2, mn_b, mx_b = mac_vel_sweep(u, fwd.contiguous(), free_in, dt, W,
+                                       ours, plain=plain)
+    else:
+        # Channel 0 stays u (the bounds' source), channel 1 is the forward
+        # field; two sources, no stacked copy.
+        o2 = warp_group((u[:, :, None], fwd[:, :, None]), *positions(-dt),
+                        W, minmax=True, plain=plain)
+        w2, mn_b, mx_b = o2[:, :, 1], o2[:, :, 2], o2[:, :, 3]
+    bwd = torch.where(fl, w2, fwd) if ours else w2
     bwd = apply_border(bwd)
-    mn_b, mx_b = o2[:, :, 2], o2[:, :, 3]
 
     dst = _maccormack_correct_mac(u, fwd, bwd, flags, maccormack_strength,
                                   is_3d)
     mn = torch.minimum(mn_f, mn_b)
     mx = torch.maximum(mx_f, mx_b)
+    # jnp.clip's gradient (ties split), not torch.clamp's.
     clamped = torch.minimum(torch.maximum(dst, mn), mx)
     return torch.where(border, dst, clamped)
 
 
-def advect_vel_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
-                           maccormack_strength, window, free=None,
-                           sweep=advect_sweep_fused_ep):
-    """Combined scalar + MAC-velocity advection (3-D, fused epilogue):
-    one K1 launch per sweep. `free`: the Chebyshev free space for 'Ours'
-    methods (computed here if None; constant while the flags are).
-    `sweep` is the sweep function: K1's wrapper, or its plain version to
-    run the reference on any device. Returns (s_new, u_new)."""
-    if not check_shapes(u, flags, s):
-        raise NotImplementedError("the fused combined advection is 3-D "
-                                  "only; 2-D runs advect_scalar_fast and "
-                                  "advect_vel_fast")
-    if method not in _FUSED_METHODS:
-        raise NotImplementedError(
-            f"advection method {method!r} is not ported yet: the port has "
-            f"the fused-epilogue methods {_FUSED_METHODS} only (ROADMAP "
-            f"queue 1, K1 unfused)")
-    W = int(window)
-    if W < 1:
-        raise NotImplementedError("the exact gather path (window 0) is not "
-                                  "ported yet (ROADMAP queue 1, ops off "
-                                  "the main path)")
-    ours = method.endswith("Ours")
-    fl = is_fluid(flags)
-    if ours and free is None:
-        free = chebyshev_free_space(flags, W + 1)
-    m = fl.to(s.dtype)
-    renorm = ours and not sample_outside_fluid
-
+def _fused_impl(dt, s, u, flags, free, method, maccormack_strength, W,
+                ours, renorm, plain):
+    """The fused-epilogue primal (advect_fast.py:406-444): one K1 launch
+    per sweep, the final two-direction clamp in PyTorch."""
+    sweep = sweep_fused_ep_plain if plain or u.device.type == "cpu" \
+        else advect_sweep_fused_ep
+    m = is_fluid(flags).to(s.dtype)
     o1 = sweep(u, s, m, None, None, free if ours else None, -dt,
                maccormack_strength, W, ours, renorm)
     fwd_u, fwd_s = o1["u_w"], o1["s_val"]
@@ -401,3 +391,114 @@ def advect_vel_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
         clamped = torch.where(o1["s_mn"] < 1e29, clamped, fwd_s)
     s_new = torch.where(border, dst_s, clamped)
     return s_new, u_new
+
+
+def _unfused_impl(dt, s, u, flags, free, method, maccormack_strength, W,
+                  ours, renorm, plain):
+    """The unfused composition (advect_fast.py:506-583) on K1's unfused
+    sweeps: the raw channels, with the masks, the renorm combine and the
+    MacCormack correction in PyTorch. Every clamp is
+    minimum(maximum(.)), whose gradient splits ties as jnp.clip's does."""
+    from fluidnet_tpu_torch.ops.advect import _maccormack_correct_mac
+    from fluidnet_tpu_torch.ops.cuda.mac_sweep import advect_sweep
+
+    border = border_mask(flags.shape, True, 1, u.device)
+    fl = is_fluid(flags)
+    free_in = free if ours else None
+    m = fl.to(s.dtype)
+    vel_mac = method in ("maccormack", "maccormackOurs", "rk2Ours",
+                         "rk3Ours")
+    scal_mac = method == "maccormackOurs"
+
+    def apply_border(x):
+        return torch.where(border, 0.0, x)
+
+    def s_value(o):
+        if not renorm:
+            return o["s_plain"]
+        den = o["s_den"]
+        safe = den > 1e-6
+        return torch.where(safe, o["s_num"] / torch.where(safe, den, 1.0),
+                           o["s_plain"])
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    o1 = advect_sweep(u, s, m, None, None, free_in, -dt, W, ours, True,
+                      renorm, plain=plain)
+    fwd_u = torch.where(fl, o1["u_w"], u) if ours else o1["u_w"]
+    fwd_u = apply_border(fwd_u)
+    fwd_s_full = s_value(o1)
+    if ours:
+        fwd_s_full = torch.where(fl, fwd_s_full, s)
+    fwd_s = apply_border(fwd_s_full)
+    if not vel_mac:                       # euler / eulerOurs
+        return fwd_s, fwd_u
+
+    o2 = advect_sweep(u, None, m if scal_mac else None, fwd_u,
+                      fwd_s if scal_mac else None, free_in, dt, W, ours,
+                      scal_mac, renorm, plain=plain)
+    bwd_u = torch.where(fl, o2["u_w"], fwd_u) if ours else o2["u_w"]
+    bwd_u = apply_border(bwd_u)
+    dst_u = _maccormack_correct_mac(u, fwd_u, bwd_u, flags,
+                                    maccormack_strength, True)
+    mn = torch.minimum(o1["u_mn"], o2["u_mn"])
+    mx = torch.maximum(o1["u_mx"], o2["u_mx"])
+    u_new = torch.where(border, dst_u, clip(dst_u, mn, mx))
+    if not scal_mac:                      # rk2Ours/rk3Ours scalar = euler
+        return fwd_s, u_new
+    bwd_s_full = s_value(o2)
+    if ours:
+        bwd_s_full = torch.where(fl, bwd_s_full, fwd_s)
+    bwd_s = apply_border(bwd_s_full)
+    dst_s = fwd_s + torch.where(fl, maccormack_strength * 0.5 *
+                                (s - bwd_s), 0.0)
+    clamped = clip(dst_s, o1["s_mn"], o1["s_mx"])
+    if renorm:
+        clamped = torch.where(o1["s_mn"] < 1e29, clamped, fwd_s)
+    return torch.where(border, dst_s, clamped), u_new
+
+
+def advect_vel_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
+                           maccormack_strength, window, free=None,
+                           fused_epilogue=True, plain=False):
+    """Combined scalar + MAC-velocity advection (3-D), JAX
+    advect_fast.py:483-583. With `fused_epilogue` (the JAX default) the
+    methods maccormackOurs, euler and eulerOurs run one fused K1 launch
+    per sweep, and their gradient with respect to (s, u) replays the
+    unfused composition, as the JAX custom VJP does (_fused_step_bwd); dt
+    gets none. Otherwise, and for rk2Ours / rk3Ours, the unfused
+    composition runs on K1's unfused sweeps, whose gradient is K6. `free`:
+    the Chebyshev free space for 'Ours' methods (computed here if None;
+    constant while the flags are). `plain=True` runs the plain versions of
+    the kernels on any device. Returns (s_new, u_new)."""
+    from fluidnet_tpu_torch.ops.replay import replay
+
+    if not check_shapes(u, flags, s):
+        raise NotImplementedError("the fused combined advection is 3-D "
+                                  "only; 2-D runs advect_scalar_fast and "
+                                  "advect_vel_fast")
+    if method == "maccormack" or method not in (
+            "euler", "eulerOurs", "maccormackOurs", "rk2Ours", "rk3Ours"):
+        raise ValueError(f"advection method {method!r}: the Manta scalar "
+                         f"clamp is not fused; use advect_scalar_fast and "
+                         f"advect_vel_fast")
+    W = int(window)
+    if W < 1:
+        raise NotImplementedError("the exact gather path (window 0) is not "
+                                  "ported yet (ROADMAP queue 1, ops off "
+                                  "the main path)")
+    ours = method.endswith("Ours")
+    if ours and free is None:
+        free = chebyshev_free_space(flags, W + 1)
+    renorm = ours and not sample_outside_fluid
+    s, u = s.contiguous(), u.contiguous()
+    args = (flags, free, method, maccormack_strength, W, ours, renorm,
+            plain)
+
+    def unfused(s_, u_):
+        return _unfused_impl(dt, s_, u_, *args)
+    if fused_epilogue and method in _FUSED_METHODS:
+        return replay(lambda s_, u_: _fused_impl(dt, s_, u_, *args),
+                      unfused, s, u)
+    return unfused(s, u)

@@ -22,7 +22,7 @@ returns cudaGetLastError() — `check` raises if that is not 0.
 
 `launches` counts kernel launches by name; each wrapper adds one where it
 launches its kernel and nowhere else (K3 counts one per solve, whatever
-its number of sweeps; K5 one per warp call).
+its number of sweeps; K5 one per warp call, K6 one per adjoint).
 """
 
 import collections
@@ -47,15 +47,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (argtypes) of the entry points in csrc/.
 _SIGNATURES = {
     # u, s, m, fwd_u, fwd_s, free, out, B, Z, Y, X, dcoef, strength, lim,
-    # is_bwd, ours, renorm, stream
-    "fluidnet_mac_sweep": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
+    # is_bwd, ours, renorm, scalar, fuse, stream
+    "fluidnet_mac_sweep": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I] * 5 + [_P],
     # u, flags, rho, ubc, uinv, out, B, Z, Y, X, YB, epi, scal7[7], stream
     "fluidnet_prologue": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
+    # u, flags, out, B, Z, Y, X, amp, stream
+    "fluidnet_vorticity": [_P] * 3 + [_I] * 4 + [_F] + [_P],
     # div, flags, p0, p1, B, Z, Y, X, n_sweeps, stream
     "fluidnet_jacobi": [_P] * 4 + [_I] * 5 + [_P],
     # srcs[], fs[], n_src, px, py, pz, out, B, G, Z, Y, X, window, nearest,
     # minmax, cmin, cmax, skip_pair, stream
     "fluidnet_warp": [_P, _P, _I] + [_P] * 4 + [_I] * 11 + [_P],
+    # g, px, py, pz, out, B, G, F, Z, Y, X, window, nearest, stream
+    "fluidnet_warp_transpose": [_P] * 5 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

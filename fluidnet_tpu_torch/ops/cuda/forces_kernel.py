@@ -1,7 +1,8 @@
-"""K2: the fused projection prologue and the fused forces block.
+"""K2: the fused projection prologue and the fused forces block; K4:
+vorticity confinement alone.
 
 Replaces fluidnet_tpu/ops/pallas/forces_kernel.py::_fb_kernel in both its
-forms, one CUDA kernel template (csrc/prologue.cu):
+forms, and ::_vc_kernel, with one CUDA kernel template (csrc/prologue.cu):
 
   - prologue_cuda: the prologue form (epi=True, has_ubc), as launched by
     _pro_pallas_impl: one launch per ConvNet step. Slab BC -> buoyancy ->
@@ -11,6 +12,10 @@ forms, one CUDA kernel template (csrc/prologue.cu):
     _fb_pallas_impl: one launch per jacobi or PCG step. Buoyancy ->
     gravity -> vorticity confinement only. Counted in
     _build.launches["forces_block"].
+  - vorticity_cuda: K4 (_vc_pallas_impl), the template without density and
+    without the buoyancy/gravity stage: vorticity confinement of a 3-D
+    velocity with a scalar strength. Counted in
+    _build.launches["vorticity"].
 
 The source note of csrc/prologue.cu gives what bounds it on the H100
 (reuse across dependent stencils: 32 / 36 B/cell compulsory, ~40 field
@@ -131,4 +136,30 @@ def forces_block_cuda(u, flags, density, buoy_g, grav_g, amp, dt):
     out = torch.empty((B, 3, Z, Y, X), device=dev, dtype=f32)
     _launch(u, flags, density, None, None, out, 0, False, sc)
     _build.launches["forces_block"] += 1
+    return out
+
+
+def vorticity_cuda(u, flags, amp):
+    """Launches K4 on CUDA tensors: same arguments and result as
+    ops.forces.vorticity_confinement_xla with a scalar strength. u
+    (b,3,Z,Y,X) f32, flags (b,1,Z,Y,X) int32. Returns u' (b,3,Z,Y,X)."""
+    if u.dim() != 5 or u.shape[1] != 3:
+        raise ValueError(f"vorticity: u must be (b, 3, z, y, x), got "
+                         f"{tuple(u.shape)}")
+    B, _, Z, Y, X = u.shape
+    if tuple(flags.shape) != (B, 1, Z, Y, X):
+        raise ValueError("vorticity: flags must be (b, 1, z, y, x)")
+    if min(Z, Y, X) < 2 or B * 3 * Z * Y * X >= 2 ** 31:
+        raise ValueError(f"vorticity: unsupported shape {tuple(u.shape)}")
+    dev = _build.require_cuda("vorticity", u, flags,
+                              dtypes=[torch.float32, torch.int32])
+    amp = float(torch.as_tensor(amp, dtype=torch.float32))
+    out = torch.empty_like(u)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.fluidnet_vorticity(
+            u.data_ptr(), flags.data_ptr(), out.data_ptr(), B, Z, Y, X, amp,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fluidnet_vorticity")
+    _build.launches["vorticity"] += 1
     return out

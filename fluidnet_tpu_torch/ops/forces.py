@@ -149,13 +149,19 @@ def vorticity_confinement_xla(u, flags, strength):
 
 
 def vorticity_confinement(u, flags, strength):
-    """Adds the vorticity-confinement force (tfluids.cc:1312-1458). 2-D, and
-    per-sample (B,) strengths, run vorticity_confinement_xla as in JAX; the
-    3-D form with a scalar strength is the TPU kernel K4, not ported yet."""
-    if check_shapes(u, flags) and torch.as_tensor(strength).dim() == 0:
-        raise NotImplementedError("the standalone 3-D vorticity confinement "
-                                  "(K4) is not ported yet (ROADMAP queue 1, "
-                                  "training slice)")
+    """Adds the vorticity-confinement force (tfluids.cc:1312-1458). The 3-D
+    form with a scalar strength is kernel K4 on CUDA tensors
+    (ops/cuda/forces_kernel.vorticity_cuda), whose gradient replays
+    vorticity_confinement_xla as the JAX custom VJP does (forces_kernel.py
+    :670-676); 2-D, per-sample (B,) strengths and CPU tensors run
+    vorticity_confinement_xla."""
+    if check_shapes(u, flags) and torch.as_tensor(strength).dim() == 0 and \
+            u.device.type != "cpu":
+        from fluidnet_tpu_torch.ops.cuda.forces_kernel import vorticity_cuda
+        from fluidnet_tpu_torch.ops.replay import replay
+        return replay(lambda x: vorticity_cuda(x, flags, strength),
+                      lambda x: vorticity_confinement_xla(x, flags, strength),
+                      u)
     return vorticity_confinement_xla(u, flags, strength)
 
 
@@ -172,9 +178,10 @@ def forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt):
 def forces_block(u, flags, density, buoy_g, grav_g, amp, dt):
     """The fused forces block (JAX ops/forces.py:202-214). 3-D with one
     (3,) gravity vector per force and a scalar amp runs K2's forces-block
-    form (ops/cuda/forces_kernel.forces_block_cuda) on CUDA tensors and
-    its plain version forces_block_xla on CPU tensors; 2-D and per-sample
-    scales ((B, 3) vectors, an amp of ndim > 0) run forces_block_xla."""
+    form (ops/cuda/forces_kernel.forces_block_cuda) on CUDA tensors, its
+    gradient replaying forces_block_xla (forces_kernel.py:645-653); CPU
+    tensors, 2-D and per-sample scales ((B, 3) vectors, an amp of ndim > 0)
+    run forces_block_xla."""
     batched = (torch.as_tensor(buoy_g).dim() > 1 or
                torch.as_tensor(grav_g).dim() > 1 or
                torch.as_tensor(amp).dim() > 0)
@@ -182,7 +189,12 @@ def forces_block(u, flags, density, buoy_g, grav_g, amp, dt):
             u.device.type != "cpu":
         from fluidnet_tpu_torch.ops.cuda.forces_kernel import \
             forces_block_cuda
-        return forces_block_cuda(u, flags, density, buoy_g, grav_g, amp, dt)
+        from fluidnet_tpu_torch.ops.replay import replay
+        return replay(
+            lambda x, r: forces_block_cuda(x, flags, r, buoy_g, grav_g, amp,
+                                           dt),
+            lambda x, r: forces_block_xla(x, flags, r, buoy_g, grav_g, amp,
+                                          dt), u, density)
     return forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt)
 
 

@@ -5,6 +5,8 @@ cell_center_positions (grid.cc:374-417): the transverse components are
 averaged around a face; shifted reads fill 0 at the domain edge.
 """
 
+import functools
+
 import torch
 
 from fluidnet_tpu_torch.core.grids import resolve_device
@@ -48,9 +50,15 @@ def get_at_mac_z(u, is_3d):
 
 def cell_center_positions(shape, dtype=torch.float32, device=None):
     """(px, py, pz) tensors of cell-center coordinates, each (1, z, y, x),
-    on resolve_device(device)."""
+    on resolve_device(device); built once per shape, dtype and device (they
+    are read-only expanded views)."""
     _, _, Z, Y, X = shape
-    device = resolve_device(device)
+    return _cell_centers(int(Z), int(Y), int(X), dtype,
+                         resolve_device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _cell_centers(Z, Y, X, dtype, device):
     px = torch.arange(X, dtype=dtype, device=device).view(1, 1, 1, X) + 0.5
     py = torch.arange(Y, dtype=dtype, device=device).view(1, 1, Y, 1) + 0.5
     pz = torch.arange(Z, dtype=dtype, device=device).view(1, Z, 1, 1) + 0.5

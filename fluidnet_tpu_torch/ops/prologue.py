@@ -11,6 +11,7 @@ import torch
 
 from fluidnet_tpu_torch.ops.cuda.forces_kernel import (prologue_cuda,
                                                        prologue_plain)
+from fluidnet_tpu_torch.ops.replay import replay
 
 # The unfused reference composition (JAX: prologue_xla). Returns (u'', div).
 prologue_ref = prologue_plain
@@ -25,7 +26,9 @@ def projection_prologue(u, flags, density, buoy_g, grav_g, amp, dt,
     confinement strength; dt: float; u_bc/u_inv: frozen slab masks
     (b,3,z,YB,x) or None. Returns (u'', div (b,1,z,y,x)).
 
-    CPU tensors run prologue_ref; CUDA tensors launch K2."""
+    CPU tensors run prologue_ref; CUDA tensors launch K2, whose gradient
+    with respect to u and density replays prologue_ref (the JAX custom VJP,
+    prologue.py:98-105), the cotangent of div included."""
     if u.shape[1] != 3:
         raise NotImplementedError("the fused projection prologue is 3-D "
                                   "only, as in JAX: a 2-D step runs the "
@@ -39,5 +42,8 @@ def projection_prologue(u, flags, density, buoy_g, grav_g, amp, dt,
     if u.device.type == "cpu":
         return prologue_ref(u, flags, density, buoy_g, grav_g, amp, dt,
                             u_bc, u_inv)
-    return prologue_cuda(u, flags, density, buoy_g, grav_g, amp, dt, u_bc,
-                         u_inv)
+    return replay(
+        lambda x, r: prologue_cuda(x, flags, r, buoy_g, grav_g, amp, dt,
+                                   u_bc, u_inv),
+        lambda x, r: prologue_ref(x, flags, r, buoy_g, grav_g, amp, dt, u_bc,
+                                  u_inv), u, density)

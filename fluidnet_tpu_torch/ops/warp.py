@@ -6,7 +6,9 @@ clamp_displacement), with the JAX signatures. Every call reaches
 `warp_group`, which launches kernel K5 (ops/cuda/warp.py, csrc/warp.cu) on
 CUDA tensors and runs the plain PyTorch version `warp_group_plain` below on
 CPU tensors; `plain=True` runs the plain version on any device (the
-reference the kernel is checked against).
+reference the kernel is checked against). Its gradient with respect to the
+fields is the transposed warp, kernel K6 (ops/cuda/warp_transpose.py), or
+K6's plain version with `plain`; the positions get none, as in JAX.
 
 Semantics (warp.py:75-111, 159-282): per axis p = pos - 0.5 and the
 BUILD_INDEX corners i = floor(p), i + 1 with weights 1 - (p - i), p - i;
@@ -23,6 +25,8 @@ import torch
 
 from fluidnet_tpu_torch.core.celltype import is_fluid
 from fluidnet_tpu_torch.ops.cuda.warp import warp_group_cuda
+from fluidnet_tpu_torch.ops.cuda.warp_transpose import warp_transpose
+from fluidnet_tpu_torch.ops.replay import needs_grad
 
 DEFAULT_WINDOW = 2
 
@@ -107,6 +111,34 @@ def warp_group_plain(fields, px, py, pz, window, nearest=False,
     return acc
 
 
+def _warp_forward(fs, px, py, pz, window, nearest, minmax, plain):
+    fields = tuple(fs) if len(fs) > 1 else fs[0]
+    if plain or fs[0].device.type == "cpu":
+        return warp_group_plain(fields, px, py, pz, window, nearest, minmax)
+    return warp_group_cuda(fields, px, py, pz, window, nearest, minmax)
+
+
+class _WarpGroup(torch.autograd.Function):
+    """The warp with the JAX VJP (_warp_group_bwd, warp.py:565-578): the
+    fields' gradient is the transposed warp (K6, or its plain version with
+    `plain`), the positions get none."""
+
+    @staticmethod
+    def forward(ctx, opts, px, py, pz, *fs):
+        ctx.opts = opts
+        ctx.Fs = [f.shape[2] for f in fs]
+        ctx.save_for_backward(px, py, pz)
+        return _warp_forward(fs, px, py, pz, *opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        window, nearest, _, plain = ctx.opts
+        px, py, pz = ctx.saved_tensors
+        grad = warp_transpose(g[:, :, :sum(ctx.Fs)].contiguous(), px, py, pz,
+                              window, nearest, plain=plain)
+        return (None, None, None, None) + tuple(torch.split(grad, ctx.Fs, 2))
+
+
 def warp_group(fields, px, py, pz, window: int = DEFAULT_WINDOW,
                nearest: bool = False, minmax=False, *, plain: bool = False):
     """Raw grouped interface: fields (b, G, F, z, y, x), or a tuple of such
@@ -116,11 +148,13 @@ def warp_group(fields, px, py, pz, window: int = DEFAULT_WINDOW,
     cmin and max of channel cmax, which are then bound sources (+-1e30
     sentinels), not accumulated and returned as zeros. Returns
     (b, G, F [+2], z, y, x). CUDA tensors launch K5, CPU tensors (or
-    plain=True) run warp_group_plain."""
-    lead = fields[0] if isinstance(fields, tuple) else fields
-    if plain or lead.device.type == "cpu":
-        return warp_group_plain(fields, px, py, pz, window, nearest, minmax)
-    return warp_group_cuda(fields, px, py, pz, window, nearest, minmax)
+    plain=True) run warp_group_plain; the gradient with respect to the
+    fields is the transposed warp (K6 or its plain version)."""
+    fs = tuple(fields) if isinstance(fields, tuple) else (fields,)
+    opts = (int(window), bool(nearest), minmax, plain)
+    if needs_grad(*fs):
+        return _WarpGroup.apply(opts, px, py, pz, *fs)
+    return _warp_forward(fs, px, py, pz, *opts)
 
 
 def warp_trilinear(fields, px, py, pz, window: int = DEFAULT_WINDOW, *,

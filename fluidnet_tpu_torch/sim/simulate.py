@@ -18,19 +18,27 @@ FLUIDNET_FUSED_PROLOGUE default ON in the JAX package), one step is:
      velocity update.
   4. slab BCs again, velocity clipped to +-1e6
 
-2-D (the interactive demo's step, any number of density channels):
+The other branches, 2-D and 3-D alike (the interactive demo's 2-D step,
+data generation, training):
 
   1. the window: with adaptive_window, W = 1 when max|u| dt <= 1 - 1e-3,
      else advection_window (one host read per step)
-  2. each density channel advected on its own, then the velocity, every
-     interpolation through the windowed warp (K5)
-  3. BCs; buoyancy, gravity and vorticity confinement unfused, in PyTorch
+  2. each density channel advected on its own, then the velocity: every
+     interpolation through the windowed warp (K5) in 2-D and for the 3-D
+     density, the 3-D velocity on K1's unfused velocity sweep
+  3. BCs; forces: the forces block (K2's forces-block form) in 3-D with
+     density, else buoyancy, gravity and vorticity confinement one by one
+     (3-D confinement with a scalar strength on K4); per-sample (B,)
+     scales run the plain compositions. With output_div the step ends
+     here, returning the divergent state (training's last unroll step,
+     data generation).
   4. the projection: setWallBcs (solvers), BCs, then the ConvNet (plus
      polish_iters Jacobi sweeps, K3), or jacobi (K3) / PCG with the
      velocity update; BCs again, velocity clipped to +-1e6
 
-Inference only (torch.no_grad). The other branches of the JAX simulate()
-raise NotImplementedError naming the ROADMAP item that ports them.
+simulate(grad=True) records the step for autograd: every kernel on the way
+has the gradient rule of its JAX custom VJP. rollout() and the default
+simulate() run under torch.no_grad.
 """
 
 from __future__ import annotations
@@ -47,12 +55,11 @@ from fluidnet_tpu_torch.ops.advect_fast import (advect_vel_scalar_fast,
                                                 chebyshev_free_space)
 from fluidnet_tpu_torch.ops.boundary import set_wall_bcs
 from fluidnet_tpu_torch.ops.cuda.forces_kernel import slab
-from fluidnet_tpu_torch.ops.cuda.mac_sweep import (advect_sweep_fused_ep,
-                                                   sweep_fused_ep_plain)
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
 from fluidnet_tpu_torch.ops.forces import (add_buoyancy, add_gravity,
                                            forces_block, forces_block_xla,
-                                           vorticity_confinement)
+                                           vorticity_confinement,
+                                           vorticity_confinement_xla)
 from fluidnet_tpu_torch.ops.prologue import (projection_prologue,
                                              prologue_ref)
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
@@ -141,6 +148,7 @@ class _Forces:
     when its override is given (a zero one is an exact no-op) or when
     mconf's scale is positive."""
     dt: object
+    gravity: object
     b_scale: object
     g_scale: object
     v_amp: object
@@ -148,11 +156,24 @@ class _Forces:
     has_grav: bool
     has_vc: bool
 
+    @property
+    def batched(self):
+        """Per-sample scales (fault F1 fixed: any scale of ndim > 0, or a
+        (B, 3) gravity, is batched)."""
+        return (torch.as_tensor(self.b_scale).dim() > 0 or
+                torch.as_tensor(self.g_scale).dim() > 0 or
+                torch.as_tensor(self.v_amp).dim() > 0 or
+                torch.as_tensor(self.gravity).dim() > 1)
+
 
 def _resolve_forces(state, mconf, dt, buoyancy_scale, gravity_scale,
-                    vorticity_amp):
+                    vorticity_amp, gravity=None):
+    if gravity is None:
+        gravity = (0.0, 1.0, 0.0) if mconf.gravity is None \
+            else mconf.gravity   # simulate.lua:204-213
     return _Forces(
         dt=mconf.dt if dt is None else dt,
+        gravity=gravity,
         b_scale=mconf.buoyancy_scale if buoyancy_scale is None
         else buoyancy_scale,
         g_scale=mconf.gravity_scale if gravity_scale is None
@@ -166,8 +187,8 @@ def _resolve_forces(state, mconf, dt, buoyancy_scale, gravity_scale,
         mconf.vorticity_confinement_amp > 0)
 
 
-def _check_slice(state: FluidState, mconf: ModelConfig, model, forces):
-    """Raises NotImplementedError for the simulate() branches not ported."""
+def _check_slice(state: FluidState, mconf: ModelConfig, model):
+    """Raises for the simulate() branches not ported."""
     if mconf.sim_method not in ("convnet", "jacobi", "pcg"):
         raise ValueError(f"bad sim_method {mconf.sim_method}")
     if mconf.sim_method == "convnet" and model is None:
@@ -176,31 +197,14 @@ def _check_slice(state: FluidState, mconf: ModelConfig, model, forces):
         raise NotImplementedError("the exact gather advection (window 0) is "
                                   "not ported (ROADMAP queue 1, ops off the "
                                   "main path)")
-    if not state.is_3d:
-        return
-    if mconf.adaptive_window and mconf.advection_window > 1:
-        raise NotImplementedError("the adaptive advection window in 3-D is "
-                                  "not ported yet (ROADMAP queue 1, ops off "
-                                  "the main path); set adaptive_window="
-                                  "False")
-    if state.density is None and forces.has_vc:
-        raise NotImplementedError("a 3-D step without density runs the "
-                                  "standalone vorticity confinement (K4), "
-                                  "not ported yet (ROADMAP queue 1, "
-                                  "training slice)")
-    if state.density is None or state.density.shape[1] != 1 or \
-            mconf.advection_method == "maccormack":
-        raise NotImplementedError("3-D advection is ported on the fused "
-                                  "sweep only: one density channel, "
-                                  "maccormackOurs / euler / eulerOurs "
-                                  "(ROADMAP queue 1, K1 unfused)")
 
 
 def simulate(state: FluidState, mconf: ModelConfig, model=None,
              bcs: Optional[Boundaries] = None,
              use_kernels: bool = True, dt=None, buoyancy_scale=None,
              gravity_scale=None, vorticity_amp=None,
-             consts: Optional["FlagConsts"] = None) -> FluidState:
+             consts: Optional["FlagConsts"] = None, output_div: bool = False,
+             gravity=None, grad: bool = False) -> FluidState:
     """One simulation step with the projection mconf.sim_method: "convnet"
     (the ConvNet `model`, a models.fluidnet.FluidNet, plus mconf.
     polish_iters Jacobi sweeps), "jacobi" (mconf.max_iter fixed sweeps)
@@ -210,17 +214,22 @@ def simulate(state: FluidState, mconf: ModelConfig, model=None,
     the kernels are checked against.
 
     `dt`, `buoyancy_scale`, `gravity_scale` and `vorticity_amp` override
-    mconf's (floats or 0-d tensors); a given force runs even at zero, as
-    in JAX. `consts`: a FlagConsts reused across steps while the flags
-    stay the same (the interactive server keeps one); None computes the
-    flag-derived fields anew."""
+    mconf's (floats, 0-d tensors, or per-sample (B,) tensors for the
+    scales); a given force runs even at zero, as in JAX. `gravity`
+    overrides mconf.gravity with a (3,) vector. Keep these on the host:
+    the kernels take them as launch arguments. `output_div` returns the
+    divergent state after the forces, before the projection (training and
+    data generation). `consts`: a FlagConsts reused across steps while the
+    flags stay the same (the interactive server keeps one); None computes
+    the flag-derived fields anew. `grad=True` records the step for
+    autograd (training); otherwise it runs under torch.no_grad."""
     forces = _resolve_forces(state, mconf, dt, buoyancy_scale,
-                             gravity_scale, vorticity_amp)
-    _check_slice(state, mconf, model, forces)
-    with torch.no_grad():
+                             gravity_scale, vorticity_amp, gravity)
+    _check_slice(state, mconf, model)
+    with torch.set_grad_enabled(grad):
         return _step(state, mconf, model, bcs,
                      FlagConsts() if consts is None else consts,
-                     use_kernels, forces)
+                     use_kernels, forces, output_div)
 
 
 @dataclasses.dataclass
@@ -238,18 +247,29 @@ class FlagConsts:
         return self.free_space[max_d]
 
 
-def _forces_config(mconf, dx, forces):
-    """(buoy_g, grav_g, amp) of simulate.lua:216-239, on the host: the 3-D
-    kernels take them as launch arguments, the 2-D force ops as tensors."""
-    g_vec = torch.tensor([0.0, 1.0, 0.0] if mconf.gravity is None
-                         else list(mconf.gravity), dtype=torch.float32)
+def _scale(g_vec, scale):
+    """g_vec * scale, scale a scalar or a per-sample (B,) vector (then a
+    (B, 3) gravity), in float32 as the JAX _scale_gravity."""
+    scale = torch.as_tensor(scale, dtype=torch.float32)
+    if scale.dim() == 0:
+        return g_vec * scale
+    return g_vec[None, :] * scale[:, None]
+
+
+def _forces_config(dx, forces):
+    """(buoy_g, grav_g, amp) of simulate.lua:216-239 (simulate.py:
+    211-218), float32 on the host: the 3-D kernels take them as launch
+    arguments, the plain force ops as tensors."""
+    f32 = torch.float32
+    g_vec = torch.as_tensor(forces.gravity, dtype=f32).cpu()
     zero3 = torch.zeros(3)
-    buoy_g = g_vec * (-(dx / 4.0) * float(forces.b_scale)) \
-        if forces.has_buoy else zero3
-    grav_g = g_vec * (-(dx / 4.0) * float(forces.g_scale)) \
-        if forces.has_grav else zero3
-    amp = torch.tensor(float(forces.v_amp)) * dx if forces.has_vc \
-        else torch.zeros(())
+    coef = -(dx / 4.0)
+    buoy_g = _scale(g_vec, coef * torch.as_tensor(forces.b_scale, dtype=f32)
+                    .cpu()) if forces.has_buoy else zero3
+    grav_g = _scale(g_vec, coef * torch.as_tensor(forces.g_scale, dtype=f32)
+                    .cpu()) if forces.has_grav else zero3
+    amp = dx * torch.as_tensor(forces.v_amp, dtype=f32).cpu() \
+        if forces.has_vc else torch.zeros(())
     return buoy_g, grav_g, amp
 
 
@@ -261,52 +281,34 @@ def _fixed_jacobi(flags, div, n_sweeps, use_kernels):
     return jacobi_plain(flags, div, n_sweeps)
 
 
-def _step(state, mconf, model, bcs, consts, use_kernels, forces):
-    if not state.is_3d:
-        return _step_2d(state, mconf, model, bcs, consts, use_kernels,
-                        forces)
-    dt = forces.dt
-    u, flags, density = state.u, state.flags, state.density
-    dx = get_dx(flags)
+def _window(mconf, u, dt):
+    """The advection window: with adaptive_window, W = 1 when the step's
+    CFL number max|u| dt fits one cell (the window only limits
+    displacements, so W = 1 is then exact; simulate.py:155-164), else
+    advection_window. One host read per step."""
     W = mconf.advection_window
-    free = consts.free(flags, W + 1) \
-        if mconf.advection_method.endswith("Ours") else None
-
-    # 1.+2. Advection: density and all three MAC components, fused.
-    density, u = advect_vel_scalar_fast(
-        dt, density, u, flags, mconf.advection_method, False,
-        mconf.maccormack_strength, W, free=free,
-        sweep=advect_sweep_fused_ep if use_kernels else sweep_fused_ep_plain)
-    buoy_g, grav_g, amp = _forces_config(mconf, dx, forces)
-    state = state.replace(u=u, density=density)
-    if mconf.sim_method == "convnet":
-        state = _convnet_projection(state, mconf, model, bcs, buoy_g,
-                                    grav_g, amp, dt, use_kernels)
-    else:
-        has_forces = forces.has_buoy or forces.has_grav or forces.has_vc
-        state = _solver_projection(state, mconf, bcs, consts, buoy_g, grav_g,
-                                   amp, dt, use_kernels, has_forces)
-    state = apply_boundaries(state, bcs)
-    return state.replace(u=state.u.clamp(-U_CLAMP, U_CLAMP))
+    if mconf.adaptive_window and W > 1 and \
+            bool(u.detach().abs().max() * dt <= 1.0 - 1e-3):
+        return 1
+    return W
 
 
-def _step_2d(state, mconf, model, bcs, consts, use_kernels, forces):
-    """The 2-D step (simulate.py:117-290 with 2-D shapes): per-channel and
-    velocity advection on K5, unfused forces, the projection."""
-    dt = forces.dt
+def _advect(state, mconf, consts, dt, plain):
+    """Advection of the density channels and the velocity (the velocity
+    last, simulate.lua:183-199). 3-D with one density channel and a method
+    other than Manta's maccormack runs the fused combined path (K1, two
+    launches); otherwise each density channel, then the velocity (K5 for
+    every interpolation in 2-D and for the 3-D density, K1's unfused
+    velocity sweep in 3-D)."""
     u, flags, density = state.u, state.flags, state.density
-    plain = not use_kernels
-    W = mconf.advection_window
-    if mconf.adaptive_window and W > 1:
-        # The window only limits displacements: when the step's CFL
-        # number fits one cell, W = 1 is exact (simulate.py:155-164).
-        if bool(u.abs().max() * dt <= 1.0 - 1e-3):
-            W = 1
+    W = _window(mconf, u, dt)
     method = mconf.advection_method
     free = consts.free(flags, W + 1) if method.endswith("Ours") else None
-
-    # 1.+2. Advection: each density channel, then the velocity (last,
-    # simulate.lua:183-199).
+    if state.is_3d and density is not None and density.shape[1] == 1 and \
+            method != "maccormack":
+        return advect_vel_scalar_fast(
+            dt, density, u, flags, method, False, mconf.maccormack_strength,
+            W, free=free, plain=plain)[::-1]
     kw = dict(method=method, maccormack_strength=mconf.maccormack_strength,
               window=W, free_space=free, plain=plain)
     if density is not None:
@@ -314,44 +316,76 @@ def _step_2d(state, mconf, model, bcs, consts, use_kernels, forces):
             advect_scalar(dt, density[:, c:c + 1], u, flags,
                           sample_outside_fluid=False, **kw)
             for c in range(density.shape[1])], dim=1)
-    u = advect_vel(dt, u, flags, **kw)
+    return advect_vel(dt, u, flags, **kw), density
 
-    # 3. External BCs; 4.-6. forces (simulate.py:233-241).
-    state = apply_boundaries(state.replace(u=u, density=density), bcs)
-    u, density = state.u, state.density
-    buoy_g, grav_g, amp = _forces_config(mconf, get_dx(flags), forces)
+
+def _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels):
+    """The unfused-projection forces (simulate.py:223-241): the fused
+    block (K2's forces-block form) in 3-D with density, else each force on
+    its own (3-D confinement with a scalar strength on K4)."""
+    u, flags, density = state.u, state.flags, state.density
+    if not (forces.has_buoy or forces.has_grav or forces.has_vc):
+        return u
+    if state.is_3d and density is not None:
+        block = forces_block if use_kernels else forces_block_xla
+        return block(u, flags, density[:, 0:1], buoy_g, grav_g, amp, dt)
     if forces.has_buoy:
         u = add_buoyancy(u, flags, density[:, 0:1], buoy_g, dt)
     if forces.has_grav:
         u = add_gravity(u, flags, grav_g, dt)
     if forces.has_vc:
-        u = vorticity_confinement(u, flags, amp)
+        vc = vorticity_confinement if use_kernels \
+            else vorticity_confinement_xla
+        u = vc(u, flags, amp)
+    return u
 
-    # 7. Projection (simulate.py:248-290).
-    if mconf.sim_method != "convnet":
-        u = set_wall_bcs(u, flags)
-    state = apply_boundaries(state.replace(u=u), bcs)
-    u, p = state.u, state.p
-    if mconf.sim_method == "convnet":
-        p, u = model(p, u, flags)
-        if mconf.polish_iters > 0:
-            res_div = velocity_divergence(u, flags)
-            dp = _fixed_jacobi(flags, res_div, mconf.polish_iters,
-                               use_kernels)
-            u = velocity_update(u, flags, dp)
-            p = p + dp
+
+def _step(state, mconf, model, bcs, consts, use_kernels, forces,
+          output_div=False):
+    dt = forces.dt
+    flags = state.flags
+    u, density = _advect(state, mconf, consts, dt, not use_kernels)
+    state = state.replace(u=u, density=density)
+    buoy_g, grav_g, amp = _forces_config(get_dx(flags), forces)
+    convnet = mconf.sim_method == "convnet"
+    if state.is_3d and convnet and not output_div and \
+            density is not None and not forces.batched:
+        state = _convnet_projection(state, mconf, model, bcs, buoy_g,
+                                    grav_g, amp, dt, use_kernels)
     else:
-        div = velocity_divergence(u, flags)
-        if mconf.sim_method == "pcg":
-            if consts.labels is None:
-                consts.labels = connected_components(flags)
-            p, _ = solve_pcg(flags, div, tol=mconf.pcg_tol,
-                             max_iter=mconf.max_iter, labels=consts.labels)
+        # 3. External BCs; 4.-6. forces (simulate.py:199-241).
+        state = apply_boundaries(state, bcs)
+        u = _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels)
+        if output_div:
+            return state.replace(u=u)
+        # 7. Projection (simulate.py:248-290).
+        if not convnet:
+            u = set_wall_bcs(u, flags)
+        state = apply_boundaries(state.replace(u=u), bcs)
+        if convnet:
+            state = _polish(state, mconf, *model(state.p, state.u, flags),
+                            use_kernels)
         else:
-            p = _fixed_jacobi(flags, div, mconf.max_iter, use_kernels)
-        u = velocity_update(u, flags, p)
-    state = apply_boundaries(state.replace(u=u, p=p), bcs)
-    return state.replace(u=state.u.clamp(-U_CLAMP, U_CLAMP))
+            state = _solver_projection(state, mconf, consts, use_kernels)
+    state = apply_boundaries(state, bcs)
+    u = state.u
+    if u.requires_grad:
+        # jnp.clip's gradient at ties (simulate.py:289), not torch.clamp's.
+        lim = u.new_tensor(U_CLAMP)
+        return state.replace(u=torch.minimum(torch.maximum(u, -lim), lim))
+    return state.replace(u=u.clamp(-U_CLAMP, U_CLAMP))
+
+
+def _polish(state, mconf, p, u, use_kernels):
+    """The ConvNet's result, with polish_iters > 0 that many Jacobi sweeps
+    (K3) on its residual divergence, the velocity update and p += dp."""
+    if mconf.polish_iters > 0:
+        res_div = velocity_divergence(u, state.flags)
+        dp = _fixed_jacobi(state.flags, res_div, mconf.polish_iters,
+                           use_kernels)
+        u = velocity_update(u, state.flags, dp)
+        p = p + dp
+    return state.replace(u=u, p=p)
 
 
 def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp, dt,
@@ -375,33 +409,18 @@ def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp, dt,
                       amp, float(dt), u_bc, u_inv)
 
     # The p/density slabs are idempotent masks, reapplied as the JAX step
-    # does.
+    # does. The model takes the prologue's divergence (fault F3 fixed: the
+    # gradient reaches u through it).
     state = apply_boundaries(state.replace(u=u), bcs_nou)
-    p, u = model(state.p, u, flags, precomputed_div=div)
-    if mconf.polish_iters > 0:
-        # Hybrid projection: Jacobi sweeps on the ConvNet's residual.
-        res_div = velocity_divergence(u, flags)
-        dp = _fixed_jacobi(flags, res_div, mconf.polish_iters, use_kernels)
-        u = velocity_update(u, flags, dp)
-        p = p + dp
-    return state.replace(u=u, p=p)
+    return _polish(state, mconf,
+                   *model(state.p, u, flags, precomputed_div=div),
+                   use_kernels)
 
 
-def _solver_projection(state, mconf, bcs, consts, buoy_g, grav_g, amp, dt,
-                       use_kernels, has_forces):
-    """The Jacobi / PCG path: full BCs, the forces block (K2's forces-block
-    form), setWallBcs, BCs, divergence, solve, velocity update. Returns
-    the state before the final BCs."""
-    flags = state.flags
-    state = apply_boundaries(state, bcs)
-    u = state.u
-    if has_forces:
-        block = forces_block if use_kernels else forces_block_xla
-        u = block(u, flags, state.density[:, 0:1], buoy_g, grav_g, amp,
-                  float(dt))
-    u = set_wall_bcs(u, flags)
-    state = apply_boundaries(state.replace(u=u), bcs)
-    u = state.u
+def _solver_projection(state, mconf, consts, use_kernels):
+    """The Jacobi / PCG projection of the wall-BC'ed state: divergence,
+    solve, velocity update. Returns the state before the final BCs."""
+    flags, u = state.flags, state.u
     div = velocity_divergence(u, flags)
     if mconf.sim_method == "pcg":
         if consts.labels is None:
@@ -427,7 +446,7 @@ def rollout(state: FluidState, mconf: ModelConfig, n_steps: int,
         raise ValueError(f"n_steps ({n_steps}) must be divisible by "
                          f"save_every ({save_every})")
     forces = _resolve_forces(state, mconf, None, None, None, None)
-    _check_slice(state, mconf, model, forces)
+    _check_slice(state, mconf, model)
     consts = FlagConsts()
     frames = []
     with torch.no_grad():

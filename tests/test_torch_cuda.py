@@ -303,3 +303,130 @@ def test_rollout_2d_kernels_match_plain(dev, method):
     plain = rollout(state, mconf, 3, model, bcs, use_kernels=False)
     for field in ("u", "p", "density"):
         _close(getattr(kern, field), getattr(plain, field), field)
+
+
+# --- the training slice: K1's unfused forms, K6, K4, train gradients ------
+
+@pytest.mark.parametrize("is_bwd,ours,with_scalar,renorm", [
+    (False, True, True, True), (True, True, True, True),
+    (False, False, True, False), (True, False, True, False),
+    (False, True, False, False), (True, False, False, False)])
+def test_unfused_sweep_kernel_and_vjp_match_plain(dev, is_bwd, ours,
+                                                  with_scalar, renorm):
+    """K1's unfused form against sweep_plain, and its VJP (K6) against the
+    plain VJP (K6's plain version), one launch each counted."""
+    c = _case(dev, 13)
+    m = is_fluid(c["flags"]).to(torch.float32)
+    free = chebyshev_free_space(c["flags"], 2) if ours else None
+    fwd_u = c["u"].roll(1, 4).contiguous() if is_bwd else None
+    fwd_s = c["s"].roll(1, 3).contiguous() if is_bwd and with_scalar \
+        else None
+    s = c["s"] if with_scalar and not is_bwd else None
+    args = (c["u"], s, m if with_scalar else None, fwd_u, fwd_s, free,
+            0.1 if is_bwd else -0.1, 1, ours, with_scalar, renorm)
+    _close(mac_sweep.sweep_cuda(*args), mac_sweep.sweep_plain(*args), "raw")
+    grads = {}
+    for plain in (False, True):
+        a = list(args)
+        xs = []
+        for i in ((3, 4) if is_bwd else (0, 1)):
+            if a[i] is not None:
+                a[i] = a[i].clone().requires_grad_()
+                xs.append(a[i])
+        before = dict(_build.launches)
+        out = mac_sweep.advect_sweep(*a, plain=plain)
+        rng = torch.Generator().manual_seed(3)
+        loss = sum((v * torch.randn(v.shape, generator=rng).to(dev)).sum()
+                   for v in out.values())
+        loss.backward()
+        grads[plain] = [x.grad for x in xs]
+        if not plain:
+            key = "mac_sweep_unfused_" + ("bwd" if is_bwd else "fwd")
+            assert _build.launches[key] == before.get(key, 0) + 1
+            assert _build.launches["warp_transpose"] == \
+                before.get("warp_transpose", 0) + (2 if with_scalar else 1)
+    for g, p in zip(grads[False], grads[True]):
+        _close(g, p, "vjp")
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2, 9, 13, 17), (2, 2, 2, 1, 13, 17)])
+@pytest.mark.parametrize("nearest", [False, True])
+def test_warp_transpose_kernel_matches_plain(dev, shape, nearest):
+    """K6 against warp_transpose_plain, windows 1 and 2, positions inside
+    the window and past it, 3-D and 2-D."""
+    from fluidnet_tpu_torch.ops.cuda.warp_transpose import (
+        warp_transpose_cuda, warp_transpose_plain)
+    before = _build.launches["warp_transpose"]
+    for W in (1, 2):
+        fields, (px, py, pz) = _warp_case(dev, shape[:2] + shape[3:], 2,
+                                          (2,), W, 20 + W)
+        if nearest:
+            px, py, pz = (torch.floor(p) + 0.5 for p in (px, py, pz))
+        g = torch.randn(shape, device=dev)
+        _close(warp_transpose_cuda(g, px, py, pz, W, nearest),
+               warp_transpose_plain(g, px, py, pz, W, nearest), f"W={W}")
+    assert _build.launches["warp_transpose"] == before + 2
+
+
+def test_vorticity_kernel_matches_plain_and_grad(dev):
+    """K4 against vorticity_confinement_xla, and its replayed gradient
+    against autograd of the plain composition."""
+    from fluidnet_tpu_torch.ops.cuda.forces_kernel import vorticity_cuda
+    from fluidnet_tpu_torch.ops.forces import (vorticity_confinement,
+                                               vorticity_confinement_xla)
+    c = _case(dev, 14)
+    before = _build.launches["vorticity"]
+    _close(vorticity_cuda(c["u"], c["flags"], 0.7),
+           vorticity_confinement_xla(c["u"], c["flags"], 0.7), "u'")
+    grads = []
+    for fn in (vorticity_confinement, vorticity_confinement_xla):
+        u = c["u"].clone().requires_grad_()
+        (fn(u, c["flags"], 0.7) * c["u"]).sum().backward()
+        grads.append(u.grad)
+    _close(grads[0], grads[1], "grad")
+    assert _build.launches["vorticity"] == before + 2
+
+
+def test_train_loss_grad_kernels_match_plain(dev):
+    """One 'full'-mode loss_fn at n = 2 with every kernel against one with
+    every plain version (float32 convs, deterministic cuDNN): the loss and
+    each parameter's gradient within 1e-4 relative L2; the launches per
+    step (train/train.py): K1 fused 2n - 1 per direction (n forward, n - 1
+    recomputed), K1 unfused and K6 for the n - 1 steps whose input depends
+    on the parameters (the first step's does not: autograd skips its
+    adjoint, as JAX's does), K2's prologue 2(n - 1), its forces block 1."""
+    from fluidnet_tpu_torch.core.config import ModelConfig
+    from fluidnet_tpu_torch.models.fluidnet import random_model
+    from fluidnet_tpu_torch.train.train import draw, loss_fn
+    torch.backends.cudnn.deterministic = True
+    mconf = ModelConfig(is_3d=True, advection_method="maccormackOurs",
+                        adaptive_window=False, advection_window=1,
+                        long_term_grad_mode="full",
+                        conv_compute_dtype="float32")
+    c = _case(dev, 15)
+    batch = {"flags": c["flags"], "u_div": c["u"] * 0.2,
+             "p_div": torch.zeros_like(c["s"]), "density": c["s"]}
+    model = random_model(mconf, 1, dev)
+    draws = draw(torch.Generator().manual_seed(4), mconf)
+    draws = draws._replace(b_scale=torch.tensor(2.0),
+                           v_amp=torch.tensor(3.0))
+    n = 2
+    res = {}
+    for use_kernels in (True, False):
+        _build.launches.clear()
+        total, _ = loss_fn(model, batch, None, mconf, n, draws=draws,
+                           use_kernels=use_kernels)
+        grads = torch.autograd.grad(total, list(model.parameters()))
+        torch.cuda.synchronize()
+        res[use_kernels] = (total.detach(), grads, dict(_build.launches))
+    assert res[False][2] == {}
+    assert res[True][2] == {"mac_sweep_fwd": 2 * n - 1,
+                            "mac_sweep_bwd": 2 * n - 1,
+                            "mac_sweep_unfused_fwd": n - 1,
+                            "mac_sweep_unfused_bwd": n - 1,
+                            "warp_transpose": 4 * (n - 1),
+                            "prologue": 2 * (n - 1), "forces_block": 1}
+    for a, b in zip(res[True][1] + (res[True][0],),
+                    res[False][1] + (res[False][0],)):
+        rel = (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+        assert rel <= 1e-4, rel

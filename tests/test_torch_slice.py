@@ -145,12 +145,19 @@ def test_rollout_three_steps_projections(case, fused_knobs, name):
 @pytest.mark.parametrize("kw", [dict(adaptive_window=True,
                                      advection_window=2),
                                 dict(no_density=True)])
-def test_unported_branches_raise(case, kw):
-    """The adaptive advection window, and a step without density, which
-    needs the standalone vorticity confinement (K4)."""
-    state = case["tstate"]
+def test_unported_branches_raise(case, fused_knobs, kw):
+    """The two 3-D branches the first slices left unported, which now run
+    and match JAX for one step: the adaptive advection window (W = 1 is
+    taken when max|u| dt fits a cell), and a step without density (the
+    velocity on K1's unfused sweep, vorticity confinement alone on K4's
+    plain version)."""
+    js, ts = case["jstate"], case["tstate"]
+    jbcs, tbcs = case["jbcs"], case["tbcs"]
     if kw.pop("no_density", False):
-        state = state.replace(density=None)
-    with pytest.raises(NotImplementedError):
-        simulate(state, case["tm"].replace(**kw), case["tmodel"],
-                 case["tbcs"])
+        js, ts = js.replace(density=None), ts.replace(density=None)
+    jm, tm = case["jm"].replace(**kw), case["tm"].replace(**kw)
+    js = j_simulate(js, jm, case["jmodel"], case["params"], jbcs)
+    ts = simulate(ts, tm, case["tmodel"], tbcs)
+    for name in ("u", "p") + (("density",) if ts.density is not None
+                              else ()):
+        assert_close(getattr(ts, name), getattr(js, name), RTOL, ATOL, name)
