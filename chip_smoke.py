@@ -5,9 +5,11 @@
 
 Drives the port's paths on the card: the 3-D 128^3 plume that bench.py
 times for the JAX package (the ConvNet rollout and the jacobi-34 / PCG /
-ConvNet + Jacobi-polish certification rollouts), and the 2-D interactive
-demo server (cli/serve.py with the bundled m2d ConvNet at 128^2), in
-these phases:
+ConvNet + Jacobi-polish certification rollouts), the 2-D interactive
+demo server (cli/serve.py with the bundled m2d ConvNet at 128^2), 3-D
+training (the m3d_v5 recipe), the offline 3-D entry points (cli/sim3d.py
+around a voxelized obstacle, the exact advection route, cli/stats.py) and
+the dyngather probe, in these phases:
 
   1. device: fails without CUDA; prints the card's name and power limit.
   2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
@@ -78,10 +80,36 @@ these phases:
  13. train grads: one loss_fn at n = 4 with the kernels against one with
              every plain version (deterministic cuDNN): the loss and every
              parameter's gradient within 1e-4 relative L2.
+ 14. probe:  K7 (the dyngather probe's take_along_axis): scripts/
+             torch_dyngather.py's both forms counted (run after phase 4);
+             each form at 128x128 and 37x61 against its plain version and
+             np.take_along_axis, max abs error 0; times at 128x128 from
+             CUDA graphs beside torch.gather (timed, never used).
+ 15. stats:  cli.stats.compute on phase 10's 64^3 test split (run before
+             it is removed): the bundled ConvNet, jacobi-34 and PCG, 64
+             steps from every test sample; TSVs written and finite, PCG's
+             last-step mean ||div||_2 below jacobi-34's.
+ 16. sim3d:  a closed OBJ (a box and a UV sphere) written to
+             build/smoke_sim3d/, voxelized at 64^3 by the port's
+             io.voxelize and saved as .binvox; cli.sim3d.build_scene's
+             128^3 plume around it with the bundled ConvNet and sim3d's
+             knobs. 768 frames with the ConvNet and with jacobi-34,
+             nothing exported: ms/frame, ||div||_2 and finiteness every 16
+             steps, K1 twice and K2's prologue once a ConvNet step (K1
+             twice, the forces block and K3 once a jacobi step); 8 steps
+             kernels vs plain from the ConvNet state after 64 frames; then
+             cli.sim3d.main with --num_frames 25 --decimation 3, whose
+             .vbox files read back hold 8 finite density frames and the
+             scene's obstacle cells.
+ 17. exact:  advection_window 0 on the same scene: 16 ConvNet frames,
+             finite, K1 not launched, ms/frame and peak memory; one exact
+             advect_scalar and advect_vel (maccormackOurs) at 64^3 on the
+             card against the CPU, relative L2 at most 1e-4.
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}. Any failure
 raises: the exit code is then not 0 and no result line is printed.
+Outputs under build/ are removed at the end.
 """
 
 
@@ -144,6 +172,8 @@ KERNELS = {
                        "fluidnet_tpu/ops/pallas/warp.py:364"),
     "vorticity": ("fluidnet_tpu_torch/csrc/prologue.cu",
                   "fluidnet_tpu/ops/pallas/forces_kernel.py:33"),
+    "dyngather": ("fluidnet_tpu_torch/csrc/dyngather.cu",
+                  "scripts/test_dyngather.py:11"),
 }
 # K5's forms on the 2-D path, by (G, source channel counts, nearest,
 # minmax) of ops/warp.py::warp_group.
@@ -171,6 +201,16 @@ JACOBI_FLOPS_3D = 7
 # of the 8 (source, target) pairs a trilinear source reaches, 3 weight
 # products and 4 for the term and its sum.
 WARP_T_FLOPS = 9 + 8 * 7
+# The offline 3-D slice: sim3d around a voxelized obstacle (removed at the
+# end), the exact advection route, the stats CLI, the dyngather probe.
+SIM3D_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke_sim3d")
+SIM3D_FRAMES = 768              # cli/sim3d.py's default --num_frames
+DIV_EVERY = 16                  # ||div||_2 and finiteness read every 16 steps
+VOX_DIM = 64                    # the obstacle's voxelization
+EXACT_FRAMES, EXACT_RES = 16, 64
+STATS_STEPS = 64
+PROBE_SHAPES = ((128, 128), (37, 61))
 TRAIN_RES, TRAIN_B = 64, 6      # gen3d_v5's grid, train3d_v5.sh's batch
 TRAIN_REPS = 3                  # timed train steps per horizon
 EXACT = 1e-6                    # the new kernels vs plain: max abs error
@@ -1299,6 +1339,305 @@ def train_grad_phase(dev, batch):
     return worst
 
 
+# --- the offline 3-D slice ---------------------------------------------------
+
+
+def load_script(name):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def probe_phase(dev):
+    """K7: the probe's own path (scripts/torch_dyngather.py, both forms at
+    128x128) with its launches counted; then each form at 128x128 and
+    37x61 against its plain version and np.take_along_axis (the max abs
+    error must be 0); times at 128x128 replayed from CUDA graphs: the
+    kernel, its plain version and torch.gather (timed, never used)."""
+    from fluidnet_tpu_torch.ops.cuda import _build
+    from fluidnet_tpu_torch.ops.cuda.dyngather import (
+        take_along_axis, take_along_axis_plain)
+    probe = load_script("torch_dyngather")
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    if probe.main(dev) != 0:
+        raise AssertionError("scripts/torch_dyngather.py failed")
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    check_counts(launches, 2, {"dyngather": 1}, "probe (both forms)")
+    worst, times = 0.0, {}
+    for shape in PROBE_SHAPES:
+        for axis in (1, 0):
+            rng = np.random.default_rng(shape[1] + axis)
+            src = rng.standard_normal(shape).astype(np.float32)
+            idx = rng.integers(0, shape[axis], shape).astype(np.int32)
+            s, i = torch.tensor(src, device=dev), torch.tensor(idx, device=dev)
+            out = take_along_axis(s, i, axis)
+            ref = take_along_axis_plain(s, i, axis)
+            torch.cuda.synchronize()
+            err = max((out - ref).abs().max().item(), float(np.abs(
+                out.cpu().numpy() - np.take_along_axis(src, idx, axis))
+                .max()))
+            log(f"  K7 axis={axis} {shape[0]}x{shape[1]}: max abs err vs "
+                f"plain and np.take_along_axis {err:.3e}")
+            if err != 0.0:
+                raise AssertionError(f"K7 axis={axis} {shape}: max abs err "
+                                     f"{err}")
+            worst = max(worst, err)
+            if shape != PROBE_SHAPES[0]:
+                continue
+            i64 = i.to(torch.int64)
+            kg = graph_ms(lambda: take_along_axis(s, i, axis), 50)
+            pg = graph_ms(lambda: take_along_axis_plain(s, i, axis), 50)
+            lib = graph_ms(lambda: torch.gather(s, axis, i64), 50)
+            k_py = cuda_ms(lambda: take_along_axis(s, i, axis), 200)
+            b_ms, b_by = bound(nbytes(s, i, out), 0)
+            times[axis] = (kg, pg, b_ms, b_by, lib)
+            log(f"time K7 axis={axis} at 128x128: from a CUDA graph, kernel "
+                f"{kg:.5f} ms, plain {pg:.5f} ms, torch.gather {lib:.5f} ms;"
+                f" issued from Python {k_py:.5f} ms; bound {b_ms:.7f} ms "
+                f"({b_by}: {nbytes(s, i, out)} B)")
+    return launches, worst, times
+
+
+def write_scene_obj(path):
+    """A closed box and a closed UV sphere beside it, as one OBJ (quads
+    and triangle fans, 1-based indices)."""
+    verts = [(x, y, z) for z in (0.0, 0.5) for y in (0.0, 1.0)
+             for x in (0.0, 0.6)]
+    faces = [(1, 3, 4, 2), (5, 6, 8, 7), (1, 2, 6, 5), (3, 7, 8, 4),
+             (1, 5, 7, 3), (2, 4, 8, 6)]
+    n_lat, n_lon, r = 12, 16, 0.35
+    c = np.array([1.2, 0.5, 0.3])
+    th = np.pi * np.arange(1, n_lat) / n_lat
+    ph = 2 * np.pi * np.arange(n_lon) / n_lon
+    ring = c + r * np.stack([np.outer(np.sin(th), np.cos(ph)),
+                             np.outer(np.sin(th), np.sin(ph)),
+                             np.repeat(np.cos(th)[:, None], n_lon, 1)],
+                            -1).reshape(-1, 3)
+    top = len(verts) + 1
+    verts += [tuple(c + [0, 0, r])] + [tuple(v) for v in ring] + \
+        [tuple(c - [0, 0, r])]
+    bot = len(verts)
+
+    def rv(i, j):
+        return top + 1 + (i - 1) * n_lon + j % n_lon
+    for j in range(n_lon):
+        faces.append((top, rv(1, j), rv(1, j + 1)))
+        faces.append((bot, rv(n_lat - 1, j + 1), rv(n_lat - 1, j)))
+        faces += [(rv(i, j), rv(i + 1, j), rv(i + 1, j + 1), rv(i, j + 1))
+                  for i in range(1, n_lat - 1)]
+    with open(path, "w") as f:
+        f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in verts)
+        f.writelines("f " + " ".join(map(str, fc)) + "\n" for fc in faces)
+
+
+def div_norm(state):
+    from fluidnet_tpu_torch.ops.divergence import velocity_divergence
+    return torch.linalg.norm(velocity_divergence(state.u, state.flags))
+
+
+def sim3d_scene(dev):
+    """The closed OBJ voxelized at VOX_DIM by the port's io.voxelize,
+    written as .binvox, and cli.sim3d.build_scene's 128^3 plume around it.
+    Returns (binvox path, state, bcs, obstacle cells of the flags)."""
+    from fluidnet_tpu_torch.cli import sim3d
+    from fluidnet_tpu_torch.io.voxelize import save_binvox, voxelize_obj
+    os.makedirs(SIM3D_ROOT)
+    obj = os.path.join(SIM3D_ROOT, "scene.obj")
+    binvox = os.path.join(SIM3D_ROOT, "scene.binvox")
+    write_scene_obj(obj)
+    t0 = time.perf_counter()
+    vox = voxelize_obj(obj, dim=VOX_DIM)
+    save_binvox(binvox, vox)
+    state, bcs = sim3d.build_scene(RES, binvox, dev)
+    n_obst = int(((state.flags & 2) > 0).sum().item())
+    border = RES ** 3 - (RES - 2) ** 3
+    log(f"sim3d scene: {int(vox['data'].sum())} voxels at {VOX_DIM}^3 in "
+        f"{time.perf_counter() - t0:.3f} s; {n_obst - border} obstacle "
+        f"cells inside the {RES}^3 domain (plus its {border} border cells)")
+    if not n_obst > border:
+        raise AssertionError("sim3d scene: the obstacle is empty")
+    return binvox, state, bcs, n_obst
+
+
+def sim3d_phase(dev, model):
+    """cli.sim3d around the voxelized obstacle at 128^3 with the bundled
+    ConvNet and sim3d's knobs: (a) 768 frames with the ConvNet and with
+    jacobi-34, nothing exported: ms/frame, ||div||_2 and finiteness every
+    16 steps, the launches (K1 twice, K2's prologue once a ConvNet step;
+    K1 twice, the forces block and K3 once a jacobi step); (c) 8 steps
+    kernels vs plain from the ConvNet state after 64 frames; (b)
+    cli.sim3d.main with --num_frames 25 --decimation 3, both .vbox files
+    read back. Returns (launches, numbers, the scene)."""
+    from fluidnet_tpu_torch.cli import sim3d
+    from fluidnet_tpu_torch.io.vbox import read_vbox
+    from fluidnet_tpu_torch.ops.cuda import _build
+    from fluidnet_tpu_torch.sim.simulate import FlagConsts, rollout
+    from fluidnet_tpu_torch.utils.checkpoint import load_mconf
+
+    binvox, state0, bcs, n_obst = sim3d_scene(dev)
+    base = sim3d.scene_knobs(load_mconf(BUNDLED), RES)
+    runs = {"convnet": (base, model, {"prologue": 1}),
+            "jacobi34": (base.replace(sim_method="jacobi"), None,
+                         {"forces_block": 1, "jacobi": 1})}
+    launches, out, snap = {}, {"ms_per_frame": {}, "div_l2": {}}, None
+    for name, (m, net, per_step) in runs.items():
+        state, consts, divs, finite = state0, FlagConsts(), [], []
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        for k in range(SIM3D_FRAMES // DIV_EVERY):
+            state = rollout(state, m, DIV_EVERY, net, bcs, consts=consts)
+            divs.append(div_norm(state))
+            finite.append(torch.stack([torch.isfinite(t).all() for t in
+                                       (state.u, state.p, state.density)])
+                          .all())
+            if net is not None and (k + 1) * DIV_EVERY == 64:
+                snap = state
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SIM3D_FRAMES * 1e3
+        got = dict(_build.launches)
+        check_launches(got, SIM3D_FRAMES, per_step, f"sim3d {name}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        divs = torch.stack(divs).tolist()
+        if not torch.stack(finite).all().item():
+            raise AssertionError(f"sim3d {name}: a non-finite state")
+        out["ms_per_frame"][name] = ms
+        out["div_l2"][name] = {"first": divs[0], "last": divs[-1],
+                               "max": max(divs), "every16": divs}
+        log(f"sim3d {name}: {SIM3D_FRAMES} frames at {RES}^3 around the "
+            f"obstacle, {ms:.3f} ms/frame (||div|| read every {DIV_EVERY}"
+            f" steps); ||div||_2 first {divs[0]:.6f}, last {divs[-1]:.6f}, "
+            f"max {max(divs):.6f}; max|U| {state.u.abs().max().item():.4f};"
+            f" every state finite")
+    kernels_vs_plain_rollout(snap, base, model, bcs, "sim3d convnet")
+
+    out_dir = os.path.join(SIM3D_ROOT, "out")
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    cli_ms = sim3d.main(["--res", str(RES), "--num_frames", "25",
+                         "--decimation", "3", "--model", BUNDLED,
+                         "--voxel_model", binvox, "--out_dir", out_dir]) * 1e3
+    for k, v in _build.launches.items():
+        launches[k] = launches.get(k, 0) + v
+    frames, whd = read_vbox(os.path.join(out_dir,
+                                         f"density_output_dt{base.dt}.vbox"))
+    geom, _ = read_vbox(os.path.join(out_dir, "geom_output.vbox"))
+    log(f"sim3d cli: 25 frames, {cli_ms:.3f} ms/frame; density .vbox "
+        f"{frames.shape} (w, h, d) {whd}, max {frames.max():.4f}; geometry "
+        f"{int(geom.sum())} occupied cells")
+    if frames.shape != (8, RES, RES, RES) or not np.isfinite(frames).all() \
+            or not frames.max() > 0.5:
+        raise AssertionError(f"sim3d cli: density frames {frames.shape}")
+    if geom.shape != (1, RES, RES, RES) or int(geom.sum()) != n_obst:
+        raise AssertionError(f"sim3d cli: geometry holds {geom.sum()} "
+                             f"cells, the scene {n_obst}")
+    out["cli_ms_per_frame"] = cli_ms
+    return launches, out, (state0, bcs, base)
+
+
+def exact_phase(dev, model, scene):
+    """The exact advection route (advection_window 0) on the sim3d scene:
+    16 ConvNet frames (finite, K1 not launched, K2's prologue once a
+    step), ms/frame and peak memory; then one exact advect_scalar and one
+    advect_vel (maccormackOurs) at 64^3 with 15% obstacles on the card
+    against the same calls on the CPU: relative L2 at most 1e-4, and the
+    cells off by more than 1e-4 counted."""
+    from fluidnet_tpu_torch.core.celltype import is_fluid
+    from fluidnet_tpu_torch.ops.advect import advect_scalar, advect_vel
+    from fluidnet_tpu_torch.ops.cuda import _build
+    from fluidnet_tpu_torch.sim.simulate import rollout
+    state0, bcs, base = scene
+    m = base.replace(advection_window=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    state = rollout(state0, m, EXACT_FRAMES, model, bcs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / EXACT_FRAMES * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(_build.launches)
+    check_counts(launches, EXACT_FRAMES, {"prologue": 1},
+                 "exact route (convnet)")
+    div = final_check(state, "exact route")
+    log(f"exact route: {EXACT_FRAMES} ConvNet frames at {RES}^3, "
+        f"{ms:.3f} ms/frame, peak memory {peak:.3f} GiB")
+    rng = np.random.default_rng(43)
+    shape = (1, 1) + (EXACT_RES,) * 3
+    flags = torch.tensor(random_flags(rng, shape))
+    u = torch.tensor((rng.standard_normal((1, 3) + shape[2:]) * 15.0)
+                     .astype(np.float32))
+    s = torch.tensor(rng.random(shape).astype(np.float32))
+    vs = {}
+    for what, fn in (
+            ("advect_scalar", lambda d: advect_scalar(
+                0.1, s.to(d), u.to(d), flags.to(d), window=None)),
+            ("advect_vel", lambda d: advect_vel(
+                0.1, u.to(d), flags.to(d), window=None))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu = fn(dev)
+        torch.cuda.synchronize()
+        g_ms = (time.perf_counter() - t0) * 1e3
+        cpu = fn(torch.device("cpu"))
+        diff = gpu.cpu() - cpu
+        rel = (torch.linalg.norm(diff) /
+               torch.linalg.norm(cpu).clamp_min(1e-30)).item()
+        off = int((diff.abs() > 1e-4).sum().item())
+        vs[what] = {"rel_l2": rel, "cells_off_1e-4": off, "card_ms": g_ms}
+        log(f"exact {what} maccormackOurs at {EXACT_RES}^3 ("
+            f"{int((~is_fluid(flags)).sum())} non-fluid cells): card vs CPU "
+            f"relative L2 {rel:.3e}, {off} of {diff.numel()} cells off by "
+            f"more than 1e-4; {g_ms:.1f} ms on the card")
+        if not rel <= 1e-4:
+            raise AssertionError(f"exact {what}: card vs CPU relative L2 "
+                                 f"{rel}")
+    return launches, {"ms_per_frame": ms, "peak_gib": peak,
+                      "final_div_l2": div, "card_vs_cpu": vs}
+
+
+def stats_phase(root):
+    """cli.stats.compute on the generated 64^3 test split (every sample):
+    the bundled ConvNet, jacobi-34 and PCG (34 iterations, the CLI's
+    default), 64 steps; every TSV written and finite, PCG's mean ||div||_2
+    at the last step below jacobi-34's. Returns those means."""
+    from fluidnet_tpu_torch.cli import stats
+    from fluidnet_tpu_torch.data.dataset import FluidDataset
+    n = len(FluidDataset(root, "gen3d", "te"))
+    out = os.path.join(root, "stats")
+    args = stats.parse_args([
+        "--data_dir", root, "--dataset", "gen3d", "--model", BUNDLED,
+        "--methods", "convnet", "jacobi", "pcg", "--n_steps",
+        str(STATS_STEPS), "--n_samples", str(n), "--out_dir", out])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = stats.compute(args)
+    secs = time.perf_counter() - t0
+    means = {}
+    for method in ("convnet", "jacobi", "pcg"):
+        tsv = np.loadtxt(os.path.join(out, f"norm_div_{method}.tsv"),
+                         ndmin=2)
+        if tsv.shape != (n, STATS_STEPS) or not np.isfinite(tsv).all() or \
+                not np.allclose(tsv, res[method], rtol=1e-6):
+            raise AssertionError(f"stats {method}: TSV {tsv.shape}")
+        means[method] = float(tsv[:, -1].mean())
+    log(f"stats: {n} test samples at {TRAIN_RES}^3, {STATS_STEPS} steps "
+        f"each of convnet, jacobi-34, PCG in {secs:.3f} s; mean ||div||_2 "
+        f"at the last step {means}")
+    if not means["pcg"] < means["jacobi"]:
+        raise AssertionError(f"stats: PCG {means['pcg']} is not below "
+                             f"jacobi-34 {means['jacobi']}")
+    return means
+
+
 def main():
     smi = device_phase()
     dev = torch.device("cuda", 0)
@@ -1323,6 +1662,8 @@ def main():
     errs, times = kernels_phase(dev, mconf, model)
     errs["warp"], warp_times = warp_phase(dev)
     times["warp"] = warp_times[f"{RES2}^2 five_sources"]
+    probe_launches, errs["dyngather"], probe_times = probe_phase(dev)
+    times["dyngather"] = probe_times[1]
     launches, steps_per_s, div_cnn = slice_phase(dev, mconf, model)
     cert_launches, divs = cert_phase(dev, mconf, model)
     serve_launches, windows = serve_phase(dev)
@@ -1336,15 +1677,25 @@ def main():
         data_s, data_res = data_phase(dev, TRAIN_ROOT)
         cli_launches = cli_phase(TRAIN_ROOT)
         batch = train_batch(dev, TRAIN_ROOT)
+        stats_means = stats_phase(TRAIN_ROOT)
     finally:
         shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
     step_launches, per_n = train_steps_phase(dev, batch)
     grad_rel = train_grad_phase(dev, batch)
 
+    shutil.rmtree(SIM3D_ROOT, ignore_errors=True)
+    try:
+        sim3d_launches, sim3d_out, scene = sim3d_phase(dev, model)
+        exact_launches, exact_out = exact_phase(dev, model, scene)
+    finally:
+        shutil.rmtree(SIM3D_ROOT, ignore_errors=True)
+
     total = dict(launches)
     for per in list(cert_launches.values()) + [serve_launches,
                                                cert2_launches, cli_launches,
-                                               step_launches]:
+                                               step_launches, probe_launches,
+                                               sim3d_launches,
+                                               exact_launches]:
         for key, n in per.items():
             total[key] = total.get(key, 0) + n
     for key in KERNELS:
@@ -1380,6 +1731,15 @@ def main():
                     "train_grad_rel_l2_max": grad_rel,
                     "data_gen_s": data_s, "data_max_pcg_residual": data_res,
                     "train_cli_launches": cli_launches}))
+    log(json.dumps({"offline_3d": {
+        "res": RES, "sim3d_frames": SIM3D_FRAMES, **{
+            f"sim3d_{k}": v for k, v in sim3d_out.items()},
+        "exact_route": exact_out, "stats_mean_div_l2_last": stats_means,
+        "stats_steps": STATS_STEPS,
+        "probe_times_ms": {f"axis{a}": {"ms": v[0], "plain_ms": v[1],
+                                        "bound_ms": v[2],
+                                        "library_ms": v[4]}
+                           for a, v in probe_times.items()}}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -85,6 +85,35 @@ class FluidDataset:
     def __len__(self):
         return len(self.samples)
 
+    def _strided(self, max_samples):
+        """Every step-th sample, step = len // min(len, max_samples)."""
+        step = max(1, len(self) // min(len(self), max_samples))
+        return [self._load(*self.samples[i])
+                for i in range(0, len(self), step)]
+
+    def field_stats(self, fields=("p_div", "u_div", "density"),
+                    max_samples=64):
+        """Per-field mean/std/min/max over (up to about) max_samples
+        samples, the reference's dataset statistics pass
+        (data_binary.lua:265-354). Returns {field: {mean, std, min, max}}."""
+        items = self._strided(max_samples)
+        out = {}
+        for f in fields:
+            a = np.stack([np.asarray(it[f], np.float64) for it in items])
+            out[f] = {"mean": float(a.mean()), "std": float(a.std()),
+                      "min": float(a.min()), "max": float(a.max())}
+        return out
+
+    def histogram(self, field="u_div", bins=64, value_range=None,
+                  max_samples=64):
+        """Histogram of a field's values over the dataset
+        (data_binary.lua:467-556's gnuplot histograms). Returns (counts,
+        bin_edges); utils.plots.plot_histogram draws it."""
+        vals = [np.asarray(it[field]).ravel()
+                for it in self._strided(max_samples)]
+        return np.histogram(np.concatenate(vals), bins=bins,
+                            range=value_range)
+
     def release_cache(self):
         """Frees the host frame cache and stops caching (after a
         DeviceDataset upload, batches are device gathers)."""

@@ -485,9 +485,9 @@ def advect_vel_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
                          f"advect_vel_fast")
     W = int(window)
     if W < 1:
-        raise NotImplementedError("the exact gather path (window 0) is not "
-                                  "ported yet (ROADMAP queue 1, ops off "
-                                  "the main path)")
+        raise NotImplementedError("the combined advection is windowed (W "
+                                  ">= 1); window 0 is the exact path of "
+                                  "ops.advect (advect_scalar, advect_vel)")
     ours = method.endswith("Ours")
     if ours and free is None:
         free = chebyshev_free_space(flags, W + 1)

@@ -60,6 +60,8 @@ _SIGNATURES = {
     "fluidnet_warp": [_P, _P, _I] + [_P] * 4 + [_I] * 11 + [_P],
     # g, px, py, pz, out, B, G, F, Z, Y, X, window, nearest, stream
     "fluidnet_warp_transpose": [_P] * 5 + [_I] * 8 + [_P],
+    # src, idx, out, R, C, axis, idx64, stream
+    "fluidnet_dyngather": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -36,9 +36,15 @@ data generation, training):
      polish_iters Jacobi sweeps, K3), or jacobi (K3) / PCG with the
      velocity update; BCs again, velocity clipped to +-1e6
 
+advection_window 0 replaces step 2 of either form by the exact gather
+advection (ops/advect.py): each density channel, then the velocity, with
+the line-traced backtrace and the fluid-aware interpolation, in plain
+PyTorch (no kernel; K1 is not launched).
+
 simulate(grad=True) records the step for autograd: every kernel on the way
-has the gradient rule of its JAX custom VJP. rollout() and the default
-simulate() run under torch.no_grad.
+has the gradient rule of its JAX custom VJP (not with advection_window 0,
+which raises). rollout() and the default simulate() run under
+torch.no_grad.
 """
 
 from __future__ import annotations
@@ -188,15 +194,11 @@ def _resolve_forces(state, mconf, dt, buoyancy_scale, gravity_scale,
 
 
 def _check_slice(state: FluidState, mconf: ModelConfig, model):
-    """Raises for the simulate() branches not ported."""
+    """Validates the projection and its model."""
     if mconf.sim_method not in ("convnet", "jacobi", "pcg"):
         raise ValueError(f"bad sim_method {mconf.sim_method}")
     if mconf.sim_method == "convnet" and model is None:
         raise ValueError("the convnet sim method needs a model")
-    if not mconf.advection_window:
-        raise NotImplementedError("the exact gather advection (window 0) is "
-                                  "not ported (ROADMAP queue 1, ops off the "
-                                  "main path)")
 
 
 def simulate(state: FluidState, mconf: ModelConfig, model=None,
@@ -226,6 +228,11 @@ def simulate(state: FluidState, mconf: ModelConfig, model=None,
     forces = _resolve_forces(state, mconf, dt, buoyancy_scale,
                              gravity_scale, vorticity_amp, gravity)
     _check_slice(state, mconf, model)
+    if grad and not mconf.advection_window:
+        raise NotImplementedError("the gradient of the exact advection "
+                                  "(advection_window 0) is not ported "
+                                  "(ROADMAP queue 1, item 10: the exact "
+                                  "path's training gradient)")
     with torch.set_grad_enabled(grad):
         return _step(state, mconf, model, bcs,
                      FlagConsts() if consts is None else consts,
@@ -299,13 +306,16 @@ def _advect(state, mconf, consts, dt, plain):
     other than Manta's maccormack runs the fused combined path (K1, two
     launches); otherwise each density channel, then the velocity (K5 for
     every interpolation in 2-D and for the 3-D density, K1's unfused
-    velocity sweep in 3-D)."""
+    velocity sweep in 3-D). advection_window 0 takes the exact gather path
+    (ops/advect.py, plain PyTorch) for each density channel, then the
+    velocity, in 2-D and 3-D (simulate.py:115-166)."""
     u, flags, density = state.u, state.flags, state.density
     W = _window(mconf, u, dt)
     method = mconf.advection_method
-    free = consts.free(flags, W + 1) if method.endswith("Ours") else None
-    if state.is_3d and density is not None and density.shape[1] == 1 and \
-            method != "maccormack":
+    free = consts.free(flags, W + 1) if W and method.endswith("Ours") \
+        else None
+    if W and state.is_3d and density is not None and \
+            density.shape[1] == 1 and method != "maccormack":
         return advect_vel_scalar_fast(
             dt, density, u, flags, method, False, mconf.maccormack_strength,
             W, free=free, plain=plain)[::-1]
@@ -434,11 +444,13 @@ def _solver_projection(state, mconf, consts, use_kernels):
 
 def rollout(state: FluidState, mconf: ModelConfig, n_steps: int,
             model=None, bcs: Optional[Boundaries] = None,
-            save_every: int = 0, use_kernels: bool = True):
+            save_every: int = 0, use_kernels: bool = True,
+            consts: Optional[FlagConsts] = None):
     """Runs `n_steps` simulate() steps as a Python loop (the JAX package
     scans on device; a CUDA graph of this loop is later work). What
     depends on the flags alone, which do not change, is computed once:
-    the free space, and for PCG the connected-component labels.
+    the free space, and for PCG the connected-component labels (`consts`
+    keeps them across calls on the same flags, as cli/sim3d's chunks do).
 
     Returns the final state; with `save_every > 0` also the density every
     `save_every` steps, stacked (n_steps // save_every, b, c, z, y, x)."""
@@ -447,7 +459,7 @@ def rollout(state: FluidState, mconf: ModelConfig, n_steps: int,
                          f"save_every ({save_every})")
     forces = _resolve_forces(state, mconf, None, None, None, None)
     _check_slice(state, mconf, model)
-    consts = FlagConsts()
+    consts = FlagConsts() if consts is None else consts
     frames = []
     with torch.no_grad():
         for i in range(n_steps):

@@ -62,10 +62,21 @@ def test_advect_vel_2d(case, method, window):
 
 
 def test_advect_exact_path_raises(case):
+    """A bad method raises on both paths. The exact path (window None),
+    which raised before it was ported, runs and matches JAX's for Manta's
+    maccormack (tests/test_torch_advect_exact.py covers every method)."""
     flags, u, rho = case
-    with pytest.raises(NotImplementedError):
-        advect_scalar(DT, tt(rho)[:, :1], tt(u), tt(flags), window=None)
-    with pytest.raises(NotImplementedError):
-        advect_vel(DT, tt(u), tt(flags), window=None)
-    with pytest.raises(ValueError):
-        advect_vel(DT, tt(u), tt(flags), method="bogus", window=1)
+    for window in (None, 1):
+        with pytest.raises(ValueError):
+            advect_vel(DT, tt(u), tt(flags), method="bogus", window=window)
+        with pytest.raises(ValueError):
+            advect_scalar(DT, tt(rho)[:, :1], tt(u), tt(flags),
+                          method="bogus", window=window)
+    kw = dict(method="maccormack", window=None)
+    j = j_advect_scalar(DT, jnp.asarray(rho[:, :1]), jnp.asarray(u),
+                        jnp.asarray(flags), **kw)
+    assert_close(advect_scalar(DT, tt(rho)[:, :1], tt(u), tt(flags), **kw),
+                 j, RTOL, ATOL, "exact scalar")
+    j = j_advect_vel(DT, jnp.asarray(u), jnp.asarray(flags), **kw)
+    assert_close(advect_vel(DT, tt(u), tt(flags), **kw), j, RTOL, ATOL,
+                 "exact velocity")

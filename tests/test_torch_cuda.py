@@ -430,3 +430,56 @@ def test_train_loss_grad_kernels_match_plain(dev):
                     res[False][1] + (res[False][0],)):
         rel = (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
         assert rel <= 1e-4, rel
+
+
+# --- the offline 3-D slice: K7 (the dyngather probe), the exact route ----
+
+@pytest.mark.parametrize("shape", [(128, 128), (37, 61)])
+@pytest.mark.parametrize("axis", [1, 0])
+def test_dyngather_kernel_matches_plain(dev, shape, axis):
+    """K7 against its plain version and np.take_along_axis, exactly, with
+    int32 and int64 indices; one launch counted per call."""
+    from fluidnet_tpu_torch.ops.cuda.dyngather import (
+        take_along_axis, take_along_axis_plain)
+    rng = np.random.default_rng(30 + axis)
+    src = rng.standard_normal(shape).astype(np.float32)
+    idx = rng.integers(0, shape[axis], shape)
+    before = _build.launches["dyngather"]
+    for dtype in (torch.int32, torch.int64):
+        s = torch.tensor(src, device=dev)
+        i = torch.tensor(idx, device=dev, dtype=dtype)
+        out = take_along_axis(s, i, axis)
+        torch.cuda.synchronize()
+        assert torch.equal(out, take_along_axis_plain(s, i, axis))
+        np.testing.assert_array_equal(out.cpu().numpy(),
+                                      np.take_along_axis(src, idx, axis))
+    assert _build.launches["dyngather"] == before + 2
+
+
+def test_exact_route_step_matches_cpu(dev):
+    """One 3-D jacobi-34 step with advection_window 0 (the exact gather
+    advection, plain PyTorch) on the card against the same step on the
+    CPU: the same float32 operations, so within 1e-5 of each field's
+    largest value; K1 is not launched."""
+    from fluidnet_tpu_torch.core.config import ModelConfig
+    from fluidnet_tpu_torch.core.grids import FluidState
+    from fluidnet_tpu_torch.sim.simulate import create_plume_bcs, simulate
+    mconf = ModelConfig(is_3d=True, sim_method="jacobi", max_iter=34,
+                        dt=0.1, buoyancy_scale=2.0,
+                        vorticity_confinement_amp=3.0,
+                        advection_method="maccormackOurs",
+                        adaptive_window=False, advection_window=0)
+    c = _case(dev, 16)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        state = FluidState(u=c["u"].to(d), p=torch.zeros_like(c["s"]).to(d),
+                           flags=c["flags"].to(d), density=c["s"].to(d))
+        bcs = create_plume_bcs(state, [1.0], u_scale=0.6, rad=0.2)
+        _build.launches.clear()
+        out[d.type] = simulate(state, mconf, None, bcs)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {"forces_block": 1, "jacobi": 1}
+    for field in ("u", "p", "density"):
+        _close(getattr(out["cuda"], field).cpu(),
+               getattr(out["cpu"], field), field)

@@ -3,6 +3,10 @@
 through a JAX function and its fluidnet_tpu_torch counterpart, and the
 outputs are compared at a stated tolerance."""
 
+import json
+import os
+import shutil
+
 import numpy as np
 import torch
 
@@ -48,3 +52,23 @@ def random_flags(rng, shape, p_obstacle=0.15, stick_empty=False):
         flags = np.where(empty & (flags == CellType.TypeFluid),
                          CellType.TypeEmpty, flags)
     return flags.astype(np.int32)
+
+
+BUNDLED_3D = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "models_bundled",
+    "m3d_v5_bestRollout")
+
+
+def float32_copy(src, dst):
+    """A copy of checkpoint directory `src` at `dst` whose mconf runs the
+    convolutions in float32 (same weights). The JAX 3-D bf16 trunk sums its
+    three kz partial convolutions in bf16, two roundings the port's trunk
+    does not make (tests/test_torch_model.py), so parity tests that step a
+    bundled bf16 model hold a float32 copy to a float32 tolerance."""
+    shutil.copytree(src, dst)
+    with open(os.path.join(dst, "mconf.json")) as f:
+        meta = json.load(f)
+    meta["mconf"]["conv_compute_dtype"] = "float32"
+    with open(os.path.join(dst, "mconf.json"), "w") as f:
+        json.dump(meta, f)
+    return dst
