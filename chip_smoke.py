@@ -41,9 +41,11 @@ the dyngather probe, in these phases:
              steps each of jacobi-34, PCG (100 iterations, tol 1e-4) and
              the ConvNet with 8 Jacobi polish sweeps, each with its launch
              counters read on their own. Every final state must be finite
-             and PCG's ||div||_2 below jacobi-34's. Then 8 jacobi-34 and 8
-             ConvNet + p8 steps with the kernels against 8 of each with the
-             plain versions, from the certification states.
+             and PCG's ||div||_2 below jacobi-34's; two 16-step PCG
+             rollouts from one fresh plume must be equal to the bit. Then
+             8 jacobi-34 and 8 ConvNet + p8 steps with the kernels against
+             8 of each with the plain versions, from the certification
+             states.
   7. serve:  DemoSim(res=128, model=m2d) on the card, its loop thread and
              the HTTP server on 127.0.0.1: GET /, /frame.png (a 128x128 PNG
              checked with zlib), /stats (frames advancing, fps > 0), POST
@@ -104,7 +106,10 @@ the dyngather probe, in these phases:
  17. exact:  advection_window 0 on the same scene: 16 ConvNet frames,
              finite, K1 not launched, ms/frame and peak memory; one exact
              advect_scalar and advect_vel (maccormackOurs) at 64^3 on the
-             card against the CPU, relative L2 at most 1e-4.
+             card against the CPU, relative L2 at most 1e-4, with the rays
+             of their line traces whose decisions or positions differ
+             (each trace run again on both devices from the CPU's inputs)
+             and whose square root differs from the correctly rounded one.
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}. Any failure
@@ -209,6 +214,7 @@ SIM3D_FRAMES = 768              # cli/sim3d.py's default --num_frames
 DIV_EVERY = 16                  # ||div||_2 and finiteness read every 16 steps
 VOX_DIM = 64                    # the obstacle's voxelization
 EXACT_FRAMES, EXACT_RES = 16, 64
+PCG_REPEAT_STEPS = 16           # two PCG rollouts that must agree to the bit
 STATS_STEPS = 64
 PROBE_SHAPES = ((128, 128), (37, 61))
 TRAIN_RES, TRAIN_B = 64, 6      # gen3d_v5's grid, train3d_v5.sh's batch
@@ -610,6 +616,19 @@ def cert_phase(dev, mconf, model):
         raise AssertionError(f"PCG ||div||_2 {divs['pcg']} is not below "
                              f"jacobi-34's {divs['jacobi34']}: a broken "
                              f"solver")
+    log(f"final_div_l2_pcg {divs['pcg']:.6f}")
+    # PCG repeats to the bit: two rollouts from the same fresh plume.
+    m = mconf.replace(**CERT["pcg"][0])
+    runs = []
+    for _ in range(2):
+        state, bcs = make_plume(dev)
+        runs.append(rollout(state, m, PCG_REPEAT_STEPS, None, bcs))
+    same = {f: torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+            for f in ("u", "p", "density")}
+    log(f"pcg: two {PCG_REPEAT_STEPS}-step rollouts at {RES}^3 equal to "
+        f"the bit: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"PCG rollouts differ between two runs: {same}")
     for name in ("jacobi34", "convnet_p8"):
         kernels_vs_plain_rollout(*finals[name], name)
     return launches, divs
@@ -1551,6 +1570,7 @@ def exact_phase(dev, model, scene):
     against the same calls on the CPU: relative L2 at most 1e-4, and the
     cells off by more than 1e-4 counted."""
     from fluidnet_tpu_torch.core.celltype import is_fluid
+    from fluidnet_tpu_torch.ops import trace_diff
     from fluidnet_tpu_torch.ops.advect import advect_scalar, advect_vel
     from fluidnet_tpu_torch.ops.cuda import _build
     from fluidnet_tpu_torch.sim.simulate import rollout
@@ -1584,19 +1604,24 @@ def exact_phase(dev, model, scene):
                 0.1, u.to(d), flags.to(d), window=None))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gpu = fn(dev)
+        gpu, gpu_traces = trace_diff.record_traces(lambda: fn(dev))
         torch.cuda.synchronize()
         g_ms = (time.perf_counter() - t0) * 1e3
-        cpu = fn(torch.device("cpu"))
+        cpu, cpu_traces = trace_diff.record_traces(
+            lambda: fn(torch.device("cpu")))
         diff = gpu.cpu() - cpu
         rel = (torch.linalg.norm(diff) /
                torch.linalg.norm(cpu).clamp_min(1e-30)).item()
         off = int((diff.abs() > 1e-4).sum().item())
-        vs[what] = {"rel_l2": rel, "cells_off_1e-4": off, "card_ms": g_ms}
+        branches = trace_diff.branch_diff(cpu_traces, gpu_traces, dev)
+        vs[what] = {"rel_l2": rel, "cells_off_1e-4": off, "card_ms": g_ms,
+                    "trace_rays_off": branches}
         log(f"exact {what} maccormackOurs at {EXACT_RES}^3 ("
             f"{int((~is_fluid(flags)).sum())} non-fluid cells): card vs CPU "
             f"relative L2 {rel:.3e}, {off} of {diff.numel()} cells off by "
-            f"more than 1e-4; {g_ms:.1f} ms on the card")
+            f"more than 1e-4; {g_ms:.1f} ms on the card; its "
+            f"{len(cpu_traces)} line traces, rays off card vs CPU: "
+            f"{branches}")
         if not rel <= 1e-4:
             raise AssertionError(f"exact {what}: card vs CPU relative L2 "
                                  f"{rel}")

@@ -157,7 +157,7 @@ def _rss_gb():
 def run_training(conf):
     if conf.profile:
         raise NotImplementedError("the startup profile (-profile true) is "
-                                  "not ported yet (ROADMAP queue 1, item 11: "
+                                  "not ported yet (ROADMAP queue 1, item 2: "
                                   "utils/flops, utils/profiler); pass "
                                   "-profile false")
     dev = resolve_device(conf.device)
@@ -213,7 +213,7 @@ def run_training(conf):
             per_sample * (len(tr) + len(te)) > conf.device_data_cache_max_gb:
         raise NotImplementedError("datasets past the device cache need the "
                                   "threaded host loader, not ported yet "
-                                  "(ROADMAP queue 1, item 11: "
+                                  "(ROADMAP queue 1, item 4: "
                                   "PrefetchLoader)")
     tr_loader = DeviceDataset(tr, conf.batch_size, dev, keys=cache_keys,
                               shuffle=True, seed=conf.seed)

@@ -36,7 +36,8 @@ from fluidnet_tpu_torch.ops.velocity_update import velocity_update
 from fluidnet_tpu_torch.sim.simulate import (Boundaries, FlagConsts,
                                              create_plume_bcs, simulate)
 from fluidnet_tpu_torch.solvers.cg import solve_pcg
-from fluidnet_tpu_torch.solvers.components import connected_components
+from fluidnet_tpu_torch.solvers.components import (component_segments,
+                                                   connected_components)
 
 
 def divergence_free_noise(rng, shape_zyx, is_3d, n_modes=24, max_freq=6,
@@ -141,7 +142,8 @@ def _roll(out_dirs, state, mconf, bcs, b_scale, v_amp, n_frames,
     """Steps the scenes n_frames times (divergent state, then the PCG
     projection), saving every save_every-th pair. Returns the max PCG
     residual."""
-    consts = FlagConsts(labels=connected_components(state.flags))
+    consts = FlagConsts(labels=component_segments(
+        connected_components(state.flags)))
     max_res = 0.0
     for f in range(n_frames):
         state = simulate(state, mconf, None, bcs, output_div=True,

@@ -90,8 +90,8 @@ def _check_ported(mconf, psize, usize):
         raise NotImplementedError(
             f"model {mconf.model_type!r} (is_3d={mconf.is_3d}, banks, batch "
             f"norm, pressure skip, pooling or upsampling) is not ported yet: "
-            f"only the default/yang conv stacks are (ROADMAP queue 1, rest "
-            f"of models/fluidnet.py)")
+            f"only the default/yang conv stacks are (ROADMAP queue 1, item 3: "
+            f"the rest of models/fluidnet.py)")
 
 
 def _nonlin(x, kind):

@@ -3,9 +3,9 @@
 Replaces fluidnet_tpu/ops/pallas/warp.py::_warp_group_kernel
 (_warp_group_impl). The CUDA kernel is csrc/warp.cu; its source note gives
 the per-cell work, what bounds it on the H100 (memory traffic: the
-positions, the source channels and the outputs once each, the corner
-gathers from L1/L2) and the design (one thread per output cell and group,
-corners gathered straight from global memory, one pointer per source).
+positions, the source channels and the outputs once each) and the design
+(one thread per output cell and group, each corner read once per channel
+and all before the first is used, one pointer per source).
 
 `warp_group_cuda` is what ops/warp.py::warp_group calls for CUDA tensors;
 CPU tensors take the plain version there. One call is one launch, counted

@@ -2,9 +2,11 @@
 
 Replaces fluidnet_tpu/ops/pallas/warp.py::_warp_transpose_kernel
 (_warp_transpose_pallas). The CUDA kernel is csrc/warp_transpose.cu; its
-source note gives the per-cell work (a gather over the (2W+1)^d source
-offsets, no atomics), what bounds it on the H100 (memory traffic, 20 B/cell
-per field group) and the design.
+source note gives the per-cell work (a sum over the (2W+1)^d source
+offsets in a fixed order, no atomics), what bounds it on the H100 (memory
+traffic, 20 B/cell per field group) and the design (a 32 x 8 tile of
+targets plus the window's halo of sources staged in shared memory; each
+source pushes its terms into per-(target, offset) slots).
 
 `warp_transpose` is the backward of ops/warp.py::warp_group (K5) and of K1's
 unfused sweeps (ops/cuda/mac_sweep.py): CUDA tensors launch the kernel,

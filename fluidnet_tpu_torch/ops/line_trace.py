@@ -112,8 +112,9 @@ def _clamp_to_domain(px, py, pz, Z, Y, X):
             pz.clamp(HIT_MARGIN, Z - HIT_MARGIN))
 
 
-def _step(state, ux, uy, uz, length, blocked):
-    """One masked march step of every ray (the body of JAX's fori_loop)."""
+def _step(state, ux, uy, uz, length, blocked, branches=None):
+    """One masked march step of every ray (the body of JAX's fori_loop).
+    With a `branches` list, appends the step's per-ray decisions."""
     cx, cy, cz, cur_len, done, hit = state
     Z, Y, X = blocked.shape[2:]
     active = ~done & (cur_len < length - HIT_MARGIN)
@@ -137,6 +138,7 @@ def _step(state, ux, uy, uz, length, blocked):
     is_blk = was_blocked
     box_fail = torch.zeros_like(is_blk)
     sx, sy, sz = nx, ny, nz
+    backoffs = 0
     for _ in range(4):
         h, rx, ry, rz = _ray_box_intersection(
             cx, cy, cz, ux, uy, uz, torch.floor(sx) + 0.5,
@@ -148,6 +150,8 @@ def _step(state, ux, uy, uz, length, blocked):
         sy = torch.where(moved, ry, sy)
         sz = torch.where(moved, rz, sz)
         is_blk = torch.where(moved, _blocked_at(blocked, sx, sy, sz), is_blk)
+        if branches is not None:
+            backoffs = backoffs + moved.to(torch.int32)
     # A failed box intersection stays at the current valid point
     # (calc_line_trace.cc:444-453).
     sx = torch.where(box_fail, cx, sx)
@@ -157,6 +161,12 @@ def _step(state, ux, uy, uz, length, blocked):
     # Stop with a hit: out of the domain and not blocked at the border
     # point, or blocked (at the backed-off point).
     stop = (oob & ~was_blocked) | was_blocked
+    if branches is not None:
+        branches.append({"out_of_domain": active & oob,
+                         "border_hit": active & oob & bhit,
+                         "blocked": active & was_blocked,
+                         "box_fail": active & box_fail,
+                         "backoffs": torch.where(active, backoffs, 0)})
     return (torch.where(active, torch.where(was_blocked, sx, nx), cx),
             torch.where(active, torch.where(was_blocked, sy, ny), cy),
             torch.where(active, torch.where(was_blocked, sz, nz), cz),
@@ -164,13 +174,16 @@ def _step(state, ux, uy, uz, length, blocked):
             done | (active & stop), hit | (active & stop))
 
 
-def line_trace(px, py, pz, dx, dy, dz, flags, max_steps: int = 8):
+def line_trace(px, py, pz, dx, dy, dz, flags, max_steps: int = 8,
+               branches=None):
     """Traces from (px, py, pz) along the displacement (dx, dy, dz), all
     (b, z, y, x). Returns (hit, nx, ny, nz): whether geometry or the
     domain border stopped the ray, and where it ended. Rays that start out
     of the domain or in a non-fluid cell, and zero-length rays, stay at
     their start with hit False (advection copies src for non-fluid cells
-    anyway; the reference hard-errors)."""
+    anyway; the reference hard-errors). `branches`, a list, receives one
+    dict a step of per-ray decisions (out_of_domain, border_hit, blocked,
+    box_fail: bool; backoffs: int32), to compare two runs of a trace."""
     Z, Y, X = flags.shape[2:]
     blocked = (~is_fluid(flags)).to(torch.float32)
     length = torch.sqrt(dx * dx + dy * dy + dz * dz)
@@ -183,6 +196,6 @@ def line_trace(px, py, pz, dx, dy, dz, flags, max_steps: int = 8):
     state = (px, py, pz, torch.zeros_like(length), done,
              torch.zeros_like(done))
     for _ in range(max_steps):
-        state = _step(state, ux, uy, uz, length, blocked)
+        state = _step(state, ux, uy, uz, length, blocked, branches)
     cx, cy, cz, _, _, hit = state
     return hit, cx, cy, cz

@@ -37,8 +37,8 @@ def projection_prologue(u, flags, density, buoy_g, grav_g, amp, dt,
             torch.as_tensor(grav_g).dim() > 1 or \
             torch.as_tensor(amp).dim() > 0:
         raise NotImplementedError("per-sample (B,) force scales are not "
-                                  "ported yet (ROADMAP queue 1, batched "
-                                  "scales; fault F1)")
+                                  "ported yet (ROADMAP queue 1, item 7: "
+                                  "batched scales; fault F1)")
     if u.device.type == "cpu":
         return prologue_ref(u, flags, density, buoy_g, grav_g, amp, dt,
                             u_bc, u_inv)

@@ -70,7 +70,9 @@ from fluidnet_tpu_torch.ops.prologue import (projection_prologue,
                                              prologue_ref)
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
 from fluidnet_tpu_torch.solvers.cg import solve_pcg
-from fluidnet_tpu_torch.solvers.components import connected_components
+from fluidnet_tpu_torch.solvers.components import (Segments,
+                                                   component_segments,
+                                                   connected_components)
 from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_plain
 from fluidnet_tpu_torch.solvers.jacobi import solve_jacobi
 
@@ -231,7 +233,7 @@ def simulate(state: FluidState, mconf: ModelConfig, model=None,
     if grad and not mconf.advection_window:
         raise NotImplementedError("the gradient of the exact advection "
                                   "(advection_window 0) is not ported "
-                                  "(ROADMAP queue 1, item 10: the exact "
+                                  "(ROADMAP queue 1, item 5: the exact "
                                   "path's training gradient)")
     with torch.set_grad_enabled(grad):
         return _step(state, mconf, model, bcs,
@@ -244,9 +246,9 @@ class FlagConsts:
     """Fields that depend on the flags alone, which do not change within
     a rollout: computed at the first step that needs them. free_space maps
     the free-space cap (window + 1) to its field; labels are PCG's
-    connected components."""
+    connected components, as solvers.components.component_segments."""
     free_space: dict = dataclasses.field(default_factory=dict)
-    labels: Optional[torch.Tensor] = None
+    labels: Optional[Segments] = None
 
     def free(self, flags, max_d: int):
         if max_d not in self.free_space:
@@ -434,7 +436,7 @@ def _solver_projection(state, mconf, consts, use_kernels):
     div = velocity_divergence(u, flags)
     if mconf.sim_method == "pcg":
         if consts.labels is None:
-            consts.labels = connected_components(flags)
+            consts.labels = component_segments(connected_components(flags))
         p, _ = solve_pcg(flags, div, tol=mconf.pcg_tol,
                          max_iter=mconf.max_iter, labels=consts.labels)
     else:

@@ -18,6 +18,7 @@ import torch
 from fluidnet_tpu_torch.core.celltype import is_fluid, is_obstacle
 from fluidnet_tpu_torch.ops import stencil as st
 from fluidnet_tpu_torch.solvers.components import (component_mean,
+                                                   component_segments,
                                                    connected_components)
 
 
@@ -66,8 +67,9 @@ def solve_pcg(flags, div, tol: float = 1e-4, max_iter: int = 100,
     The JAX `while_loop` runs as a Python loop whose condition,
     it < max_iter and max(best_res) > tol, is checked on the host after
     every iteration; each batch keeps its best iterate. `labels`: the
-    connected_components of `flags`, which the caller may compute once for
-    constant flags (sim.simulate.rollout does); None computes them here.
+    component_segments of the connected_components of `flags`, which the
+    caller may compute once for constant flags (sim.simulate.rollout
+    does); None computes them here.
     """
     if precond not in ("jacobi", "none"):
         raise ValueError(f"bad precond {precond!r}")
@@ -77,7 +79,7 @@ def solve_pcg(flags, div, tol: float = 1e-4, max_iter: int = 100,
     rhs = torch.where(fl, div, 0.0)
     if remove_null_space:
         if labels is None:
-            labels = connected_components(flags)
+            labels = component_segments(connected_components(flags))
         # Project the RHS of singular components (no cell with an empty
         # neighbour, i.e. diag == #fluid neighbours everywhere) against
         # the constant null vector; components with a Dirichlet link are

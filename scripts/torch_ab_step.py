@@ -4,7 +4,7 @@ in one process on one GPU.
 
     git archive <commit> | tar -x -C build/ab_base
     python3 scripts/torch_ab_step.py --base build/ab_base [--rounds 12]
-        [--steps 10]
+        [--steps 10] [--kernels]
 
 `--base` is an unpacked checkout of another commit. Its fluidnet_tpu_torch
 package is copied, renamed fluidnet_tpu_torch_base, into
@@ -19,9 +19,20 @@ shared host differ by more than a small change moves them; interleaving
 in one process puts both versions under the same load. Prints the card's
 name and power limit, then one line per path with the median and the
 minimum ms/step of each version. Needs a CUDA device.
+
+`--kernels` times the windowed warp (K5) and its adjoint (K6) instead, at
+the shapes chip_smoke.py times: K6 at 6x64^3 and 1x128^3 (G = 3, the
+unfused sweep's own positions), K5 at 128^3 (G = 1, F = 1, min/max) and
+the 2-D server's forms (a) and (c) at 128^2. Each version's call is
+captured 50 times in a CUDA graph, the graphs replayed in turns
+(`--rounds`, alternating which goes first), and the median and minimum
+device ms per call printed; both versions' outputs must be equal. Then
+the m3d_v5 train step at horizon n = 4 (6x64^3), interleaved as the paths
+above (ms per step on the host clock).
 """
 
 import argparse
+import functools
 import importlib
 import json
 import os
@@ -110,12 +121,130 @@ def runners(pkg, dev):
     return out
 
 
+def train_runner(pkg, dev, n_future=4, batch_size=6, res=64):
+    """run(n): n train_step calls of `pkg` at horizon n_future with m3d_v5's
+    recipe on one batch of generated-scene fields (the same batch for every
+    version: numpy, seed 29)."""
+    import numpy as np
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+    cfg, gen, train = mod("core.config"), mod("data.generate"), \
+        mod("train.train")
+    mconf = cfg.parse_args(cfg.default_conf(), tps.TRAIN_RECIPE).new_model
+    rng = np.random.default_rng(29)
+    zyx = (res, res, res)
+    batch = {
+        "flags": np.concatenate([gen.random_obstacle_flags(rng, zyx, True)
+                                 for _ in range(batch_size)]),
+        "u_div": np.concatenate([gen.divergence_free_noise(
+            rng, zyx, True, amplitude=float(rng.random() * 4 + 1))
+            for _ in range(batch_size)]).astype(np.float32),
+        "p_div": np.zeros((batch_size, 1) + zyx, np.float32),
+        "density": rng.random((batch_size, 1) + zyx).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    box = {"state": train.init_train_state(17, mconf, dev)}
+
+    def run(n):
+        for _ in range(n):
+            g = torch.Generator().manual_seed(box["state"].step)
+            box["state"], _ = train.train_step(box["state"], batch, g, mconf,
+                                               n_future)
+    return run
+
+
+def kernel_cases(dev):
+    """{name: (kernel, args)} at chip_smoke.py's timed shapes; kernel is
+    'warp' (ops/warp.py::warp_group) or 'warp_transpose'
+    (ops/cuda/warp_transpose.py::warp_transpose_cuda)."""
+    import chip_smoke as cs
+    from fluidnet_tpu_torch.ops.cuda import mac_sweep
+    cases = {}
+    for b, res in ((cs.TRAIN_B, cs.TRAIN_RES), (1, cs.RES)):
+        c = cs.train_case(dev, b, res, 31 + b)
+        pos = mac_sweep.positions_for_vjp(c["u"], c["free"], -0.1, 1, True)
+        g = torch.randn((b, 3, 1, res, res, res), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+        cases[f"K6 {b}x{res}^3 G=3"] = ("warp_transpose",
+                                        (g, *pos, 1, False))
+    field, pos = cs.warp_3d_case(dev, (1, 1, cs.RES, cs.RES, cs.RES), 1,
+                                 0.999, 24)
+    cases[f"K5 {cs.RES}^3 G=1 F=1 minmax"] = ("warp",
+                                              (field, *pos, 1, False, True))
+    sim = cs.serve_sim(dev)
+    state = cs.serve_steps(sim.state, sim.mconf, sim.model, sim.bcs, 10,
+                           sim.consts)
+    calls = cs.record_warp_calls(lambda: cs.serve_steps(
+        state, sim.mconf, sim.model, sim.bcs, 1, sim.consts))
+    for label, form in (("(a)", "five_sources"), ("(c)", "group_minmax")):
+        call = next(c for c in calls if cs.warp_form(c) == form)
+        cases[f"K5 {cs.RES2}^2 {label} {form}"] = ("warp", call)
+    return cases
+
+
+def kernel_fn(pkg, kernel, args):
+    if kernel == "warp":
+        return functools.partial(importlib.import_module(
+            f"{pkg}.ops.warp").warp_group, *args)
+    return functools.partial(importlib.import_module(
+        f"{pkg}.ops.cuda.warp_transpose").warp_transpose_cuda, *args)
+
+
+def capture(fn, n):
+    """A CUDA graph of n calls of fn (warmed up on a side stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return graph
+
+
+def replay_ms(graph, n, reps=5):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
+def kernels_ab(base_pkg, dev, rounds, n=50):
+    """K5 and K6 of both versions from CUDA graphs, in turns."""
+    for name, (kernel, args) in kernel_cases(dev).items():
+        fns = {"base": kernel_fn(base_pkg, kernel, args),
+               "this": kernel_fn(PKG, kernel, args)}
+        outs = {who: fn() for who, fn in fns.items()}
+        if not torch.equal(outs["base"], outs["this"]):
+            raise AssertionError(f"{name}: the versions' outputs differ")
+        graphs = {who: capture(fn, n) for who, fn in fns.items()}
+        times = {"base": [], "this": []}
+        for rnd in range(rounds):
+            for who in (("base", "this") if rnd % 2 == 0 else
+                        ("this", "base")):
+                times[who].append(replay_ms(graphs[who], n))
+        print(json.dumps({"kernel": name, **{
+            f"{who}_ms": {"median": statistics.median(t), "min": min(t)}
+            for who, t in times.items()}}), flush=True)
+        del graphs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", required=True,
                     help="an unpacked checkout of the version to compare")
     ap.add_argument("--rounds", type=int, default=12)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--kernels", action="store_true",
+                    help="K5 and K6 from CUDA graphs, then the n = 4 "
+                    "train step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_ab_step: needs a CUDA device")
@@ -124,9 +253,15 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    versions = {"base": runners(stage_base(os.path.abspath(args.base)),
-                                dev),
-                "this": runners(PKG, dev)}
+    base_pkg = stage_base(os.path.abspath(args.base))
+    if args.kernels:
+        kernels_ab(base_pkg, dev, args.rounds)
+        versions = {"base": {"train n=4 6x64^3": train_runner(base_pkg,
+                                                              dev)},
+                    "this": {"train n=4 6x64^3": train_runner(PKG, dev)}}
+    else:
+        versions = {"base": runners(base_pkg, dev),
+                    "this": runners(PKG, dev)}
     for path in versions["this"]:
         for v in versions.values():
             v[path](args.steps)

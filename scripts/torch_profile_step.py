@@ -75,8 +75,8 @@ GROUPS = (("K1 mac_sweep fused", ("Lb1EEEvPKf", "true>(float const")),
           ("K2 forces block", ("prologue_kernel<false",
                                "prologue_kernelILb0E")),
           ("K3 jacobi", ("jacobi_sweep",)),
-          ("K6 warp transpose", ("warp_transpose_kernel",)),
-          ("K5 warp", ("warp_kernel",)),
+          ("K6 warp transpose", ("warp_transpose",)),
+          ("K5 warp", ("warp_direct",)),
           ("convolutions", ("conv", "xmma", "gemm", "cudnn", "cutlass")),
           )
 

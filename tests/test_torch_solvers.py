@@ -2,9 +2,9 @@
 the JAX package (plain PyTorch on both sides' XLA code; no kernel).
 
 One grid, (2, 1, 12, 12, 12): batch 2 exercises the per-batch segments.
-Labels must match exactly. Component means: rtol 1e-5, atol 1e-6 (sums in
-another order: index_add_ against segment_sum). PCG: rtol 1e-4, atol 2e-5
-on p (O(1) values): every iteration takes dot products over ~1700 cells,
+Labels must match exactly. Component means: rtol 1e-5, atol 1e-6 (sums
+in another order: torch.segment_reduce against segment_sum). PCG: rtol
+1e-4, atol 2e-5 on p (O(1) values): every iteration takes dot products over ~1700 cells,
 which PyTorch and XLA sum in different orders, and CG carries those
 rounding differences from one iteration to the next; the residual at
 rtol 1e-3.
@@ -28,6 +28,7 @@ from fluidnet_tpu.solvers.components import \
 from fluidnet_tpu_torch.core.celltype import is_fluid
 from fluidnet_tpu_torch.solvers.cg import solve_pcg
 from fluidnet_tpu_torch.solvers.components import (component_mean,
+                                                   component_segments,
                                                    connected_components,
                                                    normalize_pressure_mean)
 
@@ -41,9 +42,22 @@ OB, FL, EM = (int(CellType.TypeObstacle), int(CellType.TypeFluid),
 def _flags(kind):
     """'walls': two enclosed components per batch (a wall at x = 5, and in
     batch 1 a second at y = 7); 'random': 30% obstacles, many components;
-    'empty': a few Empty cells (Dirichlet links) and 10% obstacles."""
+    'empty': a few Empty cells (Dirichlet links) and 10% obstacles;
+    'pockets': obstacle planes every 3 cells (batch 0) and every 4 (batch
+    1) cut the grid into 64 and 27 sealed pockets, 10% obstacles inside
+    splitting some further."""
     rng = np.random.default_rng({"walls": 71, "random": 72,
-                                 "empty": 73}[kind])
+                                 "empty": 73, "pockets": 74}[kind])
+    if kind == "pockets":
+        flags = random_flags(rng, SHAPE, p_obstacle=0.1)
+        for b, every in ((0, 3), (1, 4)):
+            wall = np.zeros(SHAPE[2:], bool)
+            for axis in range(3):
+                idx = np.arange(SHAPE[2 + axis]) % every == 0
+                wall |= idx.reshape([-1 if a == axis else 1
+                                     for a in range(3)])
+            flags[b, 0][wall] = OB
+        return flags
     if kind == "walls":
         flags = random_flags(rng, SHAPE, p_obstacle=0.0)
         flags[..., :, 5] = OB
@@ -63,7 +77,7 @@ def _div(flags, seed):
     return np.asarray(j_div(j_set_wall_bcs(jnp.asarray(u), jflags), jflags))
 
 
-@pytest.mark.parametrize("kind", ["walls", "random", "empty"])
+@pytest.mark.parametrize("kind", ["walls", "random", "empty", "pockets"])
 def test_connected_components_and_means(kind):
     flags = _flags(kind)
     labels = connected_components(tt(flags))
@@ -73,13 +87,18 @@ def test_connected_components_and_means(kind):
     if kind == "walls":
         assert len(np.unique(np_(labels)[0])) == 3  # 2 components + n
         assert len(np.unique(np_(labels)[1])) == 5  # 4 components + n
+    if kind == "pockets":
+        # The pockets, some split by the obstacles inside, some filled.
+        assert len(np.unique(np_(labels)[0])) > 48
+        assert len(np.unique(np_(labels)[1])) > 24
 
     x = np.random.default_rng(5).standard_normal(SHAPE).astype(np.float32)
     fl = np.asarray(flags) & FL > 0
-    assert_close(component_mean(tt(x), labels, is_fluid(tt(flags))),
+    segs = component_segments(labels)
+    assert_close(component_mean(tt(x), segs, is_fluid(tt(flags))),
                  j_cmean(jnp.asarray(x), jlabels, jnp.asarray(fl)), 1e-5,
                  1e-6, "component_mean")
-    for lab in (None, labels):
+    for lab in (None, segs):
         assert_close(normalize_pressure_mean(tt(x), tt(flags), lab),
                      j_normalize(jnp.asarray(x), jnp.asarray(flags)), 1e-5,
                      1e-6, "normalize_pressure_mean")
@@ -103,7 +122,8 @@ def test_solve_pcg_matches_jax(kind, tol, max_iter):
         assert tres.item() <= tol
     # Labels passed in (as rollout does) give the same solve.
     tp2, _ = solve_pcg(tt(flags), tt(div), tol=tol, max_iter=max_iter,
-                       labels=connected_components(tt(flags)))
+                       labels=component_segments(
+                           connected_components(tt(flags))))
     assert_close(tp2, tp, 0, 0, "labels passed in")
 
 
