@@ -19,10 +19,13 @@ the dyngather probe, in these phases:
              prologue, K2 forces block, K3 Jacobi) against its plain
              PyTorch version on the same CUDA inputs: on the 128^3 plume
              state after a few steps, on a 1x37x45x61 grid with random
-             obstacles, Stick and Empty cells and slab BCs, and (K3) on a
-             2-D 2x1x45x61 grid. Fails above 1e-5 of the field's largest
-             value. Times both versions at 128^3 with CUDA events (K3 at 34
-             sweeps).
+             obstacles, Stick and Empty cells and slab BCs, and (K3) on
+             2-D 2x1x45x61 and 1x1x128x128 grids. Fails above 1e-5 of the
+             field's largest value; K3 (34 sweeps, and 8 on the plume) fails
+             unless equal to the bit. Times both versions at 128^3 with CUDA
+             events; K3 replayed from CUDA graphs at 128^3 with 34 and 8
+             sweeps and at 128^2 with 34, each beside the route
+             (solvers/cuda_jacobi.jacobi_route) it takes.
   4. warp (K5) vs plain: every K5 call that one 2-D step makes, for each
              advection method at windows 1 and 2, recorded on a 128^2 serve
              plume after a few steps and on a random 2x1x1x45x61 grid with
@@ -196,12 +199,12 @@ SERVE_K5_PER_STEP = {"maccormackOurs": 8, "maccormack": 20, "euler": 4,
 # Float operations per cell, counted from each kernel's source (adds,
 # multiplies, divisions, square roots, min/max; selects not counted).
 # K3 counts per active (interior, non-obstacle) cell and sweep: 5 adds, the
-# div add and one division in 3-D.
+# div add and one division in 3-D (3 adds in 2-D).
 FLOPS_PER_CELL = {"mac_sweep_fwd": 378, "mac_sweep_bwd": 378,
                   "prologue": 81, "forces_block": 76,
                   "mac_sweep_unfused_fwd": 370, "mac_sweep_unfused_bwd": 354,
                   "vorticity": 70}
-JACOBI_FLOPS_3D = 7
+JACOBI_FLOPS_3D, JACOBI_FLOPS_2D = 7, 5
 # K6 per cell and field group: 3 axes' corner and weights (9) and, for each
 # of the 8 (source, target) pairs a trilinear source reaches, 3 weight
 # products and 4 for the term and its sum.
@@ -331,6 +334,14 @@ def make_plume(dev):
     return state, create_plume_bcs(state, [1.0], u_scale=0.6, rad=0.15)
 
 
+def rolled_plume(dev, mconf, model, steps=12):
+    """The 128^3 plume after `steps` ConvNet steps, and its bcs: the state
+    the kernels are held and timed on (K3 on its flags and divergence)."""
+    from fluidnet_tpu_torch.sim.simulate import rollout
+    state, bcs = make_plume(dev)
+    return rollout(state, mconf, steps, model, bcs), bcs
+
+
 def random_flags(rng, shape):
     """15% obstacles, an obstacle border (x/y only in 2-D), Stick and Empty
     cells."""
@@ -393,13 +404,11 @@ def kernels_phase(dev, mconf, model):
     from fluidnet_tpu_torch.ops.cuda import forces_kernel, mac_sweep
     from fluidnet_tpu_torch.ops.divergence import velocity_divergence
     from fluidnet_tpu_torch.ops.forces import forces_block_xla
-    from fluidnet_tpu_torch.sim.simulate import rollout
-    from fluidnet_tpu_torch.solvers.cuda_jacobi import (jacobi_cuda,
-                                                        jacobi_plain)
+    from fluidnet_tpu_torch.solvers.cuda_jacobi import (
+        device_limits, jacobi_cuda, jacobi_plain, jacobi_route)
 
     dt, strength, W = mconf.dt, mconf.maccormack_strength, 1
-    state, bcs = make_plume(dev)
-    state = rollout(state, mconf, 12, model, bcs)
+    state, bcs = rolled_plume(dev, mconf, model)
     dx = get_dx(state.flags)
     plume = {"flags": state.flags, "u": state.u, "s": state.density,
              "div": velocity_divergence(state.u, state.flags),
@@ -448,7 +457,7 @@ def kernels_phase(dev, mconf, model):
                 out_p[i], ref_p[i], f"K2 prologue {what}"))
         errs["forces_block"] = max(errs["forces_block"], max_err(
             out_fb, ref_fb, "K2 forces block u'"))
-        errs["jacobi"] = max(errs["jacobi"], max_err(
+        errs["jacobi"] = max(errs["jacobi"], jacobi_exact(
             out_j, ref_j, "K3 p (34 sweeps)"))
         if case is plume:
             active = ((~border_mask(flags.shape, True, 1, dev)) &
@@ -477,21 +486,28 @@ def kernels_phase(dev, mconf, model):
                     fb_args, nbytes(case["u"], flags, case["s"]) +
                     3 * 4 * m.numel(),
                     FLOPS_PER_CELL["forces_block"] * m.numel()),
-                "jacobi": (
-                    jacobi_plain, jacobi_cuda, jac_args,
-                    nbytes(flags, case["div"]) + 4 * m.numel(),
-                    JACOBI_FLOPS_3D * 34 * active),
             }
+            # K3's timed cases: the jacobi-34 projection, the polish.
+            jac_timed = {f"{RES}^3 {n} sweeps": (
+                flags, case["div"], n, JACOBI_FLOPS_3D * n * active)
+                for n in (34, 8)}
+            errs["jacobi"] = max(errs["jacobi"], jacobi_exact(
+                jacobi_cuda(flags, case["div"], 8),
+                jacobi_plain(flags, case["div"], 8), "K3 p (8 sweeps)"))
 
-    log("kernels vs plain on 2-D 2x1x1x45x61 (K3):")
     rng = np.random.default_rng(9)
-    shape2 = (2, 1, 1, 45, 61)
-    flags2 = torch.tensor(random_flags(rng, shape2), device=dev)
-    div2 = torch.tensor(rng.standard_normal(shape2).astype(np.float32),
-                        device=dev)
-    errs["jacobi"] = max(errs["jacobi"], max_err(
-        jacobi_cuda(flags2, div2, 34), jacobi_plain(flags2, div2, 34),
-        "K3 2-D p (34 sweeps)"))
+    for shape2 in ((2, 1, 1, 45, 61), (1, 1, 1, RES2, RES2)):
+        log(f"kernels vs plain on 2-D {'x'.join(map(str, shape2))} (K3):")
+        flags2 = torch.tensor(random_flags(rng, shape2), device=dev)
+        div2 = torch.tensor(rng.standard_normal(shape2).astype(np.float32),
+                            device=dev)
+        errs["jacobi"] = max(errs["jacobi"], jacobi_exact(
+            jacobi_cuda(flags2, div2, 34), jacobi_plain(flags2, div2, 34),
+            "K3 2-D p (34 sweeps)"))
+    active2 = ((~border_mask(flags2.shape, False, 1, dev)) &
+               ~is_obstacle(flags2)).sum().item()
+    jac_timed[f"{RES2}^2 34 sweeps"] = (flags2, div2, 34,
+                                         JACOBI_FLOPS_2D * 34 * active2)
 
     # Times at 128^3, in turns: plain, kernel, kernel, plain.
     times = {}
@@ -505,7 +521,33 @@ def kernels_phase(dev, mconf, model):
         log(f"time {key} at {RES}^3: kernel {k1:.4f} / {k2:.4f} ms, plain "
             f"{p1:.4f} / {p2:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
             f"{nb / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)")
+
+    # K3 replayed from CUDA graphs (one launch a solve: the host's cost of
+    # issuing it is not the kernel's), with the route each shape takes.
+    limits = device_limits(dev.index)
+    for label, (f, d, n, flops) in jac_timed.items():
+        part = jacobi_route(d.shape, *limits)
+        kg = graph_ms(lambda: jacobi_cuda(f, d, n), 20)
+        pg = cuda_ms(lambda: jacobi_plain(f, d, n), 3)
+        nb = nbytes(f, d) + 4 * d.numel()
+        b_ms, b_by = bound(nb, flops)
+        log(f"time jacobi {label}: route {part.route} ({part.blocks} blocks "
+            f"of {part.rows_per_block} rows, {part.smem} B shared memory; "
+            f"{limits[0]} co-resident): graph {kg:.5f} ms, plain {pg:.4f} "
+            f"ms; bound {b_ms:.5f} ms ({b_by})")
+        if label == f"{RES}^3 34 sweeps":
+            times["jacobi"] = (kg, pg, b_ms, b_by)
     return errs, times
+
+
+def jacobi_exact(out, ref, what):
+    """K3 against its plain version: logged as max_err does, and equal to
+    the bit, or it raises."""
+    err = max_err(out, ref, what)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{what}: K3 is not bit-identical to its plain "
+                             f"version (max abs err {err})")
+    return err
 
 
 def check_launches(launches, n, per_step, what):

@@ -21,8 +21,8 @@ torch.cuda.current_stream()), it never synchronises or allocates, and it
 returns cudaGetLastError() — `check` raises if that is not 0.
 
 `launches` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else (K3 counts one per solve, whatever
-its number of sweeps; K5 one per warp call, K6 one per adjoint).
+launches its kernel and nowhere else (K3 counts one per solve that
+sweeps, whatever its route; K5 one per warp call, K6 one per adjoint).
 """
 
 import collections
@@ -53,8 +53,11 @@ _SIGNATURES = {
     "fluidnet_prologue": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
     # u, flags, out, B, Z, Y, X, amp, stream
     "fluidnet_vorticity": [_P] * 3 + [_I] * 4 + [_F] + [_P],
-    # div, flags, p0, p1, B, Z, Y, X, n_sweeps, stream
-    "fluidnet_jacobi": [_P] * 4 + [_I] * 5 + [_P],
+    # div, flags, out, scratch, B, Z, Y, X, n_sweeps, route, rows per
+    # block, halo rows, shared-memory bytes, stream
+    "fluidnet_jacobi": [_P] * 4 + [_I] * 9 + [_P],
+    # resident blocks (out), shared-memory limit (out)
+    "fluidnet_jacobi_limits": [_P] * 2,
     # srcs[], fs[], n_src, px, py, pz, out, B, G, Z, Y, X, window, nearest,
     # minmax, cmin, cmax, skip_pair, stream
     "fluidnet_warp": [_P, _P, _I] + [_P] * 4 + [_I] * 11 + [_P],

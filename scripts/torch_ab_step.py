@@ -20,10 +20,14 @@ in one process puts both versions under the same load. Prints the card's
 name and power limit, then one line per path with the median and the
 minimum ms/step of each version. Needs a CUDA device.
 
-`--kernels` times the windowed warp (K5) and its adjoint (K6) instead, at
-the shapes chip_smoke.py times: K6 at 6x64^3 and 1x128^3 (G = 3, the
-unfused sweep's own positions), K5 at 128^3 (G = 1, F = 1, min/max) and
-the 2-D server's forms (a) and (c) at 128^2. Each version's call is
+`--kernels` times the windowed warp (K5), its adjoint (K6) and the Jacobi
+solve (K3) instead, at the shapes chip_smoke.py times: K6 at 6x64^3 and
+1x128^3 (G = 3, the unfused sweep's own positions), K5 at 128^3 (G = 1,
+F = 1, min/max) and the 2-D server's forms (a) and (c) at 128^2, K3 at
+128^3 on the plume chip_smoke.py holds it on (flags and divergence after
+12 ConvNet steps) with 34 and 8 sweeps, on the same flags with random and
+with zero divergence at 34, and at 128^2 (random obstacles) with 34.
+Each version's call is
 captured 50 times in a CUDA graph, the graphs replayed in turns
 (`--rounds`, alternating which goes first), and the median and minimum
 device ms per call printed; both versions' outputs must be equal. Then
@@ -155,11 +159,38 @@ def train_runner(pkg, dev, n_future=4, batch_size=6, res=64):
 
 def kernel_cases(dev):
     """{name: (kernel, args)} at chip_smoke.py's timed shapes; kernel is
-    'warp' (ops/warp.py::warp_group) or 'warp_transpose'
-    (ops/cuda/warp_transpose.py::warp_transpose_cuda)."""
+    'warp' (ops/warp.py::warp_group), 'warp_transpose'
+    (ops/cuda/warp_transpose.py::warp_transpose_cuda) or 'jacobi'
+    (solvers/cuda_jacobi.py::jacobi_cuda)."""
+    import numpy as np
+
     import chip_smoke as cs
+    from fluidnet_tpu_torch.models.fluidnet import FluidNet
     from fluidnet_tpu_torch.ops.cuda import mac_sweep
+    from fluidnet_tpu_torch.ops.divergence import velocity_divergence
+    from fluidnet_tpu_torch.utils.checkpoint import load_mconf, load_params
+    rng = np.random.default_rng(41)
     cases = {}
+    mconf = load_mconf(cs.BUNDLED).replace(**cs.BENCH_KNOBS)
+    model = FluidNet(mconf, device=dev).load_jax_params(
+        load_params(cs.BUNDLED))
+    state, _ = cs.rolled_plume(dev, mconf, model)
+    flags = state.flags
+    div = velocity_divergence(state.u, flags)
+    for n in (34, 8):
+        cases[f"K3 {cs.RES}^3 {n} sweeps"] = ("jacobi", (flags, div, n))
+    # The same flags with other divergences: how the time depends on the
+    # values (the plume's is exactly 0 outside the plume).
+    for label, other in (("random", torch.tensor(rng.standard_normal(
+            flags.shape).astype(np.float32), device=dev)),
+            ("zero", torch.zeros_like(div))):
+        cases[f"K3 {cs.RES}^3 34 sweeps, {label} div"] = ("jacobi", (
+            flags, other, 34))
+    shape2 = (1, 1, 1, cs.RES2, cs.RES2)
+    cases[f"K3 {cs.RES2}^2 34 sweeps"] = ("jacobi", (
+        torch.tensor(cs.random_flags(rng, shape2), device=dev),
+        torch.tensor(rng.standard_normal(shape2).astype(np.float32),
+                     device=dev), 34))
     for b, res in ((cs.TRAIN_B, cs.TRAIN_RES), (1, cs.RES)):
         c = cs.train_case(dev, b, res, 31 + b)
         pos = mac_sweep.positions_for_vjp(c["u"], c["free"], -0.1, 1, True)
@@ -183,11 +214,12 @@ def kernel_cases(dev):
 
 
 def kernel_fn(pkg, kernel, args):
-    if kernel == "warp":
-        return functools.partial(importlib.import_module(
-            f"{pkg}.ops.warp").warp_group, *args)
-    return functools.partial(importlib.import_module(
-        f"{pkg}.ops.cuda.warp_transpose").warp_transpose_cuda, *args)
+    module, name = {"warp": ("ops.warp", "warp_group"),
+                    "warp_transpose": ("ops.cuda.warp_transpose",
+                                       "warp_transpose_cuda"),
+                    "jacobi": ("solvers.cuda_jacobi", "jacobi_cuda")}[kernel]
+    return functools.partial(getattr(importlib.import_module(
+        f"{pkg}.{module}"), name), *args)
 
 
 def capture(fn, n):
@@ -217,7 +249,7 @@ def replay_ms(graph, n, reps=5):
 
 
 def kernels_ab(base_pkg, dev, rounds, n=50):
-    """K5 and K6 of both versions from CUDA graphs, in turns."""
+    """K3, K5 and K6 of both versions from CUDA graphs, in turns."""
     for name, (kernel, args) in kernel_cases(dev).items():
         fns = {"base": kernel_fn(base_pkg, kernel, args),
                "this": kernel_fn(PKG, kernel, args)}
@@ -243,7 +275,7 @@ def main():
     ap.add_argument("--rounds", type=int, default=12)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--kernels", action="store_true",
-                    help="K5 and K6 from CUDA graphs, then the n = 4 "
+                    help="K3, K5 and K6 from CUDA graphs, then the n = 4 "
                     "train step")
     args = ap.parse_args()
     if not torch.cuda.is_available():

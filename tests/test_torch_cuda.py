@@ -8,8 +8,8 @@ has no JAX, so run this file without the suite's conftest:
 
 Both sides run the same float32 operations (the kernels are built with
 -fmad=false), so the tolerance is 1e-5 of each field's largest value;
-K5 and K6 are held to a max abs error of 0, K6 on shapes that cut its
-32 x 8 tiles raggedly.
+K3, K5 and K6 are held to a max abs error of 0, K6 on shapes that cut
+its 32 x 8 tiles raggedly, K3 on every route it takes.
 Batch 2 and odd extents exercise the kernels' indexing.
 """
 
@@ -22,7 +22,8 @@ from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
 from fluidnet_tpu_torch.ops.cuda import _build, forces_kernel, mac_sweep
 from fluidnet_tpu_torch.ops.forces import forces_block, forces_block_xla
 from fluidnet_tpu_torch.ops.warp import warp_group, warp_group_plain
-from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_cuda, jacobi_plain
+from fluidnet_tpu_torch.solvers.cuda_jacobi import (
+    device_limits, jacobi_cuda, jacobi_plain, jacobi_route)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -132,19 +133,70 @@ def test_forces_block_kernel_matches_plain(dev):
     assert _build.launches["forces_block"] == before + 2
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 9, 13, 17), (2, 1, 1, 13, 17)])
-def test_jacobi_kernel_matches_plain(dev, shape):
-    """K3 in 3-D and 2-D at 0, 1, 2 and 34 sweeps: one count per solve."""
-    rng = np.random.default_rng(8)
+# K3's shapes by the route jacobi_route gives them on an H100: the
+# persistent route in 3-D (ragged, batch 3 across batch edges, the 128^3
+# plume, the 6x64^3 training targets) and in 2-D (the server's 128^2, a
+# ragged batch of 2, 192^2, and x % 4 != 0 at several rows a block), and
+# one launch a sweep past the shared-memory budget.
+JACOBI_ROUTES = {(3, 1, 9, 13, 17): "persistent",
+                 (2, 1, 19, 37, 61): "persistent",
+                 (1, 1, 128, 128, 128): "persistent",
+                 (6, 1, 64, 64, 64): "persistent",
+                 (1, 1, 1, 128, 128): "persistent",
+                 (2, 1, 1, 45, 61): "persistent",
+                 (1, 1, 1, 192, 192): "persistent",
+                 (1, 1, 1, 384, 381): "persistent",
+                 (2, 1, 128, 128, 128): "sweep"}
+JACOBI_SWEEPS = (0, 1, 2, 3, 8, 33, 34)
+
+
+def _jacobi_case(dev, shape, seed=8):
+    rng = np.random.default_rng(seed)
     flags = torch.tensor(_flags(rng, shape).astype(np.int32), device=dev)
     div = torch.tensor(rng.standard_normal(shape).astype(np.float32),
                        device=dev)
+    return flags, div
+
+
+@pytest.mark.parametrize("shape", list(JACOBI_ROUTES))
+def test_jacobi_kernel_matches_plain(dev, shape):
+    """K3 on each route at 0-34 sweeps: bit-identical to its plain
+    version (n = 1, 2, 3 catch a stale read of the global copies); one
+    count per solve that sweeps."""
+    flags, div = _jacobi_case(dev, shape)
+    route = jacobi_route(shape, *device_limits(dev.index)).route
+    assert route == JACOBI_ROUTES[shape]
     before = _build.launches["jacobi"]
-    for n in (0, 1, 2, 34):
-        _close(jacobi_cuda(flags, div, n), jacobi_plain(flags, div, n),
-               f"jacobi {n} sweeps")
+    for n in JACOBI_SWEEPS:
+        out, ref = jacobi_cuda(flags, div, n), jacobi_plain(flags, div, n)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), \
+            f"{route} {n} sweeps: max abs err {(out - ref).abs().max()}"
+    assert _build.launches["jacobi"] == before + len(JACOBI_SWEEPS) - 1
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 128, 128, 128), (1, 1, 1, 128, 128),
+                                   (2, 1, 128, 128, 128)])
+def test_jacobi_graph_replay_matches_eager(dev, shape):
+    """A CUDA graph of a 34-sweep solve replays to the eager call's bits,
+    and to the plain version's for a new div written in place."""
+    flags, div = _jacobi_case(dev, shape, 12)
+    eager = jacobi_cuda(flags, div, 34)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        jacobi_cuda(flags, div, 34)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = jacobi_cuda(flags, div, 34)
+    graph.replay()
     torch.cuda.synchronize()
-    assert _build.launches["jacobi"] == before + 4
+    assert torch.equal(out, eager)
+    div.mul_(-0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, jacobi_plain(flags, div, 34))
 
 
 def test_wrappers_reject_bad_arguments(dev):
