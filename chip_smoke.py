@@ -20,11 +20,12 @@ the dyngather probe, in these phases:
              PyTorch version on the same CUDA inputs: on the 128^3 plume
              state after a few steps, on a 1x37x45x61 grid with random
              obstacles, Stick and Empty cells and slab BCs, and (K3) on
-             2-D 2x1x45x61 and 1x1x128x128 grids. Fails above 1e-5 of the
-             field's largest value; K3 (34 sweeps, and 8 on the plume) fails
-             unless equal to the bit. Times both versions at 128^3 with CUDA
-             events; K3 replayed from CUDA graphs at 128^3 with 34 and 8
-             sweeps and at 128^2 with 34, each beside the route
+             2-D 2x1x45x61 and 1x1x128x128 grids. K1 fails above 1e-5 of
+             the field's largest value; K2 and K3 (34 sweeps, and 8 on the
+             plume) fail unless equal to the bit. Times both versions at
+             128^3 with CUDA events, K2 also replayed from CUDA graphs; K3
+             replayed from CUDA graphs at 128^3 with 34 and 8 sweeps and at
+             128^2 with 34, each beside the route
              (solvers/cuda_jacobi.jacobi_route) it takes.
   4. warp (K5) vs plain: every K5 call that one 2-D step makes, for each
              advection method at windows 1 and 2, recorded on a 128^2 serve
@@ -67,9 +68,10 @@ the dyngather probe, in these phases:
              (the sweep's own positions for u and the scalar, positions past
              the window, nearest, W 1 and 2, a 2-D case) and K4 on random
              6x64^3 (the training shape) and 1x128^3 grids with 15%
-             obstacles; fails above a max abs error of 1e-6. Times each at
-             both shapes, K6 beside grid_sample's input-gradient backward
-             (timed, never used).
+             obstacles; fails above a max abs error of 1e-6, K4 unless
+             equal to the bit. Times each at both shapes, K4 also replayed
+             from CUDA graphs, K6 beside grid_sample's input-gradient
+             backward (timed, never used).
  10. data:   the port's generate_dataset with gen3d_v5's settings at 64^3,
              cut to 6 train and 2 test scenes of 16 frames (12 samples),
              into build/smoke_train/; seconds and max PCG residual.
@@ -397,9 +399,27 @@ def max_err(out, ref, what, quiet=False):
     return worst
 
 
+def plume_forces_args(state, bcs, dt):
+    """K2's prologue arguments on the plume: bench.py's buoyancy (scale 2)
+    and confinement (amp 3), no gravity, the plume's slab masks (the
+    forces block takes the first 7)."""
+    from fluidnet_tpu_torch.core.grids import get_dx
+    dx = get_dx(state.flags)
+    return (state.u, state.flags, state.density,
+            [0.0, -(dx / 4.0) * 2.0, 0.0], [0.0] * 3, 3.0 * dx, dt,
+            bcs.u_bc, bcs.u_bc_inv_mask)
+
+
+def random_forces_args(rnd, dt):
+    """K2's prologue arguments on random_case: buoyancy and gravity on
+    every axis, slab masks."""
+    return (rnd["u"], rnd["flags"], rnd["s"], [0.01, -0.2, 0.03],
+            [0.0, -0.05, 0.02], 0.7, dt, rnd["u_bc"], rnd["u_inv"])
+
+
 def kernels_phase(dev, mconf, model):
     from fluidnet_tpu_torch.core.celltype import is_fluid, is_obstacle
-    from fluidnet_tpu_torch.core.grids import border_mask, get_dx
+    from fluidnet_tpu_torch.core.grids import border_mask
     from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
     from fluidnet_tpu_torch.ops.cuda import forces_kernel, mac_sweep
     from fluidnet_tpu_torch.ops.divergence import velocity_divergence
@@ -409,15 +429,11 @@ def kernels_phase(dev, mconf, model):
 
     dt, strength, W = mconf.dt, mconf.maccormack_strength, 1
     state, bcs = rolled_plume(dev, mconf, model)
-    dx = get_dx(state.flags)
     plume = {"flags": state.flags, "u": state.u, "s": state.density,
              "div": velocity_divergence(state.u, state.flags),
-             "u_bc": bcs.u_bc, "u_inv": bcs.u_bc_inv_mask,
-             "buoy_g": [0.0, -(dx / 4.0) * 2.0, 0.0], "grav_g": [0.0] * 3,
-             "amp": 3.0 * dx}
+             "pro_args": plume_forces_args(state, bcs, dt)}
     rnd = random_case(dev)
-    rnd.update(buoy_g=[0.01, -0.2, 0.03], grav_g=[0.0, -0.05, 0.02],
-               amp=0.7)
+    rnd["pro_args"] = random_forces_args(rnd, dt)
     errs = {k: 0.0 for k in KERNELS}
     calls = {}
     for name, case in (("plume 1x128^3", plume), ("random 1x37x45x61", rnd)):
@@ -434,9 +450,7 @@ def kernels_phase(dev, mconf, model):
                     True, True)
         ref_b = mac_sweep.sweep_fused_ep_plain(*bwd_args)
         out_b = mac_sweep.advect_sweep_fused_ep(*bwd_args)
-        pro_args = (case["u"], flags, case["s"], case["buoy_g"],
-                    case["grav_g"], case["amp"], dt, case["u_bc"],
-                    case["u_inv"])
+        pro_args = case["pro_args"]
         ref_p = forces_kernel.prologue_plain(*pro_args)
         out_p = forces_kernel.prologue_cuda(*pro_args)
         fb_args = pro_args[:7]
@@ -453,11 +467,11 @@ def kernels_phase(dev, mconf, model):
             errs["mac_sweep_bwd"] = max(errs["mac_sweep_bwd"], max_err(
                 out_b[key], ref_b[key], f"K1 bwd {key}"))
         for i, what in enumerate(("u''", "div")):
-            errs["prologue"] = max(errs["prologue"], max_err(
+            errs["prologue"] = max(errs["prologue"], bit_exact(
                 out_p[i], ref_p[i], f"K2 prologue {what}"))
-        errs["forces_block"] = max(errs["forces_block"], max_err(
+        errs["forces_block"] = max(errs["forces_block"], bit_exact(
             out_fb, ref_fb, "K2 forces block u'"))
-        errs["jacobi"] = max(errs["jacobi"], jacobi_exact(
+        errs["jacobi"] = max(errs["jacobi"], bit_exact(
             out_j, ref_j, "K3 p (34 sweeps)"))
         if case is plume:
             active = ((~border_mask(flags.shape, True, 1, dev)) &
@@ -478,8 +492,8 @@ def kernels_phase(dev, mconf, model):
                 "prologue": (
                     forces_kernel.prologue_plain,
                     forces_kernel.prologue_cuda, pro_args,
-                    nbytes(case["u"], flags, case["s"], case["u_bc"],
-                           case["u_inv"]) + 4 * 4 * m.numel(),
+                    nbytes(case["u"], flags, case["s"], pro_args[7],
+                           pro_args[8]) + 4 * 4 * m.numel(),
                     FLOPS_PER_CELL["prologue"] * m.numel()),
                 "forces_block": (
                     forces_block_xla, forces_kernel.forces_block_cuda,
@@ -491,7 +505,7 @@ def kernels_phase(dev, mconf, model):
             jac_timed = {f"{RES}^3 {n} sweeps": (
                 flags, case["div"], n, JACOBI_FLOPS_3D * n * active)
                 for n in (34, 8)}
-            errs["jacobi"] = max(errs["jacobi"], jacobi_exact(
+            errs["jacobi"] = max(errs["jacobi"], bit_exact(
                 jacobi_cuda(flags, case["div"], 8),
                 jacobi_plain(flags, case["div"], 8), "K3 p (8 sweeps)"))
 
@@ -501,7 +515,7 @@ def kernels_phase(dev, mconf, model):
         flags2 = torch.tensor(random_flags(rng, shape2), device=dev)
         div2 = torch.tensor(rng.standard_normal(shape2).astype(np.float32),
                             device=dev)
-        errs["jacobi"] = max(errs["jacobi"], jacobi_exact(
+        errs["jacobi"] = max(errs["jacobi"], bit_exact(
             jacobi_cuda(flags2, div2, 34), jacobi_plain(flags2, div2, 34),
             "K3 2-D p (34 sweeps)"))
     active2 = ((~border_mask(flags2.shape, False, 1, dev)) &
@@ -509,16 +523,22 @@ def kernels_phase(dev, mconf, model):
     jac_timed[f"{RES2}^2 34 sweeps"] = (flags2, div2, 34,
                                          JACOBI_FLOPS_2D * 34 * active2)
 
-    # Times at 128^3, in turns: plain, kernel, kernel, plain.
+    # Times at 128^3, in turns: plain, kernel, kernel, plain. K2 also
+    # replayed from CUDA graphs, the time it reports (eager in brackets).
     times = {}
     for key, (plain, kern, args, nb, flops) in calls.items():
         p1 = cuda_ms(lambda: plain(*args), 5)
         k1 = cuda_ms(lambda: kern(*args), 50)
         k2 = cuda_ms(lambda: kern(*args), 50)
         p2 = cuda_ms(lambda: plain(*args), 5)
+        kg = graph_ms(lambda: kern(*args), 20) if key in (
+            "prologue", "forces_block") else None
         b_ms, b_by = bound(nb, flops)
-        times[key] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by)
-        log(f"time {key} at {RES}^3: kernel {k1:.4f} / {k2:.4f} ms, plain "
+        times[key] = ((k1 + k2) / 2 if kg is None else kg, (p1 + p2) / 2,
+                      b_ms, b_by)
+        log(f"time {key} at {RES}^3: "
+            + (f"graph {kg:.5f} ms [eager " if kg is not None else "kernel ")
+            + f"{k1:.4f} / {k2:.4f} ms{']' if kg is not None else ''}, plain "
             f"{p1:.4f} / {p2:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
             f"{nb / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)")
 
@@ -540,13 +560,13 @@ def kernels_phase(dev, mconf, model):
     return errs, times
 
 
-def jacobi_exact(out, ref, what):
-    """K3 against its plain version: logged as max_err does, and equal to
-    the bit, or it raises."""
+def bit_exact(out, ref, what):
+    """A kernel (K2, K3, K4) against its plain version: logged as max_err
+    does, and equal to the bit, or it raises."""
     err = max_err(out, ref, what)
     if not torch.equal(out, ref):
-        raise AssertionError(f"{what}: K3 is not bit-identical to its plain "
-                             f"version (max abs err {err})")
+        raise AssertionError(f"{what}: the kernel is not bit-identical to "
+                             f"its plain version (max abs err {err})")
     return err
 
 
@@ -1212,9 +1232,9 @@ def train_kernels_phase(dev):
             (g, px, py, pz, 1, False), nbytes(g, px, py, pz, g),
             WARP_T_FLOPS * g.numel(), grid_sample_backward(g, px, py, pz))
         va = (c["u"], c["flags"], amp)
-        errs["vorticity"] = max(errs["vorticity"], max_abs(
-            vorticity_cuda(*va), vorticity_confinement_xla(*va),
-            "K4 vorticity confinement"))
+        ref_v = vorticity_confinement_xla(*va)
+        errs["vorticity"] = max(errs["vorticity"], bit_exact(
+            vorticity_cuda(*va), ref_v, "K4 vorticity confinement"))
         calls["vorticity"] = (vorticity_confinement_xla, vorticity_cuda, va,
                               nbytes(c["u"], c["flags"], c["u"]),
                               FLOPS_PER_CELL["vorticity"] * c["m"].numel(),
@@ -1225,11 +1245,16 @@ def train_kernels_phase(dev):
             k2 = cuda_ms(lambda: kern(*args), 20)
             p2 = cuda_ms(lambda: plain(*args), 3)
             lib_ms = cuda_ms(lib, 20) if lib is not None else None
+            # K4 also replayed from CUDA graphs, the time it reports.
+            kg = graph_ms(lambda: kern(*args), 20) if key == "vorticity" \
+                else None
             b_ms, b_by = bound(nb, flops)
             if b == TRAIN_B:
-                times[key] = ((k1 + k2) / 2, (p1 + p2) / 2, b_ms, b_by,
-                              lib_ms)
-            log(f"time {key} at {at}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+                times[key] = ((k1 + k2) / 2 if kg is None else kg,
+                              (p1 + p2) / 2, b_ms, b_by, lib_ms)
+            log(f"time {key} at {at}: "
+                + (f"graph {kg:.5f} ms, " if kg is not None else "")
+                + f"kernel {k1:.4f} / {k2:.4f} ms, plain "
                 f"{p1:.4f} / {p2:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
                 f"{nb / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)"
                 + (f"; grid_sample backward {lib_ms:.4f} ms"

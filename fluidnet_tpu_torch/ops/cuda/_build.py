@@ -49,10 +49,11 @@ _SIGNATURES = {
     # u, s, m, fwd_u, fwd_s, free, out, B, Z, Y, X, dcoef, strength, lim,
     # is_bwd, ours, renorm, scalar, fuse, stream
     "fluidnet_mac_sweep": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I] * 5 + [_P],
-    # u, flags, rho, ubc, uinv, out, B, Z, Y, X, YB, epi, scal7[7], stream
-    "fluidnet_prologue": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_P],
-    # u, flags, out, B, Z, Y, X, amp, stream
-    "fluidnet_vorticity": [_P] * 3 + [_I] * 4 + [_F] + [_P],
+    # u, flags, rho, ubc, uinv, out, B, Z, Y, X, YB, epi, scal7[7], tile
+    # height, planes a block, stream
+    "fluidnet_prologue": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_I] * 2 + [_P],
+    # u, flags, out, B, Z, Y, X, amp, tile height, planes a block, stream
+    "fluidnet_vorticity": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
     # div, flags, out, scratch, B, Z, Y, X, n_sweeps, route, rows per
     # block, halo rows, shared-memory bytes, stream
     "fluidnet_jacobi": [_P] * 4 + [_I] * 9 + [_P],

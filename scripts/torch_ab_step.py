@@ -20,8 +20,12 @@ in one process puts both versions under the same load. Prints the card's
 name and power limit, then one line per path with the median and the
 minimum ms/step of each version. Needs a CUDA device.
 
-`--kernels` times the windowed warp (K5), its adjoint (K6) and the Jacobi
-solve (K3) instead, at the shapes chip_smoke.py times: K6 at 6x64^3 and
+`--kernels` times the windowed warp (K5), its adjoint (K6), the Jacobi
+solve (K3), K2's prologue and forces block and K4 instead, at the shapes
+chip_smoke.py times: K2 at 128^3 on the plume chip_smoke.py holds it on
+and on its random 1x37x45x61 case and on random obstacles at 6x64^3 and 1x64^3, K4
+at 6x64^3 and 1x128^3 (K2 and K4 also at each other tile height of this
+version), K6 at 6x64^3 and
 1x128^3 (G = 3, the unfused sweep's own positions), K5 at 128^3 (G = 1,
 F = 1, min/max) and the 2-D server's forms (a) and (c) at 128^2, K3 at
 128^3 on the plume chip_smoke.py holds it on (flags and divergence after
@@ -160,8 +164,10 @@ def train_runner(pkg, dev, n_future=4, batch_size=6, res=64):
 def kernel_cases(dev):
     """{name: (kernel, args)} at chip_smoke.py's timed shapes; kernel is
     'warp' (ops/warp.py::warp_group), 'warp_transpose'
-    (ops/cuda/warp_transpose.py::warp_transpose_cuda) or 'jacobi'
-    (solvers/cuda_jacobi.py::jacobi_cuda)."""
+    (ops/cuda/warp_transpose.py::warp_transpose_cuda), 'jacobi'
+    (solvers/cuda_jacobi.py::jacobi_cuda), 'prologue', 'forces_block' or
+    'vorticity' (ops/cuda/forces_kernel.py's prologue_cuda,
+    forces_block_cuda, vorticity_cuda)."""
     import numpy as np
 
     import chip_smoke as cs
@@ -174,9 +180,26 @@ def kernel_cases(dev):
     mconf = load_mconf(cs.BUNDLED).replace(**cs.BENCH_KNOBS)
     model = FluidNet(mconf, device=dev).load_jax_params(
         load_params(cs.BUNDLED))
-    state, _ = cs.rolled_plume(dev, mconf, model)
+    state, bcs = cs.rolled_plume(dev, mconf, model)
     flags = state.flags
     div = velocity_divergence(state.u, flags)
+    rnd = cs.random_case(dev)
+    for label, case in ((f"{cs.RES}^3 plume", cs.plume_forces_args(
+            state, bcs, mconf.dt)), ("1x37x45x61 random",
+                                     cs.random_forces_args(rnd, mconf.dt))):
+        cases[f"K2 prologue {label}"] = ("prologue", case)
+        cases[f"K2 forces block {label}"] = ("forces_block", case[:7])
+    for b, res in ((cs.TRAIN_B, cs.TRAIN_RES), (1, cs.TRAIN_RES)):
+        # The training batch's and the stats / exact route's shapes.
+        c = cs.train_case(dev, b, res, 31 + b)
+        args = (c["u"], c["flags"], c["s"], [0.0, -0.1, 0.0], [0.0] * 3,
+                3.0 / res, mconf.dt)
+        cases[f"K2 prologue {b}x{res}^3"] = ("prologue", args)
+        cases[f"K2 forces block {b}x{res}^3"] = ("forces_block", args)
+    for b, res in ((cs.TRAIN_B, cs.TRAIN_RES), (1, cs.RES)):
+        c = cs.train_case(dev, b, res, 31 + b)
+        cases[f"K4 {b}x{res}^3"] = ("vorticity", (c["u"], c["flags"],
+                                                  3.0 / res))
     for n in (34, 8):
         cases[f"K3 {cs.RES}^3 {n} sweeps"] = ("jacobi", (flags, div, n))
     # The same flags with other divergences: how the time depends on the
@@ -213,13 +236,25 @@ def kernel_cases(dev):
     return cases
 
 
-def kernel_fn(pkg, kernel, args):
+def kernel_fn(pkg, kernel, args, **kw):
     module, name = {"warp": ("ops.warp", "warp_group"),
                     "warp_transpose": ("ops.cuda.warp_transpose",
                                        "warp_transpose_cuda"),
-                    "jacobi": ("solvers.cuda_jacobi", "jacobi_cuda")}[kernel]
+                    "jacobi": ("solvers.cuda_jacobi", "jacobi_cuda"),
+                    "prologue": ("ops.cuda.forces_kernel", "prologue_cuda"),
+                    "forces_block": ("ops.cuda.forces_kernel",
+                                     "forces_block_cuda"),
+                    "vorticity": ("ops.cuda.forces_kernel",
+                                  "vorticity_cuda")}[kernel]
     return functools.partial(getattr(importlib.import_module(
-        f"{pkg}.{module}"), name), *args)
+        f"{pkg}.{module}"), name), *args, **kw)
+
+
+def equal(a, b):
+    """torch.equal, element by element for a tuple of tensors."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(equal, a, b))
+    return torch.equal(a, b)
 
 
 def capture(fn, n):
@@ -249,20 +284,34 @@ def replay_ms(graph, n, reps=5):
 
 
 def kernels_ab(base_pkg, dev, rounds, n=50):
-    """K3, K5 and K6 of both versions from CUDA graphs, in turns."""
+    """K2-K6 of both versions from CUDA graphs, in turns; K2 and K4 of this
+    version also at its other tile heights ("this_ty<h>")."""
+    from fluidnet_tpu_torch.ops.cuda.forces_kernel import (
+        TILE_YS, prologue_tiling, sm_count)
     for name, (kernel, args) in kernel_cases(dev).items():
         fns = {"base": kernel_fn(base_pkg, kernel, args),
                "this": kernel_fn(PKG, kernel, args)}
+        tiling = None
+        if kernel in ("prologue", "forces_block", "vorticity"):
+            tiling = prologue_tiling(args[0].shape, sm_count(dev.index),
+                                     epi=kernel == "prologue")
+            for ty in TILE_YS:
+                if ty != tiling.tile_y:
+                    fns[f"this_ty{ty}"] = kernel_fn(PKG, kernel, args,
+                                                    tile_y=ty)
         outs = {who: fn() for who, fn in fns.items()}
-        if not torch.equal(outs["base"], outs["this"]):
-            raise AssertionError(f"{name}: the versions' outputs differ")
+        for who, out in outs.items():
+            if not equal(outs["base"], out):
+                raise AssertionError(f"{name}: {who}'s output differs from "
+                                     "base's")
         graphs = {who: capture(fn, n) for who, fn in fns.items()}
-        times = {"base": [], "this": []}
+        times = {who: [] for who in fns}
+        order = list(fns)
         for rnd in range(rounds):
-            for who in (("base", "this") if rnd % 2 == 0 else
-                        ("this", "base")):
+            for who in (order if rnd % 2 == 0 else order[::-1]):
                 times[who].append(replay_ms(graphs[who], n))
-        print(json.dumps({"kernel": name, **{
+        print(json.dumps({"kernel": name, **({"tiling": tiling._asdict()}
+                                             if tiling else {}), **{
             f"{who}_ms": {"median": statistics.median(t), "min": min(t)}
             for who, t in times.items()}}), flush=True)
         del graphs
@@ -275,7 +324,7 @@ def main():
     ap.add_argument("--rounds", type=int, default=12)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--kernels", action="store_true",
-                    help="K3, K5 and K6 from CUDA graphs, then the n = 4 "
+                    help="K2-K6 from CUDA graphs, then the n = 4 "
                     "train step")
     args = ap.parse_args()
     if not torch.cuda.is_available():

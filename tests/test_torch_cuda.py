@@ -8,8 +8,9 @@ has no JAX, so run this file without the suite's conftest:
 
 Both sides run the same float32 operations (the kernels are built with
 -fmad=false), so the tolerance is 1e-5 of each field's largest value;
-K3, K5 and K6 are held to a max abs error of 0, K6 on shapes that cut
-its 32 x 8 tiles raggedly, K3 on every route it takes.
+K2, K3, K4, K5 and K6 are held to a max abs error of 0, K6 on shapes
+that cut its 32 x 8 tiles raggedly, K2 and K4 on shapes that cut their
+xy tiles and z-ranges raggedly, K3 on every route it takes.
 Batch 2 and odd extents exercise the kernels' indexing.
 """
 
@@ -104,31 +105,59 @@ def test_mac_sweep_kernel_matches_plain(dev, ours, renorm):
         before.get("mac_sweep_bwd", 0) + 1
 
 
+# K2's and K4's shapes (b, z, y, x): the small case, the 128^3 plume, the
+# 6x64^3 training batch, a ragged batch of 2 (x and y cut the 32 x TY
+# tiles raggedly), and y under one tile with z cut into ranges of 7.
+FORCES_SHAPES = [(2, 9, 13, 17), (1, 128, 128, 128), (6, 64, 64, 64),
+                 (2, 37, 45, 61), (1, 33, 17, 70)]
+
+
+def _forces_case(dev, shape, seed):
+    rng = np.random.default_rng(seed)
+    B, Z, Y, X = shape
+    flags = _flags(rng, (B, 1, Z, Y, X))
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    return {"flags": torch.tensor(flags.astype(np.int32), device=dev),
+            "u": t(rng.standard_normal((B, 3, Z, Y, X)) * 3.0),
+            "s": t(rng.random((B, 1, Z, Y, X))),
+            "u_bc": t(rng.standard_normal((B, 3, Z, 4, X))),
+            "u_inv": t(rng.random((B, 3, Z, 4, X)) < 0.5)}
+
+
+@pytest.mark.parametrize("tile_y", forces_kernel.TILE_YS)
+@pytest.mark.parametrize("shape", FORCES_SHAPES)
 @pytest.mark.parametrize("with_bc", [False, True])
-def test_prologue_kernel_matches_plain(dev, with_bc):
-    c = _case(dev, 4)
+def test_prologue_kernel_matches_plain(dev, with_bc, shape, tile_y):
+    """K2's prologue form against prologue_plain, max abs error 0, on
+    every tile height the kernel instantiates."""
+    c = _forces_case(dev, shape, 4)
     args = (c["u"], c["flags"], c["s"], [0.01, -0.2, 0.03],
             [0.0, -0.05, 0.02], 0.7, 0.1,
             c["u_bc"] if with_bc else None, c["u_inv"] if with_bc else None)
     before = _build.launches["prologue"]
     ref = forces_kernel.prologue_plain(*args)
-    out = forces_kernel.prologue_cuda(*args)
+    out = forces_kernel.prologue_cuda(*args, tile_y=tile_y)
     torch.cuda.synchronize()
-    _close(out[0], ref[0], "u''")
-    _close(out[1], ref[1], "div")
+    _exact(out[0], ref[0], "u''")
+    _exact(out[1], ref[1], "div")
     assert _build.launches["prologue"] == before + 1
 
 
-def test_forces_block_kernel_matches_plain(dev):
+@pytest.mark.parametrize("tile_y", forces_kernel.TILE_YS)
+@pytest.mark.parametrize("shape", FORCES_SHAPES)
+def test_forces_block_kernel_matches_plain(dev, shape, tile_y):
     """K2's forces-block form (epi=False) against forces_block_xla, direct
-    and through the ops.forces.forces_block dispatch."""
-    c = _case(dev, 6)
+    and through the ops.forces.forces_block dispatch, max abs error 0."""
+    c = _forces_case(dev, shape, 6)
     args = (c["u"], c["flags"], c["s"], [0.01, -0.2, 0.03],
             [0.0, -0.05, 0.02], 0.7, 0.1)
     before = _build.launches["forces_block"]
     ref = forces_block_xla(*args)
-    _close(forces_kernel.forces_block_cuda(*args), ref, "forces block")
-    _close(forces_block(*args), ref, "forces_block dispatch")
+    _exact(forces_kernel.forces_block_cuda(*args, tile_y=tile_y), ref,
+           "forces block")
+    _exact(forces_block(*args), ref, "forces_block dispatch")
     torch.cuda.synchronize()
     assert _build.launches["forces_block"] == before + 2
 
@@ -442,15 +471,17 @@ def test_warp_transpose_kernel_matches_plain(dev, shape, windows, nearest):
     assert _build.launches["warp_transpose"] == before + len(windows)
 
 
-def test_vorticity_kernel_matches_plain_and_grad(dev):
-    """K4 against vorticity_confinement_xla, and its replayed gradient
-    against autograd of the plain composition."""
+@pytest.mark.parametrize("tile_y", forces_kernel.TILE_YS)
+@pytest.mark.parametrize("shape", FORCES_SHAPES)
+def test_vorticity_kernel_matches_plain_and_grad(dev, shape, tile_y):
+    """K4 against vorticity_confinement_xla, max abs error 0, and its
+    replayed gradient against autograd of the plain composition."""
     from fluidnet_tpu_torch.ops.cuda.forces_kernel import vorticity_cuda
     from fluidnet_tpu_torch.ops.forces import (vorticity_confinement,
                                                vorticity_confinement_xla)
-    c = _case(dev, 14)
+    c = _forces_case(dev, shape, 14)
     before = _build.launches["vorticity"]
-    _close(vorticity_cuda(c["u"], c["flags"], 0.7),
+    _exact(vorticity_cuda(c["u"], c["flags"], 0.7, tile_y=tile_y),
            vorticity_confinement_xla(c["u"], c["flags"], 0.7), "u'")
     grads = []
     for fn in (vorticity_confinement, vorticity_confinement_xla):
