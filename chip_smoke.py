@@ -20,10 +20,11 @@ the dyngather probe, in these phases:
              PyTorch version on the same CUDA inputs: on the 128^3 plume
              state after a few steps, on a 1x37x45x61 grid with random
              obstacles, Stick and Empty cells and slab BCs, and (K3) on
-             2-D 2x1x45x61 and 1x1x128x128 grids. K1 fails above 1e-5 of
-             the field's largest value; K2 and K3 (34 sweeps, and 8 on the
-             plume) fail unless equal to the bit. Times both versions at
-             128^3 with CUDA events, K2 also replayed from CUDA graphs; K3
+             2-D 2x1x45x61 and 1x1x128x128 grids. K1 (at windows 1 and 2),
+             K2 and K3 (34 sweeps, and 8 on the plume) fail unless equal
+             to the bit. Times both versions at 128^3 with CUDA events,
+             K1 and K2 also replayed from CUDA graphs (K1 beside its
+             tiling, and at window 2); K3
              replayed from CUDA graphs at 128^3 with 34 and 8 sweeps and at
              128^2 with 34, each beside the route
              (solvers/cuda_jacobi.jacobi_route) it takes.
@@ -64,14 +65,16 @@ the dyngather probe, in these phases:
              jacobi-34's; 8 ConvNet and 8 jacobi-34 steps with the kernels
              against 8 with the plain versions.
   9. training kernels vs plain: K1's unfused forms (both sweeps, with and
-             without the scalar and its renormalisation, ours or not), K6
-             (the sweep's own positions for u and the scalar, positions past
+             without the scalar and its renormalisation, ours or not, at
+             window 1; the 'Ours' renormalised pair at 2 too), K6 (the
+             sweep's own positions for u and the scalar, positions past
              the window, nearest, W 1 and 2, a 2-D case) and K4 on random
              6x64^3 (the training shape) and 1x128^3 grids with 15%
-             obstacles; fails above a max abs error of 1e-6, K4 unless
-             equal to the bit. Times each at both shapes, K4 also replayed
-             from CUDA graphs, K6 beside grid_sample's input-gradient
-             backward (timed, never used).
+             obstacles; K6 fails above a max abs error of 1e-6, K1 and K4
+             unless equal to the bit. Times each at both shapes, K1 and K4
+             also replayed from CUDA graphs (K1 beside its tiling), K6
+             beside grid_sample's input-gradient backward (timed, never
+             used).
  10. data:   the port's generate_dataset with gen3d_v5's settings at 64^3,
              cut to 6 train and 2 test scenes of 16 frames (12 samples),
              into build/smoke_train/; seconds and max PCG residual.
@@ -224,7 +227,7 @@ STATS_STEPS = 64
 PROBE_SHAPES = ((128, 128), (37, 61))
 TRAIN_RES, TRAIN_B = 64, 6      # gen3d_v5's grid, train3d_v5.sh's batch
 TRAIN_REPS = 3                  # timed train steps per horizon
-EXACT = 1e-6                    # the new kernels vs plain: max abs error
+EXACT = 1e-6                    # K6 vs plain: max abs error
 GRAD_TOL = 1e-4                 # train grads, kernels vs plain: rel. L2
 # The flags of scripts/train3d_v5.sh (the m3d_v5 recipe), batch 6.
 RECIPE = ["-batch_size", "6", "-seed", "17", "-profile", "false",
@@ -420,7 +423,6 @@ def random_forces_args(rnd, dt):
 def kernels_phase(dev, mconf, model):
     from fluidnet_tpu_torch.core.celltype import is_fluid, is_obstacle
     from fluidnet_tpu_torch.core.grids import border_mask
-    from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
     from fluidnet_tpu_torch.ops.cuda import forces_kernel, mac_sweep
     from fluidnet_tpu_torch.ops.divergence import velocity_divergence
     from fluidnet_tpu_torch.ops.forces import forces_block_xla
@@ -435,21 +437,28 @@ def kernels_phase(dev, mconf, model):
     rnd = random_case(dev)
     rnd["pro_args"] = random_forces_args(rnd, dt)
     errs = {k: 0.0 for k in KERNELS}
-    calls = {}
+    calls, k1_w2 = {}, {}
     for name, case in (("plume 1x128^3", plume), ("random 1x37x45x61", rnd)):
         log(f"kernels vs plain on {name}:")
         flags = case["flags"]
         m = is_fluid(flags).to(torch.float32)
-        free = chebyshev_free_space(flags, W + 1)
-        fwd_args = (case["u"], case["s"], m, None, None, free, -dt,
-                    strength, W, True, True)
-        ref_f = mac_sweep.sweep_fused_ep_plain(*fwd_args)
-        out_f = mac_sweep.advect_sweep_fused_ep(*fwd_args)
-        bwd_args = (case["u"], case["s"], m, ref_f["u_w"].contiguous(),
-                    ref_f["s_val"].contiguous(), free, dt, strength, W,
-                    True, True)
-        ref_b = mac_sweep.sweep_fused_ep_plain(*bwd_args)
-        out_b = mac_sweep.advect_sweep_fused_ep(*bwd_args)
+        # K1 at the bench's window 1 and at 2 (the default window),
+        # fused forward then backward, equal to the bit.
+        k1 = {w: dict(zip(("mac_sweep_fwd", "mac_sweep_bwd"),
+                          k1_fused_args(case, m, dt, strength, w)))
+              for w in (W, 2)}
+        for w, sweeps in k1.items():
+            for key, args in sweeps.items():
+                out = mac_sweep.advect_sweep_fused_ep(*args)
+                ref = mac_sweep.sweep_fused_ep_plain(*args)
+                torch.cuda.synchronize()
+                for k in ref:
+                    errs[key] = max(errs[key], bit_exact(
+                        out[k], ref[k], f"K1 {key[10:]} W={w} {k}"))
+        if case is plume:
+            k1_w2 = k1[2]
+        fwd_args, bwd_args = k1[W].values()
+        free = fwd_args[5]
         pro_args = case["pro_args"]
         ref_p = forces_kernel.prologue_plain(*pro_args)
         out_p = forces_kernel.prologue_cuda(*pro_args)
@@ -460,12 +469,6 @@ def kernels_phase(dev, mconf, model):
         ref_j = jacobi_plain(*jac_args)
         out_j = jacobi_cuda(*jac_args)
         torch.cuda.synchronize()
-        for key in ref_f:
-            errs["mac_sweep_fwd"] = max(errs["mac_sweep_fwd"], max_err(
-                out_f[key], ref_f[key], f"K1 fwd {key}"))
-        for key in ref_b:
-            errs["mac_sweep_bwd"] = max(errs["mac_sweep_bwd"], max_err(
-                out_b[key], ref_b[key], f"K1 bwd {key}"))
         for i, what in enumerate(("u''", "div")):
             errs["prologue"] = max(errs["prologue"], bit_exact(
                 out_p[i], ref_p[i], f"K2 prologue {what}"))
@@ -523,24 +526,28 @@ def kernels_phase(dev, mconf, model):
     jac_timed[f"{RES2}^2 34 sweeps"] = (flags2, div2, 34,
                                          JACOBI_FLOPS_2D * 34 * active2)
 
-    # Times at 128^3, in turns: plain, kernel, kernel, plain. K2 also
-    # replayed from CUDA graphs, the time it reports (eager in brackets).
+    # Times at 128^3, in turns: plain, kernel, kernel, plain; the kernels
+    # also replayed from CUDA graphs, the time they report (eager in
+    # brackets). K1 with its tiling, and at W = 2 from graphs alone.
     times = {}
     for key, (plain, kern, args, nb, flops) in calls.items():
         p1 = cuda_ms(lambda: plain(*args), 5)
         k1 = cuda_ms(lambda: kern(*args), 50)
         k2 = cuda_ms(lambda: kern(*args), 50)
         p2 = cuda_ms(lambda: plain(*args), 5)
-        kg = graph_ms(lambda: kern(*args), 20) if key in (
-            "prologue", "forces_block") else None
+        kg = graph_ms(lambda: kern(*args), 20)
         b_ms, b_by = bound(nb, flops)
-        times[key] = ((k1 + k2) / 2 if kg is None else kg, (p1 + p2) / 2,
-                      b_ms, b_by)
-        log(f"time {key} at {RES}^3: "
-            + (f"graph {kg:.5f} ms [eager " if kg is not None else "kernel ")
-            + f"{k1:.4f} / {k2:.4f} ms{']' if kg is not None else ''}, plain "
-            f"{p1:.4f} / {p2:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
-            f"{nb / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)")
+        times[key] = (kg, (p1 + p2) / 2, b_ms, b_by)
+        extra = ""
+        if key in k1_w2:
+            w2 = graph_ms(lambda: kern(*k1_w2[key]), 20)
+            extra = (f"; tiling {k1_tiling(args, True)._asdict()}; W=2 "
+                     f"graph {w2:.5f} ms, tiling "
+                     f"{k1_tiling(k1_w2[key], True)._asdict()}")
+        log(f"time {key} at {RES}^3: graph {kg:.5f} ms [eager {k1:.4f} / "
+            f"{k2:.4f} ms], plain {p1:.4f} / {p2:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}: {nb / 1e6:.1f} MB, "
+            f"{flops / 1e6:.0f} MFLOP){extra}")
 
     # K3 replayed from CUDA graphs (one launch a solve: the host's cost of
     # issuing it is not the kernel's), with the route each shape takes.
@@ -558,6 +565,35 @@ def kernels_phase(dev, mconf, model):
         if label == f"{RES}^3 34 sweeps":
             times["jacobi"] = (kg, pg, b_ms, b_by)
     return errs, times
+
+
+def k1_fused_args(case, m, dt, strength, W):
+    """K1's fused forward and backward arguments on a case (u, s, flags)
+    at window W, 'Ours' with renormalisation as the bench; the backward's
+    fwd_u, fwd_s from the plain forward."""
+    from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
+    from fluidnet_tpu_torch.ops.cuda import mac_sweep
+    free = chebyshev_free_space(case["flags"], W + 1)
+    fwd = (case["u"], case["s"], m, None, None, free, -dt, strength, W,
+           True, True)
+    ref = mac_sweep.sweep_fused_ep_plain(*fwd)
+    bwd = (case["u"], case["s"], m, ref["u_w"].contiguous(),
+           ref["s_val"].contiguous(), free, dt, strength, W, True, True)
+    return fwd, bwd
+
+
+def k1_tiling(args, fused):
+    """The tiled route's grid (ops/cuda/mac_sweep.py::launch_tiling) of a
+    K1 call's arguments, advect_sweep_fused_ep's or sweep_cuda's; None on
+    the global route."""
+    from fluidnet_tpu_torch.ops.cuda import mac_sweep
+    W, ours, scalar, renorm = (args[8], args[9], True, args[10]) if fused \
+        else args[7:11]
+    if mac_sweep.sweep_route(W, args[0].shape) != "tiled":
+        return None
+    form = (int(args[3] is not None), int(ours), int(renorm and scalar),
+            int(scalar), int(fused))
+    return mac_sweep.launch_tiling(args[0], W, form)
 
 
 def bit_exact(out, ref, what):
@@ -1125,7 +1161,8 @@ def train_case(dev, b, res, seed):
             "s": torch.tensor(rng.random(shape).astype(np.float32),
                               device=dev),
             "m": is_fluid(flags).to(torch.float32),
-            "free": chebyshev_free_space(flags, 2)}
+            "free": chebyshev_free_space(flags, 2),
+            "free2": chebyshev_free_space(flags, 3)}
 
 
 def grid_sample_backward(g, px, py, pz):
@@ -1165,30 +1202,35 @@ def train_kernels_phase(dev):
         log(f"training kernels vs plain on {at} (15% obstacles):")
         calls = {}
         fwd_s = None
-        for is_bwd, ours, with_scalar, renorm in (
-                (False, True, True, True), (True, True, True, True),
-                (False, False, True, False), (True, False, True, False),
-                (False, True, False, False), (True, False, False, False)):
+        # Every form at the recipe's window 1, the 'Ours' renormalised
+        # pair also at 2; equal to the bit.
+        for W, is_bwd, ours, with_scalar, renorm in (
+                (1, False, True, True, True), (1, True, True, True, True),
+                (1, False, False, True, False), (1, True, False, True, False),
+                (1, False, True, False, False),
+                (1, True, False, False, False),
+                (2, False, True, True, True), (2, True, True, True, True)):
+            free = c["free"] if W == 1 else c["free2"]
             fwd = None
             if is_bwd:
                 fwd = mac_sweep.sweep_plain(c["u"], c["s"], c["m"], None,
-                                            None, c["free"], -dt, 1, ours,
-                                            True, renorm)
+                                            None, free, -dt, W, ours, True,
+                                            renorm)
                 fwd_s = fwd[:, 9:10].contiguous() if with_scalar else None
                 fwd = fwd[:, 0:3].contiguous()
             args = (c["u"], None if is_bwd else c["s"],
                     c["m"] if with_scalar else None, fwd, fwd_s,
-                    c["free"] if ours else None, dt if is_bwd else -dt, 1,
+                    free if ours else None, dt if is_bwd else -dt, W,
                     ours, with_scalar, renorm)
             key = "mac_sweep_unfused_" + ("bwd" if is_bwd else "fwd")
             ref = mac_sweep.sweep_plain(*args)
             out = mac_sweep.sweep_cuda(*args)
             torch.cuda.synchronize()
-            errs[key] = max(errs[key], max_abs(
-                out, ref, f"K1 unfused {'bwd' if is_bwd else 'fwd'} ours="
-                f"{ours} scalar={with_scalar} renorm={renorm} "
+            errs[key] = max(errs[key], bit_exact(
+                out, ref, f"K1 unfused {'bwd' if is_bwd else 'fwd'} W={W} "
+                f"ours={ours} scalar={with_scalar} renorm={renorm} "
                 f"({ref.shape[1]} channels)"))
-            if ours and with_scalar and renorm:
+            if W == 1 and ours and with_scalar and renorm:
                 calls[key] = (mac_sweep.sweep_plain, mac_sweep.sweep_cuda,
                               args, nbytes(*args[:6], ref),
                               FLOPS_PER_CELL[key] * c["m"].numel(), None)
@@ -1245,9 +1287,10 @@ def train_kernels_phase(dev):
             k2 = cuda_ms(lambda: kern(*args), 20)
             p2 = cuda_ms(lambda: plain(*args), 3)
             lib_ms = cuda_ms(lib, 20) if lib is not None else None
-            # K4 also replayed from CUDA graphs, the time it reports.
-            kg = graph_ms(lambda: kern(*args), 20) if key == "vorticity" \
-                else None
+            # K1 and K4 also replayed from CUDA graphs, the time they
+            # report; K1 beside its tiling.
+            kg = graph_ms(lambda: kern(*args), 20) if key != \
+                "warp_transpose" else None
             b_ms, b_by = bound(nb, flops)
             if b == TRAIN_B:
                 times[key] = ((k1 + k2) / 2 if kg is None else kg,
@@ -1258,7 +1301,9 @@ def train_kernels_phase(dev):
                 f"{p1:.4f} / {p2:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
                 f"{nb / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)"
                 + (f"; grid_sample backward {lib_ms:.4f} ms"
-                   if lib_ms is not None else ""))
+                   if lib_ms is not None else "")
+                + (f"; tiling {k1_tiling(args, False)._asdict()}"
+                   if key.startswith("mac_sweep") else ""))
     return errs, times
 
 

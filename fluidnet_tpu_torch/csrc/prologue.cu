@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kTX = 32;                // output tile width (x)
@@ -120,20 +122,9 @@ static_assert(sizeof(Smem<8, true>) == 168 * kW * 16 + 8 * 6 * 4 * kW * 8,
 static_assert(sizeof(Smem<16, false>) == 168 * kW * 24 + 8 * 6 * 4,
               "Smem<16, false> layout");
 
-// One 4-byte asynchronous copy from global to shared memory; zeros when
-// !valid (src-size 0: nothing is read from src).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 // Waits until at most kStage - 2 groups (planes z + 2, z + 3) are pending.
 __device__ __forceinline__ void cp_async_wait_next() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStage - 2));
+  cp_async_wait<kStage - 2>();
 }
 
 struct Scal {

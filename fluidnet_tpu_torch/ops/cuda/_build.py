@@ -27,6 +27,7 @@ sweeps, whatever its route; K5 one per warp call, K6 one per adjoint).
 
 import collections
 import ctypes
+import functools
 import glob
 import os
 import shutil
@@ -47,8 +48,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (argtypes) of the entry points in csrc/.
 _SIGNATURES = {
     # u, s, m, fwd_u, fwd_s, free, out, B, Z, Y, X, dcoef, strength, lim,
-    # is_bwd, ours, renorm, scalar, fuse, stream
-    "fluidnet_mac_sweep": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I] * 5 + [_P],
+    # is_bwd, ours, renorm, scalar, fuse, window, tile height (0: the
+    # global route), planes a block, stream
+    "fluidnet_mac_sweep": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I] * 8 + [_P],
+    # is_bwd, ours, renorm, scalar, fuse, window, tile height, resident
+    # blocks an SM (out)
+    "fluidnet_mac_sweep_occupancy": [_I] * 7 + [_P],
     # u, flags, rho, ubc, uinv, out, B, Z, Y, X, YB, epi, scal7[7], tile
     # height, planes a block, stream
     "fluidnet_prologue": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_I] * 2 + [_P],
@@ -150,6 +155,13 @@ def library():
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, name: str):

@@ -36,7 +36,6 @@ plain PyTorch versions (prologue_plain, ops.forces.forces_block_xla) for
 CPU tensors and launch the kernel for CUDA tensors; nothing else chooses.
 """
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -147,14 +146,9 @@ def prologue_tiling(shape, n_sm: int, tile_y: int = None,
                   smem_bytes(ty, epi))
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device `index`."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _tiling(u, tile_y, epi):
-    return prologue_tiling(u.shape, sm_count(u.device.index), tile_y, epi)
+    return prologue_tiling(u.shape, _build.sm_count(u.device.index), tile_y,
+                           epi)
 
 
 def _check_args(name, u, flags, density):

@@ -10,15 +10,24 @@ through
     runs on K6 (ops/cuda/warp_transpose.py): counted in
     ["mac_sweep_unfused_fwd"] / ["mac_sweep_unfused_bwd"].
 The CUDA kernel is csrc/mac_sweep.cu; its source note gives the per-cell
-work, what bounds it on the H100 (memory traffic, 48 to 80 B/cell
-compulsory plus ~150 gathered reads per cell that must hit L1/L2) and the
-design (one thread per cell, corners gathered straight from global memory,
-no tap window).
+work, what bounds it on the H100 (72 to 84 B/cell of compulsory traffic
+against ~90 reads and ~1000 compiled instructions a cell: issue) and the
+design. Two
+routes (sweep_route): windows 1 and 2 take the tiled route, a z-march
+over 32 x TY shared-memory tiles grown by the window, inputs staged ahead
+by cp.async, with the grid from sweep_tiling (the counts above); wider
+windows, and extents above MAX_TILED_EXTENT, take the global route, one
+thread a cell gathering from global memory, counted in
+["mac_sweep_global"] whatever the form.
 
 CPU tensors take the plain PyTorch versions below (sweep_fused_ep_plain,
 sweep_plain), CUDA tensors launch the kernel; the unfused forms also take
 plain=True. Positions are index-offset: a cell center is its integer index.
 """
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -256,8 +265,120 @@ def sweep_fused_ep_plain(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
     return res
 
 
+TILE_X = 32               # csrc/mac_sweep.cu kTX
+TILE_YS = (8, 16)         # the tile heights the tiled route instantiates
+AHEAD = 1                 # kAhead: input planes in flight
+TILED_WINDOWS = (1, 2)    # the windows the tiled route takes
+MIN_PLANES = 4            # a range reloads 2W planes beside these
+L1_SMEM = 200704          # H100: above 196 KB shared memory an SM, 28 KB L1
+MAX_TILED_EXTENT = 2 ** 15
+
+
+def sweep_route(window, shape):
+    """"tiled" for the windows the tiled route instantiates
+    (TILED_WINDOWS) on u of `shape` (b, 3, z, y, x) with no extent above
+    MAX_TILED_EXTENT, else "global". The tile holds the corners in
+    [i - W, i + W] only while the float32 position i + (W - 1e-3) rounds
+    below i + W: from 2^15 up its ulp is 2^-8, the sum rounds to i + W
+    and the upper corner to i + W + 1."""
+    tiled = int(window) in TILED_WINDOWS and \
+        max(int(n) for n in shape[-3:]) <= MAX_TILED_EXTENT
+    return "tiled" if tiled else "global"
+
+
+class Tiling(NamedTuple):
+    """The tiled route's grid for one shape: the xy tile's height (its
+    width is TILE_X), output planes a block (the last range of a batch item
+    may hold fewer), blocks, threads a block (one a column of the tile),
+    input planes a block loads (planes + 2W) and dynamic shared-memory
+    bytes a block."""
+    tile_y: int
+    planes: int
+    blocks: int
+    threads: int
+    loads: int
+    smem: int
+
+
+def smem_bytes(window, tile_y, is_bwd, scalar):
+    """csrc/mac_sweep.cu's Ring: 2W + 1 + AHEAD planes of the tile grown by
+    W, each of the form's staged channels (u, [fwd_u,] [the warped scalar,
+    m])."""
+    plane = (TILE_X + 2 * window) * (tile_y + 2 * window)
+    channels = 3 + (3 if is_bwd else 0) + (2 if scalar else 0)
+    return 4 * (2 * window + 1 + AHEAD) * channels * plane
+
+
+def sweep_tiling(shape, window, n_sm, resident, is_bwd, scalar,
+                 tile_y=None) -> Tiling:
+    """The tiled route's grid for u of `shape` (b, 3, z, y, x) on a card
+    with `n_sm` SMs, of which each holds resident[tile_y] blocks of the
+    form at once. For each tile height (or `tile_y`), z is cut into as many
+    ranges as fill one wave of the resident blocks (ranges of at least
+    MIN_PLANES planes, or one). The kernel is
+    bound by issue, so a launch takes about the work of the SM with the
+    most blocks (blocks x rows x planes loaded): the height with the least
+    is taken. On a tie, first the height whose blocks leave an SM more
+    than 28 KB of L1 (shared memory of at most L1_SMEM bytes an SM:
+    above it the carveout leaves 28 KB; 32 x 8 forward at W = 2 ran 10%
+    slower so), then the one with two or more blocks an SM (one block
+    stalls its SM at every barrier: 32 x 16 backward at W = 2, 5%), then
+    the lower (up to 5% faster at W = 1); scripts/torch_ab_step.py
+    --kernels times both heights."""
+    heights = TILE_YS
+    if tile_y is not None:
+        if tile_y not in TILE_YS:
+            raise ValueError(f"mac_sweep: tile height {tile_y} not in "
+                             f"{TILE_YS}")
+        heights = (tile_y,)
+    B, Z, Y, X = (int(shape[i]) for i in (0, 2, 3, 4))
+    W = int(window)
+    smem = {ty: smem_bytes(W, ty, is_bwd, scalar) for ty in heights}
+    options = []
+    for ty in heights:
+        tiles = B * -(-Y // ty) * -(-X // TILE_X)
+        ranges = max(1, min(n_sm * resident[ty] // tiles, Z // MIN_PLANES))
+        zc = -(-Z // ranges)
+        blocks = tiles * -(-Z // zc)
+        per_sm = -(-blocks // n_sm)
+        options.append((per_sm * ty * (zc + 2 * W),
+                        per_sm * (smem[ty] + 1024) > L1_SMEM, per_sm < 2,
+                        ty, zc, blocks))
+    *_, ty, zc, blocks = min(options)
+    return Tiling(ty, zc, blocks, TILE_X * ty, zc + 2 * W, smem[ty])
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(index, form, window, tile_y):
+    """Blocks of the tiled route's kernel for `form` (is_bwd, ours, renorm,
+    scalar, fuse) that one SM of CUDA device `index` holds at once."""
+    lib = _build.library()
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.fluidnet_mac_sweep_occupancy(*form, int(window), tile_y,
+                                               ctypes.byref(blocks))
+    _build.check(err, "fluidnet_mac_sweep_occupancy")
+    return blocks.value
+
+
+def launch_tiling(u, window, form, tile_y=None):
+    """sweep_tiling for a launch of `form` on u's card."""
+    return _device_tiling(u.device.index, tuple(u.shape), int(window), form,
+                          tile_y)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tiling(index, shape, window, form, tile_y):
+    resident = {ty: resident_blocks(index, form, window, ty)
+                for ty in TILE_YS}
+    return sweep_tiling(shape, window, _build.sm_count(index), resident,
+                        form[0], form[3], tile_y)
+
+
 def _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window, ours,
-            renorm, with_scalar, fuse, c_out):
+            renorm, with_scalar, fuse, c_out, tile_y):
+    """Launches K1 on its route; returns (out, the route's launch key
+    suffix: "" tiled, "global")."""
     is_bwd = fwd_u is not None
     if u.dim() != 5 or u.shape[1] != 3:
         raise ValueError(f"mac_sweep: u must be (b, 3, z, y, x), got "
@@ -279,6 +400,16 @@ def _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window, ours,
     if min(Z, Y, X) < 2 or B * c_out * Z * Y * X >= 2 ** 31:
         raise ValueError(f"mac_sweep: unsupported shape {tuple(u.shape)}")
     out = torch.empty((B, c_out, Z, Y, X), device=dev, dtype=f32)
+    form = (int(is_bwd), int(ours), int(renorm), int(with_scalar), int(fuse))
+    if sweep_route(window, u.shape) == "tiled":
+        tiling = launch_tiling(u, window, form, tile_y)
+        ty, zc = tiling.tile_y, tiling.planes
+    elif tile_y is not None:
+        raise ValueError(f"mac_sweep: window {window} at shape "
+                         f"{tuple(u.shape)} takes the global route, which "
+                         "has no tiling")
+    else:
+        ty, zc = 0, 0
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -288,18 +419,20 @@ def _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window, ours,
             ptr(u), ptr(s_in), ptr(m_in), ptr(fwd_u), ptr(fs_in),
             ptr(free) if ours else None, out.data_ptr(),
             B, Z, Y, X, float(dcoef), float(strength), float(window) - _EPS,
-            int(is_bwd), int(ours), int(renorm), int(with_scalar),
-            int(fuse), torch.cuda.current_stream(dev).cuda_stream)
+            *form, int(window), ty, zc,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fluidnet_mac_sweep")
-    return out
+    return out, "" if ty else "global"
 
 
 def _sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window,
-                ours, renorm):
+                ours, renorm, tile_y=None):
     is_bwd = fwd_u is not None
-    out = _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window, ours,
-                  renorm, True, True, 10 if is_bwd else 12)
-    _build.launches["mac_sweep_bwd" if is_bwd else "mac_sweep_fwd"] += 1
+    out, route = _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
+                         window, ours, renorm, True, True,
+                         10 if is_bwd else 12, tile_y)
+    _build.launches[f"mac_sweep_{route or ('bwd' if is_bwd else 'fwd')}"] \
+        += 1
     res = {"u_w": out[:, 0:3], "u_mn": out[:, 3:6], "u_mx": out[:, 6:9],
            "s_val": out[:, 9:10]}
     if not is_bwd:
@@ -309,36 +442,38 @@ def _sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window,
 
 
 def sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
-               with_scalar, renorm):
+               with_scalar, renorm, tile_y=None):
     """Launches K1's unfused form: same arguments and result as
-    sweep_plain (the raw channels as one tensor)."""
+    sweep_plain (the raw channels as one tensor); tile_y forces the tiled
+    route's tile height (sweep_tiling)."""
     is_bwd = fwd_u is not None
     renorm = renorm and with_scalar
     c_out = sum(3 if k.startswith("u_") else 1
                 for k in raw_keys(is_bwd, with_scalar, renorm))
-    out = _launch(u, s, m, fwd_u, fwd_s, free, dcoef, 0.0, window, ours,
-                  renorm, with_scalar, False, c_out)
-    _build.launches["mac_sweep_unfused_bwd" if is_bwd
-                    else "mac_sweep_unfused_fwd"] += 1
+    out, route = _launch(u, s, m, fwd_u, fwd_s, free, dcoef, 0.0, window,
+                         ours, renorm, with_scalar, False, c_out, tile_y)
+    _build.launches["mac_sweep_" + (
+        route or "unfused_" + ("bwd" if is_bwd else "fwd"))] += 1
     return out
 
 
 def advect_sweep_fused_ep(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
-                          window, ours, renorm):
+                          window, ours, renorm, tile_y=None):
     """Fused-epilogue sweep. u (b,3,Z,Y,X); s, m (fluid mask), free
     (Chebyshev free space, read when `ours`) (b,1,Z,Y,X); fwd_u=None =>
     forward sweep: returns masked {u_w, s_val, u_mn/mx, s_mn/mx}. Else
     backward sweep (fwd_u, fwd_s from the forward sweep): returns the
     MacCormack-corrected {u_w, s_val} (unclamped) and {u_mn/mx}.
 
-    CPU tensors run the plain version; CUDA tensors launch K1."""
+    CPU tensors run the plain version; CUDA tensors launch K1 (tile_y
+    forces the tiled route's tile height, sweep_tiling)."""
     if int(window) < 1:
         raise ValueError(f"mac_sweep: window must be >= 1, got {window}")
     if u.device.type == "cpu":
         return sweep_fused_ep_plain(u, s, m, fwd_u, fwd_s, free, dcoef,
                                     strength, window, ours, renorm)
     return _sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
-                       window, ours, renorm)
+                       window, ours, renorm, tile_y)
 
 
 # --- the unfused forms and their gradient ----------------------------------

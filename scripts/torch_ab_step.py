@@ -4,7 +4,7 @@ in one process on one GPU.
 
     git archive <commit> | tar -x -C build/ab_base
     python3 scripts/torch_ab_step.py --base build/ab_base [--rounds 12]
-        [--steps 10] [--kernels]
+        [--steps 10] [--kernels] [--only REGEX]
 
 `--base` is an unpacked checkout of another commit. Its fluidnet_tpu_torch
 package is copied, renamed fluidnet_tpu_torch_base, into
@@ -20,23 +20,26 @@ in one process puts both versions under the same load. Prints the card's
 name and power limit, then one line per path with the median and the
 minimum ms/step of each version. Needs a CUDA device.
 
-`--kernels` times the windowed warp (K5), its adjoint (K6), the Jacobi
-solve (K3), K2's prologue and forces block and K4 instead, at the shapes
-chip_smoke.py times: K2 at 128^3 on the plume chip_smoke.py holds it on
-and on its random 1x37x45x61 case and on random obstacles at 6x64^3 and 1x64^3, K4
-at 6x64^3 and 1x128^3 (K2 and K4 also at each other tile height of this
-version), K6 at 6x64^3 and
+`--kernels` times the kernels instead, at the shapes chip_smoke.py times:
+K1's fused forward and backward sweeps (the plume chip_smoke.py holds them
+on at 128^3 with windows 1 and 2, the same flags at rest, random
+obstacles with a random flow past the window) and its unfused forms (the
+'Ours' renormalised pair at 6x64^3 and 1x128^3), K2 at 128^3 on the plume
+and on its random 1x37x45x61 case and on random obstacles at 6x64^3 and
+1x64^3, K4 at 6x64^3 and 1x128^3 (K1, K2 and K4 also at each other tile
+height of this version, K1 with its tiling printed), K6 at 6x64^3 and
 1x128^3 (G = 3, the unfused sweep's own positions), K5 at 128^3 (G = 1,
-F = 1, min/max) and the 2-D server's forms (a) and (c) at 128^2, K3 at
-128^3 on the plume chip_smoke.py holds it on (flags and divergence after
-12 ConvNet steps) with 34 and 8 sweeps, on the same flags with random and
-with zero divergence at 34, and at 128^2 (random obstacles) with 34.
-Each version's call is
-captured 50 times in a CUDA graph, the graphs replayed in turns
-(`--rounds`, alternating which goes first), and the median and minimum
-device ms per call printed; both versions' outputs must be equal. Then
-the m3d_v5 train step at horizon n = 4 (6x64^3), interleaved as the paths
-above (ms per step on the host clock).
+F = 1, min/max) and
+the 2-D server's forms (a) and (c) at 128^2, K3 at 128^3 on the plume
+chip_smoke.py holds it on (flags and divergence after 12 ConvNet steps)
+with 34 and 8 sweeps, on the same flags with random and with zero
+divergence at 34, and at 128^2 (random obstacles) with 34. Each
+version's call is captured 50 times in a CUDA graph, the graphs replayed
+in turns (`--rounds`, alternating which goes first), and the median and
+minimum device ms per call printed; both versions' outputs must be
+equal. Then the m3d_v5 train step at horizon n = 4 (6x64^3), interleaved
+as the paths above (ms per step on the host clock). `--only REGEX` keeps
+the kernel cases and paths whose names match.
 """
 
 import argparse
@@ -189,6 +192,7 @@ def kernel_cases(dev):
                                      cs.random_forces_args(rnd, mconf.dt))):
         cases[f"K2 prologue {label}"] = ("prologue", case)
         cases[f"K2 forces block {label}"] = ("forces_block", case[:7])
+    cases.update(k1_cases(dev, cs, state, mconf))
     for b, res in ((cs.TRAIN_B, cs.TRAIN_RES), (1, cs.TRAIN_RES)):
         # The training batch's and the stats / exact route's shapes.
         c = cs.train_case(dev, b, res, 31 + b)
@@ -236,8 +240,51 @@ def kernel_cases(dev):
     return cases
 
 
+def k1_cases(dev, cs, state, mconf):
+    """K1's cases: the fused forward and backward sweeps at 128^3 on the
+    plume chip_smoke.py holds them on (W = 1 and 2), on the same flags at
+    rest (every corner a cell's own row) and on random obstacles with a
+    random flow past the window (scattered corners); the unfused forward
+    (scalar, renorm, 14 channels) and backward (12) at 6x64^3 and 1x128^3
+    on chip_smoke.py's training cases."""
+    from fluidnet_tpu_torch.core.celltype import is_fluid
+    from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
+    from fluidnet_tpu_torch.ops.cuda import mac_sweep
+    dt, strength = mconf.dt, mconf.maccormack_strength
+    flags = state.flags
+    m = is_fluid(flags).to(torch.float32)
+    rnd = cs.train_case(dev, 1, cs.RES, 32)
+    flows = {"plume": (state.u, state.density, m, flags, 1),
+             "plume W=2": (state.u, state.density, m, flags, 2),
+             "at rest": (torch.zeros_like(state.u), state.density, m, flags,
+                         1),
+             "random": (rnd["u"], rnd["s"], rnd["m"], rnd["flags"], 1)}
+    cases = {}
+    for label, (u, s, mm, fl, W) in flows.items():
+        free = chebyshev_free_space(fl, W + 1)
+        fwd = (u, s, mm, None, None, free, -dt, strength, W, True, True)
+        ref = mac_sweep.sweep_fused_ep_plain(*fwd)
+        bwd = (u, s, mm, ref["u_w"].contiguous(), ref["s_val"].contiguous(),
+               free, dt, strength, W, True, True)
+        cases[f"K1 fused fwd {cs.RES}^3 {label}"] = ("mac_sweep_fused", fwd)
+        cases[f"K1 fused bwd {cs.RES}^3 {label}"] = ("mac_sweep_fused", bwd)
+    for b, res in ((cs.TRAIN_B, cs.TRAIN_RES), (1, cs.RES)):
+        c = cs.train_case(dev, b, res, 31 + b)
+        fwd = (c["u"], c["s"], c["m"], None, None, c["free"], -dt, 1, True,
+               True, True)
+        raw = mac_sweep.sweep_plain(*fwd)
+        bwd = (c["u"], None, c["m"], raw[:, 0:3].contiguous(),
+               raw[:, 9:10].contiguous(), c["free"], dt, 1, True, True, True)
+        cases[f"K1 unfused fwd {b}x{res}^3"] = ("mac_sweep_unfused", fwd)
+        cases[f"K1 unfused bwd {b}x{res}^3"] = ("mac_sweep_unfused", bwd)
+    return cases
+
+
 def kernel_fn(pkg, kernel, args, **kw):
-    module, name = {"warp": ("ops.warp", "warp_group"),
+    module, name = {"mac_sweep_fused": ("ops.cuda.mac_sweep",
+                                        "advect_sweep_fused_ep"),
+                    "mac_sweep_unfused": ("ops.cuda.mac_sweep", "sweep_cuda"),
+                    "warp": ("ops.warp", "warp_group"),
                     "warp_transpose": ("ops.cuda.warp_transpose",
                                        "warp_transpose_cuda"),
                     "jacobi": ("solvers.cuda_jacobi", "jacobi_cuda"),
@@ -251,7 +298,9 @@ def kernel_fn(pkg, kernel, args, **kw):
 
 
 def equal(a, b):
-    """torch.equal, element by element for a tuple of tensors."""
+    """torch.equal, element by element for a tuple or dict of tensors."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
     if isinstance(a, tuple):
         return len(a) == len(b) and all(map(equal, a, b))
     return torch.equal(a, b)
@@ -283,22 +332,31 @@ def replay_ms(graph, n, reps=5):
     return start.elapsed_time(end) / (reps * n)
 
 
-def kernels_ab(base_pkg, dev, rounds, n=50):
-    """K2-K6 of both versions from CUDA graphs, in turns; K2 and K4 of this
-    version also at its other tile heights ("this_ty<h>")."""
+def kernels_ab(base_pkg, dev, rounds, only, n=50):
+    """K1-K6 of both versions from CUDA graphs, in turns, the cases whose
+    names match the regex `only`; K1, K2 and K4 of this version also at
+    its other tile heights ("this_ty<h>")."""
+    import chip_smoke as cs
+    from fluidnet_tpu_torch.ops.cuda import mac_sweep
+    from fluidnet_tpu_torch.ops.cuda._build import sm_count
     from fluidnet_tpu_torch.ops.cuda.forces_kernel import (
-        TILE_YS, prologue_tiling, sm_count)
+        TILE_YS, prologue_tiling)
     for name, (kernel, args) in kernel_cases(dev).items():
+        if not re.search(only, name):
+            continue
         fns = {"base": kernel_fn(base_pkg, kernel, args),
                "this": kernel_fn(PKG, kernel, args)}
-        tiling = None
+        tiling, heights = None, ()
         if kernel in ("prologue", "forces_block", "vorticity"):
             tiling = prologue_tiling(args[0].shape, sm_count(dev.index),
                                      epi=kernel == "prologue")
-            for ty in TILE_YS:
-                if ty != tiling.tile_y:
-                    fns[f"this_ty{ty}"] = kernel_fn(PKG, kernel, args,
-                                                    tile_y=ty)
+            heights = TILE_YS
+        elif kernel.startswith("mac_sweep"):
+            tiling = cs.k1_tiling(args, kernel == "mac_sweep_fused")
+            heights = mac_sweep.TILE_YS if tiling else ()
+        for ty in heights:
+            if ty != tiling.tile_y:
+                fns[f"this_ty{ty}"] = kernel_fn(PKG, kernel, args, tile_y=ty)
         outs = {who: fn() for who, fn in fns.items()}
         for who, out in outs.items():
             if not equal(outs["base"], out):
@@ -324,8 +382,11 @@ def main():
     ap.add_argument("--rounds", type=int, default=12)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--kernels", action="store_true",
-                    help="K2-K6 from CUDA graphs, then the n = 4 "
+                    help="K1-K6 from CUDA graphs, then the n = 4 "
                     "train step")
+    ap.add_argument("--only", default="",
+                    help="a regex: only the kernel cases and paths whose "
+                    "names match it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_ab_step: needs a CUDA device")
@@ -336,7 +397,7 @@ def main():
                          text=True).stdout.strip(), flush=True)
     base_pkg = stage_base(os.path.abspath(args.base))
     if args.kernels:
-        kernels_ab(base_pkg, dev, args.rounds)
+        kernels_ab(base_pkg, dev, args.rounds, args.only)
         versions = {"base": {"train n=4 6x64^3": train_runner(base_pkg,
                                                               dev)},
                     "this": {"train n=4 6x64^3": train_runner(PKG, dev)}}
@@ -344,6 +405,8 @@ def main():
         versions = {"base": runners(base_pkg, dev),
                     "this": runners(PKG, dev)}
     for path in versions["this"]:
+        if not re.search(args.only, path):
+            continue
         for v in versions.values():
             v[path](args.steps)
         times = {"base": [], "this": []}

@@ -66,8 +66,8 @@ PROJECTIONS = {"convnet": {}, "convnet_p8": dict(polish_iters=8),
                "pcg": dict(sim_method="pcg", max_iter=100, pcg_tol=1e-4)}
 # Kernel-name fragments of each group (mangled or demangled), tested in
 # this order: K1's last template argument is FUSE, K2's are (EPI, RHO).
-GROUPS = (("K1 mac_sweep fused", ("Lb1EEEvPKf", "true>(float const")),
-          ("K1 mac_sweep unfused", ("mac_sweep_kernel",)),
+GROUPS = (("K1 mac_sweep fused", ("Lb1EEEvNS_4Args", "true>((anonymous")),
+          ("K1 mac_sweep unfused", ("mac_sweep_",)),
           ("K2 prologue", ("prologue_kernel<true",
                            "prologue_kernelILb1E")),
           ("K4 vorticity", ("prologue_kernel<false, false>",
@@ -84,7 +84,7 @@ GROUPS = (("K1 mac_sweep fused", ("Lb1EEEvPKf", "true>(float const")),
 def group_of(name):
     for group, frags in GROUPS:
         if group.startswith("K1 mac_sweep fused"):
-            if "mac_sweep_kernel" in name and any(f in name for f in frags):
+            if "mac_sweep_" in name and any(f in name for f in frags):
                 return group
         elif any(f in name for f in frags):
             return group

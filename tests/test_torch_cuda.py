@@ -7,10 +7,11 @@ has no JAX, so run this file without the suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Both sides run the same float32 operations (the kernels are built with
--fmad=false), so the tolerance is 1e-5 of each field's largest value;
-K2, K3, K4, K5 and K6 are held to a max abs error of 0, K6 on shapes
-that cut its 32 x 8 tiles raggedly, K2 and K4 on shapes that cut their
-xy tiles and z-ranges raggedly, K3 on every route it takes.
+-fmad=false): K1 (fused and unfused, with its VJP), K2, K3, K4, K5 and K6
+are held to a max abs error of 0, K1, K2 and K4 on shapes that cut their
+xy tiles and z-ranges raggedly and on both routes of K1 (windows 1, 2
+tiled, 3 global), K6 on shapes that cut its 32 x 8 tiles raggedly, K3 on
+every route it takes; rollouts to 1e-5 of each field's largest value.
 Batch 2 and odd extents exercise the kernels' indexing.
 """
 
@@ -80,29 +81,75 @@ def _close(out, ref, what):
     assert err <= TOL * scale, f"{what}: max abs err {err} (scale {scale})"
 
 
+# K1's shapes (b, z, y, x): the small case, x and y cutting the 32 x TY
+# tiles and z the plane ranges raggedly (batch 2), y under one tile, the
+# training batch and the 128^3 plume's grid.
+SWEEP_SHAPES = [(2, 9, 13, 17), (2, 37, 45, 61), (1, 33, 17, 70),
+                (6, 64, 64, 64), (1, 128, 128, 128)]
+
+
+def _sweep_case(dev, shape, seed, W, ours):
+    c = _forces_case(dev, shape, seed)
+    c["m"] = is_fluid(c["flags"]).to(torch.float32)
+    c["free"] = chebyshev_free_space(c["flags"], W + 1) if ours else None
+    return c
+
+
+def _sweep_key(W, shape, base):
+    """The launch counter of K1's route at window W and u's shape."""
+    return base if mac_sweep.sweep_route(W, shape) == "tiled" else \
+        "mac_sweep_global"
+
+
+@pytest.mark.parametrize("W", [1, 2, 3])
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
 @pytest.mark.parametrize("ours,renorm", [(True, True), (True, False),
                                          (False, False)])
-def test_mac_sweep_kernel_matches_plain(dev, ours, renorm):
-    c = _case(dev)
-    m = is_fluid(c["flags"]).to(torch.float32)
-    free = chebyshev_free_space(c["flags"], 2) if ours else None
-    args = (c["u"], c["s"], m, None, None, free, -0.1, 0.6, 1, ours, renorm)
-    before = dict(_build.launches)
+def test_mac_sweep_kernel_matches_plain(dev, ours, renorm, shape, W):
+    """K1's fused forward and backward sweeps equal their plain versions
+    to the bit, on the route window W takes (the tiled route at the
+    table's tile height and at each other), one launch counted each."""
+    c = _sweep_case(dev, shape, 3, W, ours)
+    args = (c["u"], c["s"], c["m"], None, None, c["free"], -0.1, 0.6, W,
+            ours, renorm)
     ref_f = mac_sweep.sweep_fused_ep_plain(*args)
-    out_f = mac_sweep.advect_sweep_fused_ep(*args)
-    bargs = (c["u"], c["s"], m, ref_f["u_w"].contiguous(),
-             ref_f["s_val"].contiguous(), free, 0.1, 0.6, 1, ours, renorm)
+    bargs = (c["u"], c["s"], c["m"], ref_f["u_w"].contiguous(),
+             ref_f["s_val"].contiguous(), c["free"], 0.1, 0.6, W, ours,
+             renorm)
     ref_b = mac_sweep.sweep_fused_ep_plain(*bargs)
-    out_b = mac_sweep.advect_sweep_fused_ep(*bargs)
+    heights = [None] + (list(mac_sweep.TILE_YS)
+                        if mac_sweep.sweep_route(W, c["u"].shape) == "tiled"
+                        else [])
+    for ty in heights:
+        for a, ref, key in ((args, ref_f, "mac_sweep_fwd"),
+                            (bargs, ref_b, "mac_sweep_bwd")):
+            key = _sweep_key(W, c["u"].shape, key)
+            before = _build.launches[key]
+            out = mac_sweep.advect_sweep_fused_ep(*a, tile_y=ty)
+            torch.cuda.synchronize()
+            assert _build.launches[key] == before + 1
+            for k in ref:
+                _exact(out[k], ref[k], f"{key} tile_y={ty} {k}")
+
+
+@pytest.mark.parametrize("W", [1, 2])
+@pytest.mark.parametrize("shape", [(1, 2, 3, mac_sweep.MAX_TILED_EXTENT + 8),
+                                   (1, mac_sweep.MAX_TILED_EXTENT + 8, 3, 2)])
+def test_mac_sweep_long_axis_takes_the_global_route(dev, shape, W):
+    """Past MAX_TILED_EXTENT a position at the clip rounds to i + W, out
+    of the tile: the fused sweeps take the global route there and equal
+    their plain versions to the bit on a flow at the clip everywhere."""
+    c = _sweep_case(dev, shape, 5, W, False)
+    args = (c["u"] * 30.0, c["s"], c["m"], None, None, None, -0.1, 0.6, W,
+            False, False)
+    assert mac_sweep.sweep_route(W, args[0].shape) == "global"
+    before = _build.launches["mac_sweep_global"]
+    ref = mac_sweep.sweep_fused_ep_plain(*args)
+    out = mac_sweep.advect_sweep_fused_ep(*args)
     torch.cuda.synchronize()
-    for k in ref_f:
-        _close(out_f[k], ref_f[k], f"fwd {k}")
-    for k in ref_b:
-        _close(out_b[k], ref_b[k], f"bwd {k}")
-    assert _build.launches["mac_sweep_fwd"] == \
-        before.get("mac_sweep_fwd", 0) + 1
-    assert _build.launches["mac_sweep_bwd"] == \
-        before.get("mac_sweep_bwd", 0) + 1
+    assert _build.launches["mac_sweep_global"] == before + 1
+    for k in ref:
+        _exact(out[k], ref[k], f"mac_sweep_global {k}")
 
 
 # K2's and K4's shapes (b, z, y, x): the small case, the 128^3 plume, the
@@ -404,24 +451,27 @@ def test_rollout_2d_kernels_match_plain(dev, method):
 
 # --- the training slice: K1's unfused forms, K6, K4, train gradients ------
 
+@pytest.mark.parametrize("W", [1, 2, 3])
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
 @pytest.mark.parametrize("is_bwd,ours,with_scalar,renorm", [
     (False, True, True, True), (True, True, True, True),
     (False, False, True, False), (True, False, True, False),
     (False, True, False, False), (True, False, False, False)])
 def test_unfused_sweep_kernel_and_vjp_match_plain(dev, is_bwd, ours,
-                                                  with_scalar, renorm):
+                                                  with_scalar, renorm, shape,
+                                                  W):
     """K1's unfused form against sweep_plain, and its VJP (K6) against the
-    plain VJP (K6's plain version), one launch each counted."""
-    c = _case(dev, 13)
-    m = is_fluid(c["flags"]).to(torch.float32)
-    free = chebyshev_free_space(c["flags"], 2) if ours else None
+    plain VJP (K6's plain version), both to the bit, one launch each
+    counted under the route's key."""
+    c = _sweep_case(dev, shape, 13, W, ours)
+    m, free = c["m"], c["free"]
     fwd_u = c["u"].roll(1, 4).contiguous() if is_bwd else None
     fwd_s = c["s"].roll(1, 3).contiguous() if is_bwd and with_scalar \
         else None
     s = c["s"] if with_scalar and not is_bwd else None
     args = (c["u"], s, m if with_scalar else None, fwd_u, fwd_s, free,
-            0.1 if is_bwd else -0.1, 1, ours, with_scalar, renorm)
-    _close(mac_sweep.sweep_cuda(*args), mac_sweep.sweep_plain(*args), "raw")
+            0.1 if is_bwd else -0.1, W, ours, with_scalar, renorm)
+    _exact(mac_sweep.sweep_cuda(*args), mac_sweep.sweep_plain(*args), "raw")
     grads = {}
     for plain in (False, True):
         a = list(args)
@@ -438,12 +488,13 @@ def test_unfused_sweep_kernel_and_vjp_match_plain(dev, is_bwd, ours,
         loss.backward()
         grads[plain] = [x.grad for x in xs]
         if not plain:
-            key = "mac_sweep_unfused_" + ("bwd" if is_bwd else "fwd")
+            key = _sweep_key(W, args[0].shape, "mac_sweep_unfused_" +
+                             ("bwd" if is_bwd else "fwd"))
             assert _build.launches[key] == before.get(key, 0) + 1
             assert _build.launches["warp_transpose"] == \
                 before.get("warp_transpose", 0) + (2 if with_scalar else 1)
     for g, p in zip(grads[False], grads[True]):
-        _close(g, p, "vjp")
+        _exact(g, p, "vjp")
 
 
 @pytest.mark.parametrize("shape,windows", [
