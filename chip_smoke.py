@@ -8,8 +8,9 @@ times for the JAX package (the ConvNet rollout and the jacobi-34 / PCG /
 ConvNet + Jacobi-polish certification rollouts), the 2-D interactive
 demo server (cli/serve.py with the bundled m2d ConvNet at 128^2), 3-D
 training (the m3d_v5 recipe), the offline 3-D entry points (cli/sim3d.py
-around a voxelized obstacle, the exact advection route, cli/stats.py) and
-the dyngather probe, in these phases:
+around a voxelized obstacle, the exact advection route, cli/stats.py), the
+dyngather probe and the ConvNets of the generic stage path (tog, banks,
+batch norm, the pressure skip), in these phases:
 
   1. device: fails without CUDA; prints the card's name and power limit.
   2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
@@ -82,7 +83,9 @@ the dyngather probe, in these phases:
              recipe, batch 6) for 2 epochs with the horizon curriculum
              [[0,2,4],[1,4,8]] and an 8-step rollout selection, then a
              resume from '_lastEpoch' for a third: finite losses, the TSV
-             log, '_lastEpoch', '_bestRollout' and '_ema' written.
+             log, '_lastEpoch', '_bestRollout' and '_ema' written; each run
+             prints its startup profile (-profile true, the default: the
+             model's FLOPs a 128^3 frame and the FPROP ms of one sample).
  12. train steps: train_step at n = 4 and n = 16 on a generated batch:
              ms per step, peak memory, loss, grad_norm, rejected, and each
              step's launches against train_launches(n); one step with
@@ -118,6 +121,18 @@ the dyngather probe, in these phases:
              of their line traces whose decisions or positions differ
              (each trace run again on both devices from the CPU's inputs)
              and whose square root differs from the correctly rounded one.
+ 18. models: the generic stage path on the card. (a) the 3-D tog model
+             (16-16-16-16-32-32-1, pools x2 after stages 1 and 2, pixel
+             shuffles x2 at stage 6 and the head) from random_model(seed)
+             in bf16 with bench.py's knobs on a fresh 128^3 plume: 8
+             warm-up and 2 x 16 timed steps, K1 twice and K2's prologue
+             once a step, finite, then 8 steps kernels vs plain. (b) the
+             3-D two-bank mres model (concat) with batch norm and the
+             pressure skip: 8 steps, the same launches, finite, kernels vs
+             plain. (c) one train_step of the tog model at 6x64^3, n = 4,
+             on phase 10's batch after a warm-up step: ms, peak memory,
+             finite loss and gradient norm, launches against
+             train_launches(4).
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}. Any failure
@@ -126,6 +141,8 @@ Outputs under build/ are removed at the end.
 """
 
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -230,7 +247,7 @@ TRAIN_REPS = 3                  # timed train steps per horizon
 EXACT = 1e-6                    # K6 vs plain: max abs error
 GRAD_TOL = 1e-4                 # train grads, kernels vs plain: rel. L2
 # The flags of scripts/train3d_v5.sh (the m3d_v5 recipe), batch 6.
-RECIPE = ["-batch_size", "6", "-seed", "17", "-profile", "false",
+RECIPE = ["-batch_size", "6", "-seed", "17",
           "-rollout_select_steps", "8", "-ema_decay", "0.999",
           "-horizon_schedule", "[[0,2,4],[1,4,8]]",
           "-lr_epoch_mults", "[[16,0.5],[24,0.5],[30,0.5]]",
@@ -249,6 +266,14 @@ RECIPE = ["-batch_size", "6", "-seed", "17", "-profile", "false",
           "-new_model.loss_div_lambda", "1.0",
           "-new_model.loss_reject_threshold", "0.1",
           "-new_model.optim.learning_rate", "0.0005"]
+
+
+# Phase 18: the models of the generic stage path on bench.py's plume,
+# each with its timed reps of MODEL_STEPS steps after MODEL_WARMUP.
+MODEL_WARMUP, MODEL_STEPS = 8, 16
+MODELS = {"tog": (dict(model_type="tog"), 2),
+          "mres_bn_skip": (dict(banks_num=2, add_batch_norm=True,
+                                add_pressure_skip=True), 0)}
 
 
 def train_launches(n):
@@ -1343,11 +1368,18 @@ def cli_phase(root):
         torch.cuda.synchronize()
         _build.launches.clear()
         t0 = time.perf_counter()
-        state, _ = train_main(flags + ["-max_epochs", str(epochs),
-                                       "-load_model", resume,
-                                       "-resume_training", resume])
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            state, _ = train_main(flags + ["-max_epochs", str(epochs),
+                                           "-load_model", resume,
+                                           "-resume_training", resume])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        prof = [ln for ln in tee.buf.getvalue().splitlines()
+                if ln.startswith("==> Model FLOPs/frame @128: ")]
+        if len(prof) != 1:
+            raise AssertionError(f"train cli: startup profile lines {prof}")
+        log(f"train cli: startup profile: {prof[0][4:]}")
         for k, v in _build.launches.items():
             launches[k] = launches.get(k, 0) + v
         _, rows = read_log(os.path.join(models, "m3d_log.tsv"))
@@ -1363,6 +1395,21 @@ def cli_phase(root):
         if not os.path.isfile(os.path.join(models, d, "mconf.json")):
             raise AssertionError(f"train cli: {d} was not written")
     return launches
+
+
+class Tee(io.TextIOBase):
+    """A text stream that writes to `out` and keeps a copy in `buf`."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
 
 
 def train_batch(dev, root):
@@ -1468,6 +1515,81 @@ def train_grad_phase(dev, batch):
             raise AssertionError(f"train grads: {name} differs by {rel}")
         worst = max(worst, rel)
     return worst
+
+
+def models_phase(dev, batch):
+    """Phase 18: the tog model and the mres + batch norm + skip model on
+    the generic stage path at RES^3 with bench.py's knobs, then one tog
+    train step at TRAIN_B x TRAIN_RES^3, n = 4."""
+    from fluidnet_tpu_torch.models.fluidnet import random_model
+    from fluidnet_tpu_torch.ops.cuda import _build
+    from fluidnet_tpu_torch.sim.simulate import rollout
+    from fluidnet_tpu_torch.train.train import init_train_state, train_step
+    from fluidnet_tpu_torch.utils.checkpoint import load_mconf
+
+    base = load_mconf(BUNDLED).replace(**BENCH_KNOBS)
+    launches, out = {}, {}
+
+    def count():
+        for k, v in _build.launches.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for name, (kw, reps) in MODELS.items():
+        mconf = base.replace(**kw)
+        model = random_model(mconf, 18, dev)
+        what = f"models {name} ({RES}^3)"
+        state, bcs = make_plume(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        n = MODEL_WARMUP
+        state = rollout(state, mconf, n, model, bcs)
+        torch.cuda.synchronize()
+        rep_s = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            state = rollout(state, mconf, MODEL_STEPS, model, bcs)
+            torch.cuda.synchronize()
+            rep_s.append(time.perf_counter() - t0)
+            n += MODEL_STEPS
+        check_launches(dict(_build.launches), n, {"prologue": 1}, what)
+        count()
+        ms = [s / MODEL_STEPS * 1e3 for s in rep_s]
+        if ms:
+            log(f"{what}: ms/step of {reps} x {MODEL_STEPS} steps "
+                f"{[round(v, 3) for v in ms]}, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+        div = final_check(state, what)
+        kernels_vs_plain_rollout(state, mconf, model, bcs, what)
+        out[name] = {"ms_per_step": ms, "final_div_l2": div, "steps": n}
+
+    mconf = recipe_mconf().replace(**MODELS["tog"][0])
+    state = init_train_state(17, mconf, dev)
+    for i in range(2):                  # a warm-up step, then the timed one
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        state, terms = train_step(state, batch,
+                                  torch.Generator().manual_seed(i), mconf, 4)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(_build.launches)
+        count()
+        if got != train_launches(4):
+            raise AssertionError(f"models tog train step: launches {got}, "
+                                 f"expected {train_launches(4)}")
+    vals = {k: float(v) for k, v in terms.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"models tog train step n=4 at {TRAIN_B}x{TRAIN_RES}^3: {ms:.3f} "
+        f"ms, peak memory {peak:.3f} GiB, loss {vals['total']:.6e}, "
+        f"grad_norm {vals['grad_norm']:.6e}, launches {got}")
+    if not all(np.isfinite(list(vals.values()))):
+        raise AssertionError(f"models tog train step: terms {vals}")
+    out["tog_train_step"] = {"ms": ms, "peak_gib": peak,
+                             "loss": vals["total"],
+                             "grad_norm": vals["grad_norm"]}
+    return launches, out
 
 
 # --- the offline 3-D slice ---------------------------------------------------
@@ -1819,6 +1941,7 @@ def main():
         shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
     step_launches, per_n = train_steps_phase(dev, batch)
     grad_rel = train_grad_phase(dev, batch)
+    model_launches, model_out = models_phase(dev, batch)
 
     shutil.rmtree(SIM3D_ROOT, ignore_errors=True)
     try:
@@ -1832,7 +1955,8 @@ def main():
                                                cert2_launches, cli_launches,
                                                step_launches, probe_launches,
                                                sim3d_launches,
-                                               exact_launches]:
+                                               exact_launches,
+                                               model_launches]:
         for key, n in per.items():
             total[key] = total.get(key, 0) + n
     for key in KERNELS:
@@ -1877,6 +2001,8 @@ def main():
                                         "bound_ms": v[2],
                                         "library_ms": v[4]}
                            for a, v in probe_times.items()}}}))
+    log(json.dumps({"models": {"res": RES, "train_shape": [
+        TRAIN_B, TRAIN_RES, TRAIN_RES, TRAIN_RES], **model_out}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,11 +9,13 @@ the CPU.
 
 Ported so far: the 3-D plume rollout (`sim.simulate.rollout` with
 maccormackOurs advection) with the ConvNet projection (the fused
-projection prologue and the fast-trunk default/yang model, optionally
+projection prologue and any ConvNet the config builds, optionally
 followed by Jacobi polish sweeps) and with the Jacobi and PCG solvers
 (`solvers/`); the 2-D step of the interactive demo (`cli/serve.py`,
 `cli/demo2d.py`: windowed advection on the warp kernel, the 2-D ConvNet,
-the adaptive window). Constructors build on the CUDA device unless given
+the adaptive window); training (`cli/train.py`), the offline 3-D
+simulation (`cli/sim3d.py`) and the statistics (`cli/stats.py`).
+Constructors build on the CUDA device unless given
 device="cpu". Layout, argument order and semantics follow the JAX
 package: every field is a 5-D (batch, channel, z, y, x) tensor.
 

@@ -16,13 +16,15 @@ Port of fluidnet_tpu.cli.train (`qlua fluid_net_train.lua`):
 - checkpoints '<model>_lastEpoch' every epoch and '<model>' on the best test
   loss (fluid_net_train.lua:229-239), and logs one TSV row per epoch.
 
-Training runs on the CUDA device unless `-device cpu` is given. Each epoch
-is a per-batch loop of train.train_step: the JAX package's fused and
-scanned epoch steps were TPU dispatch workarounds (ROADMAP). The horizons
-of an epoch's batches follow the JAX scan path's deterministic counts
+Training runs on the CUDA device unless `-device cpu` is given. With
+`-profile true` (the default) it prints the model's analytic FLOPs and peak
+activation elements a frame at 128^2 / 128^3 and the FPROP time of one
+sample before the first epoch (fluid_net_train.lua:144-189). Each epoch is
+a per-batch loop of train.train_step: the JAX package's fused and scanned
+epoch steps were TPU dispatch workarounds (ROADMAP). The horizons of an
+epoch's batches follow the JAX scan path's deterministic counts
 (`_horizon_list`), each batch's draws a generator seeded by the step.
-Not ported (they raise, naming the ROADMAP item): the startup profile
-(`-profile true`: utils/flops, utils/profiler) and the threaded host loader
+Not ported (it raises, naming the ROADMAP item): the threaded host loader
 for datasets past the device cache (`-device_data_cache false`).
 """
 
@@ -50,8 +52,11 @@ from fluidnet_tpu_torch.train.train import (TrainState, add_metrics,
                                             set_learning_rate, train_step)
 from fluidnet_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                  save_checkpoint)
+from fluidnet_tpu_torch.utils.flops import (model_flops,
+                                            model_peak_activation)
 from fluidnet_tpu_torch.utils.logger import Logger
 from fluidnet_tpu_torch.utils.pbar import progress
+from fluidnet_tpu_torch.utils.profiler import profile_fprop
 
 LOG_COLUMNS = ["epoch", "tr_loss", "tr_p", "tr_u", "tr_div", "tr_lt_div",
                "te_loss", "te_p", "te_u", "te_div", "te_lt_div"]
@@ -154,12 +159,26 @@ def _rss_gb():
     return float("nan")
 
 
+def _startup_profile(model, mconf, sample, dev):
+    """The analytic FLOPs and peak activation elements of one frame at
+    128^2 / 128^3 and the FPROP time of `sample` (one sample of the
+    training set) on `dev`, printed, as the JAX package's
+    cli/train.py:357-368."""
+    sizes = (128, 128, 128 if mconf.is_3d else 1)
+    flops = model_flops(mconf, sizes)
+    peak = model_peak_activation(mconf, sizes)
+    args = [torch.as_tensor(sample[k]).to(dev)
+            for k in ("p_div", "u_div", "flags")]
+
+    def fprop(p, u, f):
+        with torch.no_grad():
+            return model(p, u, f)
+    t = profile_fprop(fprop, args, min_seconds=1.0)
+    print(f"==> Model FLOPs/frame @128: {flops:,}; peak activation "
+          f"elements: {peak:,}; FPROP {t * 1e3:.3f} ms/batch")
+
+
 def run_training(conf):
-    if conf.profile:
-        raise NotImplementedError("the startup profile (-profile true) is "
-                                  "not ported yet (ROADMAP queue 1, item 2: "
-                                  "utils/flops, utils/profiler); pass "
-                                  "-profile false")
     dev = resolve_device(conf.device)
     mconf = conf.new_model
     np.random.seed(conf.seed)
@@ -203,6 +222,8 @@ def run_training(conf):
         best_rollout = float(extra.get("best_rollout", float("inf")))
         print(f"==> Resumed from epoch {start_epoch}")
     save_parameters(conf, model_path + "_conf.json")
+    if conf.profile:
+        _startup_profile(state.model, mconf, tr.get_batch([0]), dev)
 
     logger = Logger(model_path + "_log.tsv", LOG_COLUMNS)
     need_targets = mconf.loss_p_lambda > 0 or mconf.loss_u_lambda > 0

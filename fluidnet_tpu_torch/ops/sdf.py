@@ -1,11 +1,13 @@
-"""Signed distance field to the obstacles.
+"""Signed distance field to the obstacles, and the rectangular blur.
 
-Port of fluidnet_tpu.ops.sdf.signed_distance_field (Main_signedDistanceField,
-generic/tfluids.cc:766-826): the reference's brute-force local-window
-minimum distance to obstacle cells, clamped at `search_rad`; a min over
-shifted obstacle masks (123 of them in 3-D at the default radius 3). Used
-for the border-weighted loss (fluid_criterion.lua:145-159). The JAX
-module's rectangular_blur has no caller on a ported path and is not ported.
+Port of fluidnet_tpu.ops.sdf. signed_distance_field
+(Main_signedDistanceField, generic/tfluids.cc:766-826): the reference's
+brute-force local-window minimum distance to obstacle cells, clamped at
+`search_rad`; a min over shifted obstacle masks (123 of them in 3-D at the
+default radius 3). Used for the border-weighted loss
+(fluid_criterion.lua:145-159). rectangular_blur (Main_rectangularBlur,
+generic/tfluids.cc:670-765): a separable box filter in the JAX package's
+cumulative-sum form; models.modules' window normalizations call it.
 """
 
 import torch
@@ -39,3 +41,25 @@ def signed_distance_field(flags, search_rad: int):
                 dist_sq = torch.where(m, torch.clamp_max(dist_sq, d2),
                                       dist_sq)
     return torch.where(ob, 0.0, torch.sqrt(dist_sq))
+
+
+def _box_blur_axis(x, rad: int, axis: int):
+    """Mean over the window [i - rad, i + rad] with edge-replicated samples
+    and a constant 1 / (2r + 1), as DoRectangularBlurAlongAxis
+    (generic/tfluids.cc:642-668): the difference of a cumulative sum over
+    the edge-padded axis, as the JAX package computes it."""
+    n = x.shape[axis]
+    idx = torch.arange(-rad, n + rad, device=x.device).clamp(0, n - 1)
+    c = torch.cumsum(x.index_select(axis, idx), dim=axis)
+    cpad = torch.cat([torch.zeros_like(c.narrow(axis, 0, 1)), c], dim=axis)
+    return (cpad.narrow(axis, 2 * rad + 1, n) - cpad.narrow(axis, 0, n)) / \
+        float(2 * rad + 1)
+
+
+def rectangular_blur(src, blur_rad: int, is_3d: bool):
+    """Separable box blur: z (3-D only), then y, then x."""
+    out = src
+    if is_3d:
+        out = _box_blur_axis(out, blur_rad, src.ndim - 3)
+    out = _box_blur_axis(out, blur_rad, src.ndim - 2)
+    return _box_blur_axis(out, blur_rad, src.ndim - 1)

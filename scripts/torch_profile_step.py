@@ -5,10 +5,11 @@ training step.
 
     python3 scripts/torch_profile_step.py [--res 128] [--steps 10]
         [--warmup 20] [--only convnet,jacobi34,pcg,convnet_p8]
+        [--model_type tog]
     python3 scripts/torch_profile_step.py --serve2d [--res 128]
         [--only convnet,jacobi34,pcg]
     python3 scripts/torch_profile_step.py --train [--res 64] [--batch 6]
-        [--steps 3] [--warmup 2] [--only 4,16]
+        [--steps 3] [--warmup 2] [--only 4,16] [--model_type tog]
 
 3-D: each projection (the ConvNet with the bundled m3d_v5_bestRollout
 weights and bench.py's knobs; ConvNet + 8 Jacobi polish sweeps; jacobi-34;
@@ -19,7 +20,9 @@ jacobi-34 or PCG, on a res^2 plume. --train: train.train_step with
 m3d_v5's recipe (scripts/train3d_v5.sh: full-gradient unroll, bf16 convs,
 Adam) from a random-init model on a batch of `--batch` res^3 scenes built
 by the data generator's draws (random obstacles, divergence-free noise,
-random density), at each unroll horizon in --only. Each: `--warmup` steps,
+random density), at each unroll horizon in --only. `--model_type` (3-D and --train)
+profiles another model type of the same config, from random_model(seed
+18) in 3-D, in place of the bundled weights. Each: `--warmup` steps,
 then `--steps` steps timed on the host clock without the profiler, then
 `--steps` steps under torch.profiler. Prints per step: the unprofiled time
 and the main thread's CPU time in it (the host's own cost, which a busy
@@ -43,7 +46,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from fluidnet_tpu_torch.cli import demo2d  # noqa: E402
 from fluidnet_tpu_torch.core.grids import FluidState, empty_domain  # noqa
-from fluidnet_tpu_torch.models.fluidnet import FluidNet  # noqa: E402
+from fluidnet_tpu_torch.models.fluidnet import (FluidNet,  # noqa: E402
+                                                random_model)
 from fluidnet_tpu_torch.sim.simulate import (FlagConsts,  # noqa: E402
                                              create_plume_bcs, rollout,
                                              simulate)
@@ -129,7 +133,7 @@ def runner_serve2d(dev, res, name, model, base):
     return run
 
 
-def runner_train(dev, res, n_future, batch_size):
+def runner_train(dev, res, n_future, batch_size, model_type=None):
     """run(n): n train.train_step calls at unroll horizon n_future with
     m3d_v5's recipe on one batch of generated-scene fields."""
     import numpy as np
@@ -138,6 +142,8 @@ def runner_train(dev, res, n_future, batch_size):
                                                   random_obstacle_flags)
     from fluidnet_tpu_torch.train.train import init_train_state, train_step
     mconf = parse_args(default_conf(), TRAIN_RECIPE).new_model
+    if model_type:
+        mconf = mconf.replace(model_type=model_type)
     rng = np.random.default_rng(29)
     zyx = (res, res, res)
     batch = {
@@ -196,6 +202,9 @@ def main():
                     help="profile train_step (m3d_v5's recipe) at the "
                     "horizons in --only")
     ap.add_argument("--batch", type=int, default=6)
+    ap.add_argument("--model_type", default=None,
+                    help="3-D and --train: this model type (random "
+                    "weights) in place of the bundled model's")
     args = ap.parse_args()
     if args.res is None:
         args.res = 64 if args.train else 128
@@ -208,7 +217,8 @@ def main():
         where = f"{args.batch}x{args.res}^3 (train step)"
 
         def make(dev_, res, name, model_, base_):
-            return runner_train(dev_, res, int(name), args.batch)
+            return runner_train(dev_, res, int(name), args.batch,
+                                args.model_type)
         model = base = None
     elif args.serve2d:
         path, make, where = M2D, runner_serve2d, f"{args.res}^2 (serve)"
@@ -216,8 +226,15 @@ def main():
     else:
         path, make, where = BUNDLED, runner_3d, f"{args.res}^3"
         base = load_mconf(BUNDLED).replace(**BENCH_KNOBS)
-    if not args.train:
+    if args.model_type and not args.train:
+        if args.serve2d:
+            raise SystemExit("--model_type: 3-D and --train only")
+        base = base.replace(model_type=args.model_type)
+        model = random_model(base, 18, dev)
+    elif not args.train:
         model = FluidNet(base, device=dev).load_jax_params(load_params(path))
+    if args.model_type:
+        where += f" ({args.model_type}, random weights)"
     n = args.steps
     only = args.only or ("4,16" if args.train else "convnet,jacobi34,pcg"
                          if args.serve2d else ",".join(PROJECTIONS))

@@ -151,9 +151,9 @@ def test_constructors_default_to_cuda():
               lambda: FluidNet(mconf).final.weight]
     cpu_net = FluidNet(mconf, device=DEV)
     assert cpu_net.final.weight.device.type == "cpu"
-    params = {"stages": [[{"conv": {"w": m.weight.detach().numpy(),
-                                    "b": m.bias.detach().numpy()}}]
-                         for m in cpu_net.stages],
+    params = {"stages": [[{"conv": {"w": st[0].weight.detach().numpy(),
+                                    "b": st[0].bias.detach().numpy()}}]
+                         for st in cpu_net.stages],
               "final": {"conv": {"w": cpu_net.final.weight.detach().numpy(),
                                  "b": cpu_net.final.bias.detach().numpy()}}}
     makers.append(lambda: from_jax_params(params, mconf).final.weight)

@@ -160,12 +160,3 @@ def test_bundled_checkpoint_matches_jax_loader():
         tp_out, tu_out = model(tt(p), tt(u), tt(flags))
     _assert_trunk_close(tp_out, tu_out, np_(jp_out), np_(ju_out),
                         tm.conv_compute_dtype)
-
-
-@pytest.mark.parametrize("kw", [dict(model_type="tog"),
-                                dict(is_3d=False, model_type="tog"),
-                                dict(banks_num=2),
-                                dict(add_batch_norm=True)])
-def test_unported_models_raise(kw):
-    with pytest.raises(NotImplementedError):
-        FluidNet(ModelConfig(**{"is_3d": True, **kw}), device=DEV)
