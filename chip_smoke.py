@@ -9,13 +9,16 @@ ConvNet + Jacobi-polish certification rollouts), the 2-D interactive
 demo server (cli/serve.py with the bundled m2d ConvNet at 128^2), 3-D
 training (the m3d_v5 recipe), the offline 3-D entry points (cli/sim3d.py
 around a voxelized obstacle, the exact advection route, cli/stats.py), the
-dyngather probe and the ConvNets of the generic stage path (tog, banks,
-batch norm, the pressure skip), in these phases:
+dyngather probe, the ConvNets of the generic stage path (tog, banks,
+batch norm, the pressure skip) and the host data path (the threaded
+loader, the native C++ runtime), in these phases:
 
   1. device: fails without CUDA; prints the card's name and power limit.
   2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
              at once, into build/kernels/) and prints the seconds it took
-             and ptxas's registers and spills per kernel.
+             and ptxas's registers and spills per kernel; compiles the
+             native host library (native/src/fluidnet_native.cpp, g++, into
+             build/native/) and fails if it does not load.
   3. kernels vs plain: each 3-D kernel (K1 forward, K1 backward, K2
              prologue, K2 forces block, K3 Jacobi) against its plain
              PyTorch version on the same CUDA inputs: on the 128^3 plume
@@ -86,6 +89,7 @@ batch norm, the pressure skip), in these phases:
              log, '_lastEpoch', '_bestRollout' and '_ema' written; each run
              prints its startup profile (-profile true, the default: the
              model's FLOPs a 128^3 frame and the FPROP ms of one sample).
+             Phase 19 runs next, on the same data.
  12. train steps: train_step at n = 4 and n = 16 on a generated batch:
              ms per step, peak memory, loss, grad_norm, rejected, and each
              step's launches against train_launches(n); one step with
@@ -133,6 +137,27 @@ batch norm, the pressure skip), in these phases:
              on phase 10's batch after a warm-up step: ms, peak memory,
              finite loss and gradient norm, launches against
              train_launches(4).
+ 19. loader: the host route of cli/train.py on phase 10's 64^3 set (run
+             after phase 11). (a) cli/train.main with the recipe for one
+             epoch with -num_data_threads 1 and -device_data_cache_max_gb
+             below the set's size (the host route: PrefetchLoader and
+             DeviceFeed's copies), then one epoch on the device cache
+             from the same seed, deterministic cuDNN: every batch handed
+             to train_step equal to the bit to the dataset's own batch of
+             the seed's order, on both routes; the params after the epoch
+             equal to the bit (and moved: no update rejected); each
+             step's launches equal to train_launches of its horizon. (b)
+             two epochs on the host route with the default 8 threads:
+             every sample once an epoch, finite losses; ms per train step
+             on each route, the loader's wait a batch, the copies' ms and
+             MB/s. (c) the native library (built in phase 2) loads; its
+             threaded frame reader equals load_manta_file on a batch's
+             frames, both timed; in phase 16 the voxelization's native
+             flood fill equals the dilation and the .binvox read back by
+             the native decoder equals the NumPy decoder's cells. (d) an
+             epoch of batch 1, three times the loader's queue, through
+             DeviceFeed with 8 threads: every sample once, each batch
+             equal to the bit to get_batch.
 
 The last three lines are the card's name and power limit, a JSON object
 with one entry per kernel, and {"ok": true, "device": {...}}. Any failure
@@ -1412,6 +1437,251 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
+def loader_phase(dev, root):
+    """Phase 19: cli/train.main on the host route against the device cache
+    (one epoch each, one loader thread, deterministic cuDNN), then two
+    epochs on the host route with 8 threads, the native frame reader
+    against load_manta_file, and an epoch longer than the loader's queue.
+    Returns (launches, numbers)."""
+    from fluidnet_tpu_torch import native
+    from fluidnet_tpu_torch.cli import train as train_cli
+    from fluidnet_tpu_torch.data import dataset as dataset_mod
+    from fluidnet_tpu_torch.ops.cuda import _build
+
+    ds = dataset_mod.FluidDataset(root, "gen3d", "tr")
+    n_te = len(dataset_mod.FluidDataset(root, "gen3d", "te"))
+    order = np.random.default_rng(int(RECIPE[RECIPE.index("-seed") + 1])) \
+        .permutation(len(ds))
+    want = [ds.get_batch(order[i:i + TRAIN_B])
+            for i in range(0, len(ds), TRAIN_B)]
+    set_gb = sum(want[0][k].nbytes for k in ("p_div", "u_div", "flags",
+                                             "density")) / TRAIN_B / 1e9 * \
+        (len(ds) + n_te)
+    flags = RECIPE + ["-data_dir", root, "-dataset", "gen3d", "-model_dir",
+                      os.path.join(root, "loader_models"), "-profile",
+                      "false", "-load_model", "false"]
+    host = ["-device_data_cache_max_gb", str(set_gb / 2)]
+    real_step, real_loader, real_feed = (train_cli.train_step,
+                                         train_cli.PrefetchLoader,
+                                         train_cli.DeviceFeed)
+    launches, runs = {}, {}
+
+    class Loader(real_loader):
+        """Records each epoch's sample indices and queue waits."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.epochs = []
+            run["loaders"].append(self)
+
+        def epoch(self, *a, **k):
+            got = []
+            for batch, idx in super().epoch(*a, **k):
+                got.append(idx)
+                yield batch, idx
+            self.epochs.append((got, list(self.waits)))
+
+    class Feed(real_feed):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            run["feeds"].append(self)
+
+    def train_step(state, batch, gen, mconf, nf, *a, **k):
+        """train_step, its batch kept, its launches checked, timed."""
+        run["batches"].append({key: v.clone() for key, v in batch.items()})
+        if "init" not in run:
+            run["init"] = [p.detach().clone() for p in state.params]
+        torch.cuda.synchronize()
+        before = dict(_build.launches)
+        t0 = time.perf_counter()
+        out = real_step(state, batch, gen, mconf, nf, *a, **k)
+        torch.cuda.synchronize()
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        got = {key: v - before.get(key, 0)
+               for key, v in _build.launches.items()
+               if v - before.get(key, 0)}
+        if got != train_launches(nf):
+            raise AssertionError(f"loader: a train step at n={nf} launched "
+                                 f"{got}, expected {train_launches(nf)}")
+        run["horizons"].append(nf)
+        run["rejected"] += float(out[1]["rejected"])
+        return out
+
+    def drive(name, argv):
+        nonlocal run
+        run = runs[name] = {"loaders": [], "feeds": [], "batches": [],
+                            "ms": [], "horizons": [], "rejected": 0.0}
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        tee = Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            state, _ = train_cli.main(flags + argv)
+        torch.cuda.synchronize()
+        run["s"] = time.perf_counter() - t0
+        run["state"] = state
+        run["host_route"] = "==> Host route" in tee.buf.getvalue()
+        for key, v in _build.launches.items():
+            launches[key] = launches.get(key, 0) + v
+        log(f"loader {name}: {run['s']:.3f} s, {state.step} steps at "
+            f"horizons {run['horizons']}, train step ms "
+            f"{[round(v, 3) for v in run['ms']]}")
+
+    run = None
+    train_cli.train_step, train_cli.PrefetchLoader, train_cli.DeviceFeed = \
+        train_step, Loader, Feed
+    torch.backends.cudnn.deterministic = True
+    try:
+        drive("host_1thread", host + ["-max_epochs", "1", "-num_data_threads",
+                                      "1", "-model_filename", "host1"])
+        drive("device_cache", ["-max_epochs", "1", "-model_filename",
+                               "cache"])
+        torch.backends.cudnn.deterministic = False
+        drive("host_8threads", host + ["-max_epochs", "2",
+                                       "-model_filename", "host8"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+        train_cli.train_step, train_cli.PrefetchLoader, \
+            train_cli.DeviceFeed = real_step, real_loader, real_feed
+
+    # (a) the same batches and params on both routes.
+    a, b = runs["host_1thread"], runs["device_cache"]
+    if not (a["host_route"] and not b["host_route"]):
+        raise AssertionError("loader: the runs did not take the routes "
+                             "asked for")
+    for name, r in (("host_1thread", a), ("device_cache", b)):
+        if len(r["batches"]) != len(want):
+            raise AssertionError(f"loader {name}: {len(r['batches'])} train "
+                                 f"steps, expected {len(want)}")
+        for i, (got, ref) in enumerate(zip(r["batches"], want)):
+            if name == "host_1thread" and \
+                    sorted(got) != sorted(dataset_mod.HOST_KEYS):
+                raise AssertionError(f"loader: the host route moved "
+                                     f"{sorted(got)}")
+            for key, v in got.items():
+                if not np.array_equal(v.cpu().numpy(), ref[key]):
+                    raise AssertionError(f"loader {name}: batch {i}'s {key} "
+                                         "differs from the dataset's")
+    if a["horizons"] != b["horizons"]:
+        raise AssertionError(f"loader: horizons {a['horizons']} and "
+                             f"{b['horizons']}")
+    diff = max((x - y).abs().max().item() for x, y in
+               zip(a["state"].params, b["state"].params))
+    moved = max((x - y).abs().max().item() for x, y in
+                zip(a["state"].params, a["init"]))
+    # A rejected update leaves the params as they were: params equal
+    # because nothing moved would prove nothing.
+    if a["rejected"] or not moved > 0:
+        raise AssertionError(f"loader: {a['rejected']} updates rejected, "
+                             f"params moved {moved}")
+    log(f"loader (a): {len(want)} batches equal to the bit to the dataset's "
+        f"on both routes; params after the epoch (moved up to {moved:.3e} "
+        f"from the initial ones): max abs difference {diff:.3e}")
+    if diff != 0:
+        raise AssertionError(f"loader: params differ by {diff} between the "
+                             "routes")
+
+    # (b) eight threads: every sample once an epoch, finite losses.
+    c = runs["host_8threads"]
+    tr_loader = c["loaders"][0]
+    if tr_loader.num_threads != 8 or len(tr_loader.epochs) != 2:
+        raise AssertionError(f"loader: {tr_loader.num_threads} threads, "
+                             f"{len(tr_loader.epochs)} epochs")
+    for idxs, _ in tr_loader.epochs:
+        flat = [int(i) for idx in idxs for i in idx]
+        if sorted(flat) != list(range(len(ds))):
+            raise AssertionError(f"loader: an epoch delivered {flat}")
+    from fluidnet_tpu_torch.utils.logger import read_log
+    _, rows = read_log(os.path.join(root, "loader_models", "host8_log.tsv"))
+    if len(rows) != 2 or not np.isfinite(rows).all():
+        raise AssertionError(f"loader: host route log rows {rows}")
+    out = {"set_gb": set_gb, "device_data_cache_max_gb": set_gb / 2,
+           "params_max_abs_diff": diff}
+    for name, r in runs.items():
+        ms = sorted(r["ms"])
+        entry = {"train_step_ms": r["ms"], "median_train_step_ms":
+                 ms[len(ms) // 2], "horizons": r["horizons"], "s": r["s"]}
+        if r["feeds"]:
+            feed, ldr = r["feeds"][0], r["loaders"][0]
+            st = feed.stats
+            waits = [w for _, ws in ldr.epochs for w in ws]
+            copy_ms = st["copy_s"] * 1e3 / st["batches"]
+            entry.update({
+                "threads": ldr.num_threads,
+                "wait_ms_per_batch": [w * 1e3 for w in waits],
+                "copy_ms_per_batch": copy_ms,
+                "copy_mb_s": st["bytes"] / 1e6 / st["copy_s"],
+                "mib_per_batch": st["bytes"] / 2**20 / st["batches"],
+                "copy_share_of_step": copy_ms /
+                entry["median_train_step_ms"]})
+            log(f"loader {name}: {ldr.num_threads} threads; wait on the "
+                f"loader {[round(w * 1e3, 3) for w in waits]} ms a batch; "
+                f"copies {copy_ms:.3f} ms a batch on the main thread "
+                f"({entry['mib_per_batch']:.1f} MiB, "
+                f"{entry['copy_mb_s']:.1f} MB/s), "
+                f"{entry['copy_share_of_step']:.4f} of the median step "
+                f"{entry['median_train_step_ms']:.3f} ms")
+        out[name] = entry
+
+    # (c) the native library loads; its threaded frame reader (bound, not
+    # wired: FluidDataset reads in NumPy) against load_manta_file on the
+    # first batch's target and divergent frames.
+    if native.get_lib() is None:
+        raise AssertionError("loader: the native library is not loaded")
+    from fluidnet_tpu_torch.data.manta_io import load_manta_file
+    paths = []
+    for i in order[:TRAIN_B]:
+        rd, fname = ds.samples[i]
+        paths += [os.path.join(rd, fname),
+                  os.path.join(rd, fname[:-4] + "_divergent.bin")]
+    t0 = time.perf_counter()
+    got = native.read_manta_frames_native(paths, *ds.shape_zyx, ds.is_3d)
+    times = {"native": (time.perf_counter() - t0) * 1e3}
+    t0 = time.perf_counter()
+    frames = [load_manta_file(f) for f in paths]
+    times["numpy"] = (time.perf_counter() - t0) * 1e3
+    for key, mine in (("U", "u_div_or_target"), ("p", "p"),
+                      ("flags", "flags"), ("density", "density")):
+        if not np.array_equal(got[mine], np.concatenate(
+                [fr[key] for fr in frames])):
+            raise AssertionError(f"loader: the native reader's {mine} "
+                                 "differs from load_manta_file's")
+    log(f"loader (c): {len(paths)} frames read natively in "
+        f"{times['native']:.3f} ms, in NumPy {times['numpy']:.3f} ms; equal")
+    out["frame_read_ms"] = times
+
+    # (d) an epoch three times the loader's queue: batch 1 over the
+    # training set, 8 threads, through DeviceFeed; every sample once, each
+    # batch equal to the bit to get_batch(idx).
+    feed = dataset_mod.DeviceFeed(
+        dataset_mod.PrefetchLoader(ds, 1, 8, seed=5), dev)
+    fed = list(feed.epoch())
+    if sorted(int(i) for _, idx in fed for i in idx) != \
+            list(range(len(ds))):
+        raise AssertionError("loader (d): an epoch did not deliver every "
+                             "sample once")
+    for batch, idx in fed:
+        host = ds.get_batch(idx)
+        for key, v in batch.items():
+            if not np.array_equal(v.cpu().numpy(), host[key]):
+                raise AssertionError(f"loader (d): sample {list(idx)}'s "
+                                     f"{key} differs from get_batch's")
+    waits = [w * 1e3 for w in feed.loader.waits]
+    log(f"loader (d): {len(fed)} batches of 1 (queue of "
+        f"{feed.loader.depth}), 8 threads, each equal to get_batch; wait on "
+        f"the loader {[round(w, 3) for w in waits]} ms; {feed.report()}")
+    out["long_epoch"] = {"batches": len(fed), "wait_ms_per_batch": waits,
+                         "copy_ms_per_batch": feed.stats["copy_s"] * 1e3 /
+                         len(fed)}
+
+    # The recorders' classes and closures form reference cycles: drop the
+    # batches and states they hold now, or the later phases' peak memory
+    # would count them.
+    for r in runs.values():
+        r.clear()
+    return launches, out
+
+
 def train_batch(dev, root):
     """The first 6-sample batch of the generated training set, on the
     device."""
@@ -1709,6 +1979,7 @@ def sim3d_scene(dev):
     vox = voxelize_obj(obj, dim=VOX_DIM)
     save_binvox(binvox, vox)
     state, bcs = sim3d.build_scene(RES, binvox, dev)
+    native_checks(obj, binvox, vox)
     n_obst = int(((state.flags & 2) > 0).sum().item())
     border = RES ** 3 - (RES - 2) ** 3
     log(f"sim3d scene: {int(vox['data'].sum())} voxels at {VOX_DIM}^3 in "
@@ -1717,6 +1988,33 @@ def sim3d_scene(dev):
     if not n_obst > border:
         raise AssertionError("sim3d scene: the obstacle is empty")
     return binvox, state, bcs, n_obst
+
+
+def native_checks(obj, binvox_path, vox):
+    """Phase 19 (c) on phase 16's obstacle: the voxelization's native
+    flood fill against the NumPy dilation, and the .binvox read back by the
+    native decoder against the NumPy decoder's cells."""
+    from fluidnet_tpu_torch import native
+    from fluidnet_tpu_torch.io import binvox, voxelize
+    if native.get_lib() is None:
+        raise AssertionError("native: the library is not loaded")
+    surface = voxelize._surface_voxels(*voxelize.load_obj(obj), VOX_DIM)
+    filled = voxelize._fill_interior(surface)
+    if not np.array_equal(filled, voxelize._fill_interior_dilation(surface)) \
+            or not np.array_equal(filled, vox["data"] > 0.5):
+        raise AssertionError("native: the flood fill differs from the "
+                             "dilation")
+    with open(binvox_path, "rb") as f:
+        raw = f.read().split(b"data\n", 1)[1]
+    n = VOX_DIM ** 3
+    cells = native.binvox_decode_native(raw, n)
+    if not np.array_equal(cells, binvox._decode_rle_numpy(raw, n)) or \
+            not np.array_equal(binvox.load_binvox(binvox_path)["data"],
+                               vox["data"]):
+        raise AssertionError("native: the binvox decoders differ")
+    log(f"native: {int(filled.sum())} solid cells of the {VOX_DIM}^3 "
+        f"voxelization by the flood fill, equal to the dilation's; .binvox "
+        f"decoded natively ({int(cells.sum())} cells) equal to NumPy's")
 
 
 def sim3d_phase(dev, model):
@@ -1912,6 +2210,13 @@ def main():
     for line in ptxas.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.split('ptxas info    : ')[-1]}")
+    from fluidnet_tpu_torch import native
+    t0 = time.perf_counter()
+    native.build_native(force=True)
+    if native.get_lib() is None:
+        raise AssertionError("build: the native host library did not load")
+    log(f"build: g++ native host library, {time.perf_counter() - t0:.2f} s "
+        f"-> {os.path.relpath(native.LIB_PATH)}")
 
     mconf = load_mconf(BUNDLED).replace(**BENCH_KNOBS)
     model = FluidNet(mconf, device=dev).load_jax_params(load_params(BUNDLED))
@@ -1935,6 +2240,7 @@ def main():
     try:
         data_s, data_res = data_phase(dev, TRAIN_ROOT)
         cli_launches = cli_phase(TRAIN_ROOT)
+        loader_launches, loader_out = loader_phase(dev, TRAIN_ROOT)
         batch = train_batch(dev, TRAIN_ROOT)
         stats_means = stats_phase(TRAIN_ROOT)
     finally:
@@ -1956,7 +2262,8 @@ def main():
                                                step_launches, probe_launches,
                                                sim3d_launches,
                                                exact_launches,
-                                               model_launches]:
+                                               model_launches,
+                                               loader_launches]:
         for key, n in per.items():
             total[key] = total.get(key, 0) + n
     for key in KERNELS:
@@ -2001,6 +2308,7 @@ def main():
                                         "bound_ms": v[2],
                                         "library_ms": v[4]}
                            for a, v in probe_times.items()}}}))
+    log(json.dumps({"loader": loader_out}))
     log(json.dumps({"models": {"res": RES, "train_shape": [
         TRAIN_B, TRAIN_RES, TRAIN_RES, TRAIN_RES], **model_out}}))
     log(smi)

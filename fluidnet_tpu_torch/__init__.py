@@ -13,7 +13,9 @@ projection prologue and any ConvNet the config builds, optionally
 followed by Jacobi polish sweeps) and with the Jacobi and PCG solvers
 (`solvers/`); the 2-D step of the interactive demo (`cli/serve.py`,
 `cli/demo2d.py`: windowed advection on the warp kernel, the 2-D ConvNet,
-the adaptive window); training (`cli/train.py`), the offline 3-D
+the adaptive window); training (`cli/train.py`, fed by the device cache
+or, past it, by the threaded host loader; `native/` is the C++ host
+runtime of frame reads, binvox decoding and the flood fill), the offline 3-D
 simulation (`cli/sim3d.py`) and the statistics (`cli/stats.py`).
 Constructors build on the CUDA device unless given
 device="cpu". Layout, argument order and semantics follow the JAX

@@ -5,8 +5,13 @@ Port of fluidnet_tpu.cli.train (`qlua fluid_net_train.lua`):
   python -m fluidnet_tpu_torch.cli.train -dataset my_ds \\
       -model_filename m1 -max_epochs 10 -profile false [-device cpu]
 
-- loads (or self-generates, with the PCG solver) the dataset and puts it on
-  the device (DeviceDataset);
+- loads (or self-generates, with the PCG solver) the dataset and feeds it
+  by one of two routes, as the JAX package chooses (cli/train.py:375-395):
+  the device cache (DeviceDataset: every sample on the device, batches
+  gathered there) when `-device_data_cache` is on and the set fits under
+  `-device_data_cache_max_gb`; otherwise the host route (PrefetchLoader's
+  `-num_data_threads` workers assemble batches from host RAM, DeviceFeed
+  copies each to the device);
 - builds or resumes the model (`-load_model true -resume_training true`
   continue from '<model>_lastEpoch', the EMA from '<model>_ema');
 - runs train and test epochs with the unrolled long-term divergence loss,
@@ -20,12 +25,11 @@ Training runs on the CUDA device unless `-device cpu` is given. With
 `-profile true` (the default) it prints the model's analytic FLOPs and peak
 activation elements a frame at 128^2 / 128^3 and the FPROP time of one
 sample before the first epoch (fluid_net_train.lua:144-189). Each epoch is
-a per-batch loop of train.train_step: the JAX package's fused and scanned
-epoch steps were TPU dispatch workarounds (ROADMAP). The horizons of an
-epoch's batches follow the JAX scan path's deterministic counts
-(`_horizon_list`), each batch's draws a generator seeded by the step.
-Not ported (it raises, naming the ROADMAP item): the threaded host loader
-for datasets past the device cache (`-device_data_cache false`).
+a per-batch loop of train.train_step over either route's (batch, indices):
+the JAX package's fused and scanned epoch steps were TPU dispatch
+workarounds (ROADMAP). The horizons of an epoch's batches follow the JAX
+scan path's deterministic counts (`_horizon_list`), drawn by step position
+on both routes, each batch's draws a generator seeded by the step.
 """
 
 import copy
@@ -41,7 +45,8 @@ import torch
 from fluidnet_tpu_torch.core.config import (default_conf, parse_args,
                                             save_parameters)
 from fluidnet_tpu_torch.core.grids import FluidState, resolve_device
-from fluidnet_tpu_torch.data.dataset import DeviceDataset, FluidDataset
+from fluidnet_tpu_torch.data.dataset import (DeviceDataset, DeviceFeed,
+                                             FluidDataset, PrefetchLoader)
 from fluidnet_tpu_torch.data.generate import generate_dataset
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
 from fluidnet_tpu_torch.sim.simulate import rollout
@@ -97,17 +102,18 @@ def _generator(seed, i):
 
 def _epoch(loader, state, mconf, conf, py_rng, training, max_batches=0,
            horizon=None, ema=None):
-    """One pass over the loader, one step per batch, the metric sums kept on
-    the device and read every CHECK_EVERY batches (NaN / blow-up and the
-    reject guard's abort, cli/train.py:160-171). Returns (state, means)."""
+    """One pass over the loader (either route: its epoch yields (batch,
+    indices), the host route's in the order they complete), one step per
+    batch, the metric sums kept on the device and read every CHECK_EVERY
+    batches (NaN / blow-up and the reject guard's abort,
+    cli/train.py:160-171). Returns (state, means)."""
     dev = state.params[0].device
     sums = metric_sums_init(dev)
-    idx = list(loader.epoch_indices(max_batches=max_batches))
-    nfs = _horizon_list(py_rng, mconf, horizon if training else None,
-                        len(idx))
+    m = loader.num_batches(max_batches=max_batches)
+    nfs = _horizon_list(py_rng, mconf, horizon if training else None, m)
     n = 0
-    for i, (c, nf) in enumerate(zip(idx, nfs)):
-        batch = loader.batch(c)
+    for i, ((batch, _), nf) in enumerate(
+            zip(loader.epoch(max_batches=max_batches), nfs)):
         if training:
             state, terms = train_step(state, batch,
                                       _generator(conf.seed, state.step),
@@ -119,7 +125,7 @@ def _epoch(loader, state, mconf, conf, py_rng, training, max_batches=0,
                               _generator(conf.seed, i), mconf, nf)
         sums = add_metrics(sums, terms, mconf)
         n += 1
-        if n % CHECK_EVERY == 0 or n == len(idx):
+        if n % CHECK_EVERY == 0 or n == m:
             t = float(sums["total"])
             if not np.isfinite(t) or t > 1e9 * n:
                 raise RuntimeError(f"criterion error is NaN or > 1e9 (sum "
@@ -130,15 +136,16 @@ def _epoch(loader, state, mconf, conf, py_rng, training, max_batches=0,
                     f"update-reject guard dropped {rej:.0f}/{n} batches "
                     f"(>50%): the run has diverged past the "
                     f"loss_reject_threshold")
-            progress(n, len(idx), f"err={t / n:.4e}")
+            progress(n, m, f"err={t / n:.4e}")
     return state, {k: float(v) / max(n, 1) for k, v in sums.items()}
 
 
 def _rollout_metric(te_loader, model, mconf, n_steps):
     """Mean final-step ||div||_2 of an n-step free rollout from the first
-    test batch's projected state (the divergent one when the cache holds
-    no targets): the per-epoch model selection of cli/train.py:262-280."""
-    batch = te_loader.batch(next(te_loader.epoch_indices(max_batches=1)))
+    test batch's projected state (the divergent one when the device cache
+    holds no targets; the host route always moves them): the per-epoch
+    model selection of cli/train.py:262-280."""
+    batch, _ = next(iter(te_loader.epoch(max_batches=1)))
     s = FluidState(u=batch.get("u_target", batch["u_div"]),
                    p=batch.get("p_target", batch["p_div"]),
                    flags=batch["flags"], density=batch.get("density"))
@@ -230,18 +237,25 @@ def run_training(conf):
     cache_keys = ("p_div", "u_div", "flags", "density") + \
         (("p_target", "u_target") if need_targets else ())
     per_sample = sum(tr.get_batch([0])[k].nbytes for k in cache_keys) / 1e9
-    if not conf.device_data_cache or \
-            per_sample * (len(tr) + len(te)) > conf.device_data_cache_max_gb:
-        raise NotImplementedError("datasets past the device cache need the "
-                                  "threaded host loader, not ported yet "
-                                  "(ROADMAP queue 1, item 4: "
-                                  "PrefetchLoader)")
-    tr_loader = DeviceDataset(tr, conf.batch_size, dev, keys=cache_keys,
-                              shuffle=True, seed=conf.seed)
-    te_loader = DeviceDataset(te, conf.batch_size, dev, keys=cache_keys,
-                              shuffle=False)
-    tr.release_cache()
-    te.release_cache()
+    data_gb = per_sample * (len(tr) + len(te))
+    if conf.device_data_cache and data_gb <= conf.device_data_cache_max_gb:
+        tr_loader = DeviceDataset(tr, conf.batch_size, dev, keys=cache_keys,
+                                  shuffle=True, seed=conf.seed)
+        te_loader = DeviceDataset(te, conf.batch_size, dev, keys=cache_keys,
+                                  shuffle=False)
+        tr.release_cache()
+        te.release_cache()
+    else:
+        print(f"==> Host route: {data_gb:.3f} GB of samples past the device "
+              f"cache ({conf.device_data_cache_max_gb} GB, "
+              f"-device_data_cache {conf.device_data_cache}); "
+              f"{conf.num_data_threads} loader threads, frames kept in host "
+              "RAM")
+        tr_loader = DeviceFeed(PrefetchLoader(
+            tr, conf.batch_size, conf.num_data_threads, shuffle=True,
+            seed=conf.seed), dev)
+        te_loader = DeviceFeed(PrefetchLoader(
+            te, conf.batch_size, conf.num_data_threads, shuffle=False), dev)
     max_batches = (conf.max_samples_per_epoch // conf.batch_size
                    if conf.max_samples_per_epoch else 0)
 
@@ -319,6 +333,8 @@ def run_training(conf):
               f"{te_m['total']:.4e} | rollout||div|| {rollout_div:.3e} | "
               f"{time.time() - t0:.1f}s"
               + (f" | REJECTED {rej:.1%} of updates" if rej > 0 else ""))
+        if conf.train and isinstance(tr_loader, DeviceFeed):
+            print(f"    [{tr_loader.report()}]")
         logger.add([epoch, tr_m["total"], tr_m["p"], tr_m["u"], tr_m["div"],
                     tr_m["long_term_div"], te_m["total"], te_m["p"],
                     te_m["u"], te_m["div"], te_m["long_term_div"]])

@@ -1,22 +1,25 @@
-"""Dataset: paired divergent/corrected frames, and a device-resident copy.
+"""Dataset: paired divergent/corrected frames, and the two routes that
+feed them to training.
 
-Port of fluidnet_tpu.data.dataset (torch.DataBinary,
-torch/lib/data_binary.lua):
+Port of fluidnet_tpu.data.dataset (torch.DataBinary and torch.DataParallel,
+torch/lib/data_binary.lua, data_parallel.lua):
 
   - FluidDataset scans <data_dir>/<dataset>/{tr,te}/<run>/NNNNNN.bin
     (+ _divergent.bin), drops runs whose target divergence exceeds 1e-2
     (data_binary.lua:29, 126-134); a sample is a (run, frame) pair, a batch
     {p_div, u_div, density, flags, p_target, u_target, density_target} of
-    numpy arrays. Frames parse in NumPy (the JAX package's native threaded
-    reader is not ported) and are cached in RAM after the first read.
+    numpy arrays, read in NumPy and cached in RAM.
   - DeviceDataset uploads every sample to the device once; a batch is an
     index_select per field (the JAX package's on-device gathers).
-
-The JAX package's threaded PrefetchLoader (for datasets larger than the
-device cache) is not ported (ROADMAP queue 1, item 11).
+  - PrefetchLoader, for datasets past the device cache: worker threads
+    assemble numpy batches ahead of the training loop, and DeviceFeed copies
+    each to the device.
 """
 
 import os
+import queue
+import threading
+import time
 
 import numpy as np
 import torch
@@ -27,6 +30,20 @@ from fluidnet_tpu_torch.ops.divergence import velocity_divergence
 DIV_SCREEN_THRESHOLD = 1e-2  # data_binary.lua:29
 FIELDS = ("p_div", "u_div", "density", "flags", "p_target", "u_target",
           "density_target")
+# The fields the host route moves to the device (the JAX package's host
+# route passes these six).
+HOST_KEYS = ("p_div", "u_div", "flags", "p_target", "u_target", "density")
+
+
+def epoch_chunks(order, batch_size, drop_last=False, max_batches=0):
+    """An epoch's batches of sample indices: `order` cut into pieces of
+    batch_size, the short last one dropped with drop_last, the first
+    max_batches kept (every one when 0)."""
+    chunks = [order[i:i + batch_size]
+              for i in range(0, len(order), batch_size)]
+    if drop_last:
+        chunks = [c for c in chunks if len(c) == batch_size]
+    return chunks[:max_batches] if max_batches else chunks
 
 
 class FluidDataset:
@@ -154,17 +171,16 @@ class DeviceDataset:
     def __len__(self):
         return len(self.dataset)
 
+    def num_batches(self, drop_last=False, max_batches=0):
+        return len(epoch_chunks(range(len(self)), self.batch_size,
+                                drop_last, max_batches))
+
     def epoch_indices(self, drop_last=False, max_batches=0):
         """Yields each batch's sample indices (numpy int arrays)."""
         n = len(self.dataset)
         order = self.rng.permutation(n) if self.shuffle else np.arange(n)
-        chunks = [order[i:i + self.batch_size]
-                  for i in range(0, n, self.batch_size)]
-        if drop_last:
-            chunks = [c for c in chunks if len(c) == self.batch_size]
-        if max_batches:
-            chunks = chunks[:max_batches]
-        yield from chunks
+        yield from epoch_chunks(order, self.batch_size, drop_last,
+                                max_batches)
 
     def batch(self, idx):
         """The batch of the sample indices `idx`, gathered on the device."""
@@ -175,3 +191,120 @@ class DeviceDataset:
     def epoch(self, drop_last=False, max_batches=0):
         for c in self.epoch_indices(drop_last, max_batches):
             yield self.batch(c), c
+
+
+class PrefetchLoader:
+    """Threaded batch prefetcher over a dataset with get_batch(indices),
+    the equivalent of torch.DataParallel (data_parallel.lua:49-194):
+    `num_threads` workers take batches' indices from a queue and put the
+    assembled numpy batches into a queue of `depth`; batches complete out
+    of order, and every sample is delivered once per epoch. The epoch
+    order is np.random.default_rng(seed).permutation, the JAX package's.
+
+    `waits` holds the seconds the consumer waited on the queue for each
+    batch of the last epoch."""
+
+    def __init__(self, dataset, batch_size, num_threads=8, shuffle=True,
+                 seed=0, depth=4):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_threads = max(1, num_threads)
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.depth = depth
+        self.waits = []
+
+    def num_batches(self, drop_last=False, max_batches=0):
+        return len(epoch_chunks(range(len(self.dataset)), self.batch_size,
+                                drop_last, max_batches))
+
+    def epoch(self, drop_last=False, max_batches=0):
+        """Yields (batch, indices) for one pass over the dataset.
+
+        max_batches truncates the epoch (conf.maxSamplesPerEpoch,
+        default_conf.lua:41) before the workers start, so no worker blocks
+        on a batch that is never taken. A worker's exception is raised
+        here, in the consumer."""
+        n = len(self.dataset)
+        order = self.rng.permutation(n) if self.shuffle else np.arange(n)
+        chunks = epoch_chunks(order, self.batch_size, drop_last, max_batches)
+
+        out_q = queue.Queue(maxsize=self.depth)
+        in_q = queue.Queue()
+        for c in chunks:
+            in_q.put(c)
+
+        def worker():
+            while True:
+                try:
+                    idx = in_q.get_nowait()
+                except queue.Empty:
+                    return
+                try:
+                    out_q.put((self.dataset.get_batch(idx), idx))
+                except Exception as e:  # handed to the consumer
+                    out_q.put((e, idx))
+                    return
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(self.num_threads)]
+        for t in threads:
+            t.start()
+        self.waits = []
+        seen = set()
+        for _ in range(len(chunks)):
+            t0 = time.perf_counter()
+            batch, idx = out_q.get()
+            self.waits.append(time.perf_counter() - t0)
+            if isinstance(batch, Exception):
+                raise RuntimeError(f"PrefetchLoader: get_batch({list(idx)})"
+                                   f" failed") from batch
+            for i in idx:
+                # Double-count guard (run_epoch.lua:124-127).
+                assert int(i) not in seen, "double-counted sample!"
+                seen.add(int(i))
+            yield batch, idx
+        for t in threads:
+            t.join()
+
+
+class DeviceFeed:
+    """The host route's copies to the device: each (batch, indices) of a
+    PrefetchLoader's epoch, with the fields in HOST_KEYS, as tensors on
+    `device`, each field copied with torch.from_numpy(a).to(device). (A
+    ring of pinned buffers with non-blocking copies took as long a train
+    step on the H100: scripts/torch_feed_ab.py.)
+
+    `stats`: batches, bytes moved, and the seconds the main thread spent
+    in the copies (on a CUDA device, until each copy had finished)."""
+
+    def __init__(self, loader, device):
+        self.loader = loader
+        self.device = torch.device(device)
+        self.stats = {"batches": 0, "bytes": 0, "copy_s": 0.0}
+
+    def num_batches(self, drop_last=False, max_batches=0):
+        return self.loader.num_batches(drop_last, max_batches)
+
+    def epoch(self, drop_last=False, max_batches=0):
+        for batch, idx in self.loader.epoch(drop_last, max_batches):
+            t0 = time.perf_counter()
+            out = {k: torch.from_numpy(batch[k]).to(self.device)
+                   for k in HOST_KEYS}
+            self.stats["copy_s"] += time.perf_counter() - t0
+            self.stats["batches"] += 1
+            self.stats["bytes"] += sum(batch[k].nbytes for k in out)
+            yield out, idx
+
+    def report(self):
+        """One line: the wait on the loader a batch in its last epoch, and
+        the copies' ms a batch and rate since the feed was made."""
+        w, st = self.loader.waits, self.stats
+        n = max(st["batches"], 1)
+        line = (f"host route: loader wait {1e3 * sum(w) / max(len(w), 1):.3f}"
+                f" ms a batch over {len(w)}, copies "
+                f"{1e3 * st['copy_s'] / n:.3f} ms a batch")
+        if st["copy_s"] > 0:
+            line += (f" ({st['bytes'] / 1e6 / st['copy_s']:.1f} MB/s, "
+                     f"{st['bytes'] / 2**20 / n:.1f} MiB a batch)")
+        return line

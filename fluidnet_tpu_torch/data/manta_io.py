@@ -16,8 +16,11 @@ with numel = nx*ny*nz, arrays flat in (z, y, x) C order. Outputs are 5-D
 layout so self-generated datasets are interchangeable with manta ones.
 
 A copy of fluidnet_tpu.data.manta_io (backend-free, but the port imports
-nothing of the JAX package). The JAX package's native threaded reader
-(fluidnet_tpu/native) is not ported: frames parse in NumPy.
+nothing of the JAX package). Frames parse here in NumPy, FluidDataset's
+batches too: the native threaded reader
+(fluidnet_tpu_torch.native.read_manta_frames_native) parses the same
+layout but read a 64^3 batch no faster on the card's host, so nothing
+routes through it (ROADMAP, "Not needed").
 """
 
 import os

@@ -5,14 +5,23 @@ itself following Patrick Min's reference reader: ASCII header (dim /
 translate / scale lines), then RLE byte pairs (value, count). binvox stores
 voxels in [x][z][y] nesting; like the reference we permute to (x, y, z).
 
-A copy of fluidnet_tpu.io.binvox, decoding in NumPy by run-length
-expansion (the JAX package's optional native decoder is not carried over).
+A copy of fluidnet_tpu.io.binvox: the RLE pairs expand in the native C++
+decoder (fluidnet_tpu_torch.native), or in NumPy when the library could not
+be built.
 """
 
 import numpy as np
 
+from fluidnet_tpu_torch import native
+
 
 def _decode_rle(raw, n_voxels):
+    out = native.binvox_decode_native(raw, n_voxels)
+    return _decode_rle_numpy(raw, n_voxels) if out is None else out
+
+
+def _decode_rle_numpy(raw, n_voxels):
+    """The NumPy fallback: run-length expansion, zeros past a short input."""
     pairs = np.frombuffer(raw, np.uint8)
     values = pairs[0::2].astype(np.uint8)
     counts = pairs[1::2].astype(np.int64)

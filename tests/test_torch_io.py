@@ -1,9 +1,10 @@
 """The port's io modules (fluidnet_tpu_torch.io, copies of the JAX
-package's backend-free NumPy code) against fluidnet_tpu.io on the same
-inputs: the OBJ voxelizer, .binvox import and export, .vbox export,
-voxel placement and the obstacle OBJ export. Nothing here computes in
-floating point beyond what both copies do alike: every comparison is
-exact (equal arrays, equal bytes).
+package's backend-free code) against fluidnet_tpu.io on the same inputs:
+the OBJ voxelizer (its solid fill on each package's native flood fill, and
+on the NumPy fallbacks), .binvox import and export, .vbox export, voxel
+placement and the obstacle OBJ export. Nothing here computes in floating
+point beyond what both copies do alike: every comparison is exact (equal
+arrays, equal bytes).
 """
 
 import numpy as np
@@ -15,10 +16,12 @@ from fluidnet_tpu.io import vbox as j_vbox
 from fluidnet_tpu.io import voxel_utils as j_vu
 from fluidnet_tpu.io import voxelize as j_voxelize
 
+from fluidnet_tpu_torch import native
 from fluidnet_tpu_torch.io import binvox, obj_export, vbox, voxelize
 from fluidnet_tpu_torch.io import voxel_utils as vu
 
 from chip_smoke import write_scene_obj
+from tests.torch_port_util import jax_native
 
 DIM = 16
 
@@ -42,6 +45,40 @@ def test_voxelize_obj_matches_jax(obj):
         *voxelize.load_obj(obj), DIM).sum()
 
 
+def serpentine_surface(dim=DIM, z=7):
+    """A solid cube but for one corridor of free cells: it leaves the grid
+    at one boundary cell (x 0, y 1) and snakes through plane z in rows y =
+    1, 3, .., 13 joined at alternate ends, 105 cells, every one exterior."""
+    surf = np.ones((dim,) * 3, bool)
+    surf[0, 1, z] = False
+    for r, y in enumerate(range(1, dim - 2, 2)):
+        surf[1:dim - 1, y, z] = False
+        if y + 2 < dim - 1:
+            surf[dim - 2 if r % 2 == 0 else 1, y + 1, z] = False
+    return surf
+
+
+def test_fill_interior_serpentine_matches_jax_native(monkeypatch):
+    """The exterior is one corridor 105 cells long, past the 3 * dim = 48
+    rounds of the dilation fallback: the flood fill keeps it all free
+    (4096 - 105 solid), the dilation fills its last 56 cells."""
+    surf = serpentine_surface()
+    assert (~surf).sum() == 105
+    j_native = jax_native()
+    assert native.get_lib() is not None
+    want = j_voxelize._fill_interior(surf)
+    got = voxelize._fill_interior(surf)
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == DIM ** 3 - 105
+    monkeypatch.setattr(j_native, "get_lib", lambda: None)
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    j_fallback = j_voxelize._fill_interior(surf)
+    with pytest.warns(RuntimeWarning, match="dilation"):
+        fallback = voxelize._fill_interior(surf)
+    np.testing.assert_array_equal(fallback, j_fallback)
+    assert (fallback != want).sum() == 56
+
+
 def test_binvox_round_trip_and_bytes(obj, tmp_path):
     vox = voxelize.voxelize_obj(obj, dim=DIM)
     tp, jp = str(tmp_path / "t.binvox"), str(tmp_path / "j.binvox")
@@ -52,6 +89,9 @@ def test_binvox_round_trip_and_bytes(obj, tmp_path):
     t, j = binvox.load_binvox(tp), j_binvox.load_binvox(tp)
     np.testing.assert_array_equal(t["data"], vox["data"])
     np.testing.assert_array_equal(t["data"], j["data"])
+    raw = open(tp, "rb").read().split(b"data\n", 1)[1]
+    np.testing.assert_array_equal(native.binvox_decode_native(raw, DIM ** 3),
+                                  binvox._decode_rle_numpy(raw, DIM ** 3))
     assert (t["dims"], t["translation"], t["scale"]) == \
         (j["dims"], j["translation"], j["scale"])
 

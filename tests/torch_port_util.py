@@ -6,6 +6,7 @@ outputs are compared at a stated tolerance."""
 import json
 import os
 import shutil
+import time
 
 import numpy as np
 import torch
@@ -72,3 +73,16 @@ def float32_copy(src, dst):
     with open(os.path.join(dst, "mconf.json"), "w") as f:
         json.dump(meta, f)
     return dst
+
+
+def jax_native():
+    """fluidnet_tpu.native with its library loaded. The JAX package compiles
+    the library in place at first use, so a test worker that loads it while
+    another worker compiles it can find a half-written file: retry."""
+    import fluidnet_tpu.native as j_native
+    for _ in range(10):
+        if j_native.get_lib() is not None:
+            return j_native
+        j_native._tried = False
+        time.sleep(1)
+    raise AssertionError("the JAX package's native library does not load")
