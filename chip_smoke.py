@@ -10,8 +10,10 @@ demo server (cli/serve.py with the bundled m2d ConvNet at 128^2), 3-D
 training (the m3d_v5 recipe), the offline 3-D entry points (cli/sim3d.py
 around a voxelized obstacle, the exact advection route, cli/stats.py), the
 dyngather probe, the ConvNets of the generic stage path (tog, banks,
-batch norm, the pressure skip) and the host data path (the threaded
-loader, the native C++ runtime), in these phases:
+batch norm, the pressure skip), the host data path (the threaded
+loader, the native C++ runtime) and the scale-out layer (z-sharded
+advection, the halo Jacobi, data-parallel training in ranks that share
+the card), in these phases:
 
   1. device: fails without CUDA; prints the card's name and power limit.
   2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
@@ -158,9 +160,36 @@ loader, the native C++ runtime), in these phases:
              epoch of batch 1, three times the loader's queue, through
              DeviceFeed with 8 threads: every sample once, each batch
              equal to the bit to get_batch.
+ 20. parallel: the scale-out layer (parallel/) in ranks of scripts/
+             torch_parallel_rank.py started with torchrun's variables,
+             sharing the card under gloo (every exchange staged through
+             the host; the phase prints the transport). (a) a 256^3 plume
+             around a box across the middle cut (8 ConvNet steps) z-sharded
+             over 4 ranks: advect_step_z_sharded with maccormackOurs at W =
+             1 and 2 (dt moving the fastest cell W + 0.5 cells): each
+             rank's exchanged planes equal its neighbours', each slab equal
+             to the bit to the same slab advected in this process and
+             within TOL of it advected by the kernels' plain versions, K1's
+             two unfused sweeps and K5 twice a step on every rank; the
+             gathered shards against the whole grid within PAR_MAX, at most
+             PAR_FRAC of the cells past PAR_ROUND (a slab's positions round
+             at its own magnitude), and each of two planted exchange faults
+             (zero halos, swapped halos) past those limits; ms a sharded
+             step and an exchange per rank.
+             (b) halo_jacobi_solve, 34 sweeps on the 128^3 plume's
+             divergence over 4 ranks, equal to the bit to jacobi_plain and
+             K3 on the whole grid; its ms beside K3's. (c) train_step with
+             m3d_v5's recipe (the reject guard off) at 6x64^3, n = 4, on 2
+             ranks of make_global_mesh (1 x 2 x 1, 3 samples a rank) against
+             one process's step on the 6 samples: loss within rtol 1e-5,
+             every parameter within GRAD_TOL relative L2, each rank's
+             launches train_launches(4). A rank that fails or runs past
+             PAR_TIMEOUT fails the phase; the ranks' launches are added to
+             the kernels line.
 
-The last three lines are the card's name and power limit, a JSON object
-with one entry per kernel, and {"ok": true, "device": {...}}. Any failure
+The last lines are a JSON object per group of phases (phase 20's is
+"parallel"), the card's name and power limit, a JSON object with one
+entry per kernel, and {"ok": true, "device": {...}}. Any failure
 raises: the exit code is then not 0 and no result line is printed.
 Outputs under build/ are removed at the end.
 """
@@ -301,6 +330,35 @@ MODELS = {"tog": (dict(model_type="tog"), 2),
                                 add_pressure_skip=True), 0)}
 
 
+# Phase 20: the scale-out paths (parallel/) in ranks of
+# scripts/torch_parallel_rank.py that share the card under gloo.
+PAR_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "parallel")
+PAR_RES, PAR_SP, PAR_WINDOWS = 256, 4, (1, 2)   # the 256^3 stretch path
+PAR_ROLL = 8                    # ConvNet steps of the 256^3 plume
+PAR_REPS = 5                    # timed sharded steps, exchanges, solves
+PAR_JACOBI = 34                 # halo Jacobi sweeps on the 128^3 plume
+PAR_DP, PAR_GEN_SEED = 2, 5     # data-parallel ranks; the draws' seed
+PAR_TIMEOUT = 600               # seconds a spawn of ranks may take
+# Each slab against the same slab advected in this process: equal to the
+# bit; against that slab advected by the kernels' plain versions: within
+# TOL. The gathered shards against the whole grid cannot be equal to the
+# bit: positions are absolute (cell index + displacement), so a slab's
+# weights round at its own index magnitude, not the grid's (at 256^3 a
+# weight moves by up to ~1.2e-5), and where a displacement lies within an
+# ulp of a whole cell the support's corners shift by one, which moves the
+# MacCormack clamp's bounds by up to the field's jump between neighbours.
+# So at most PAR_FRAC of the cells may differ by more than PAR_ROUND of
+# the field's largest value, and none by more than PAR_MAX of it: a few
+# times what the H100 showed (u 7.506e-05; 5.96e-08 of the cells, 3 of
+# u's 50M, past PAR_ROUND). Two planted exchange faults must fail them.
+PAR_ROUND, PAR_FRAC, PAR_MAX = 1e-5, 2e-7, 3e-4
+PAR_FAULTS = ("zero_halo", "swapped_halo")
+# Launches of one sharded maccormackOurs step with one density channel.
+PAR_STEP = {"mac_sweep_unfused_fwd": 1, "mac_sweep_unfused_bwd": 1,
+            "warp": 2}
+
+
 def train_launches(n):
     """Kernel launches of one 'full'-mode train_step at unroll horizon n:
     K1 fused n forward + n - 1 recomputed per direction; K1 unfused and K6
@@ -377,14 +435,15 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def make_plume(dev):
+def make_plume(dev, res=RES, flags=None):
     from fluidnet_tpu_torch.core.grids import FluidState, empty_domain
     from fluidnet_tpu_torch.sim.simulate import create_plume_bcs
-    shape = (1, 1, RES, RES, RES)
+    shape = (1, 1, res, res, res)
     state = FluidState(
         u=torch.zeros((1, 3) + shape[2:], device=dev),
         p=torch.zeros(shape, device=dev),
-        flags=empty_domain(shape, True, device=dev),
+        flags=empty_domain(shape, True, device=dev) if flags is None
+        else flags,
         density=torch.zeros(shape, device=dev))
     return state, create_plume_bcs(state, [1.0], u_scale=0.6, rad=0.15)
 
@@ -2161,6 +2220,289 @@ def exact_phase(dev, model, scene):
                       "final_div_l2": div, "card_vs_cpu": vs}
 
 
+# --- phase 20: the scale-out paths -------------------------------------------
+
+
+def spawn_ranks(args, world, what):
+    """scripts/torch_parallel_rank.spawn_local in PAR_ROOT: `world` ranks
+    on this card, gloo; fails if a rank fails or the spawn runs past
+    PAR_TIMEOUT."""
+    return load_script("torch_parallel_rank").spawn_local(
+        args, world, PAR_ROOT, PAR_TIMEOUT, what)
+
+
+def planted_faults(rs, u, d, f, W, dt, method, strength):
+    """The gathered shards of the sharded step with each PAR_FAULTS fault
+    planted in its exchange (every slab's halos zeros, or its lower and
+    upper halos swapped), computed in this process: {fault: (u', density')}
+    on the host."""
+    from fluidnet_tpu_torch.parallel.advect_sharded import advect_slab
+    H, Z = 2 * W + 2, f.shape[2]
+    out = {}
+    for fault in PAR_FAULTS:
+        shards = []
+        for rank in range(PAR_SP):
+            ext = []
+            for t in (u, d, f):
+                e = rs.cut_slab(t, PAR_SP, rank, H)
+                lo, hi = e[:, :, :H], e[:, :, -H:]
+                lo, hi = (torch.zeros_like(lo), torch.zeros_like(hi)) \
+                    if fault == "zero_halo" else (hi, lo)
+                ext.append(torch.cat([lo, e[:, :, H:-H], hi], dim=2))
+            shards.append([x.cpu() for x in advect_slab(
+                dt, ext[0], ext[1], ext[2], Z, rank * (Z // PAR_SP) - H,
+                method, strength, W)])
+        out[fault] = tuple(torch.cat(x, dim=2) for x in zip(*shards))
+    return out
+
+
+def shard_err(a, b):
+    """(max |a - b|, the share of cells with |a - b| > PAR_ROUND x max
+    |b|), both over max |b|."""
+    scale = b.abs().max().clamp_min(1e-30)
+    err = (a - b).abs() / scale
+    return err.max().item(), (err > PAR_ROUND).double().mean().item()
+
+
+def parallel_phase(dev, mconf, model, batch):
+    """Phase 20: the port's parallel/ in ranks sharing the card (gloo,
+    host-staged exchanges): (a) advect_step_z_sharded at PAR_RES^3 over
+    PAR_SP ranks, (b) halo_jacobi_solve on the 128^3 plume, (c)
+    train_step(group=) on PAR_DP ranks. Returns (the ranks' summed kernel
+    launches, the result line's entries)."""
+    from fluidnet_tpu_torch.core.celltype import CellType
+    from fluidnet_tpu_torch.core.grids import empty_domain
+    from fluidnet_tpu_torch.ops.advect_fast import (advect_scalar_fast,
+                                                    advect_vel_fast)
+    from fluidnet_tpu_torch.ops.divergence import velocity_divergence
+    from fluidnet_tpu_torch.sim.simulate import rollout
+    from fluidnet_tpu_torch.solvers.cuda_jacobi import (jacobi_cuda,
+                                                        jacobi_plain)
+    from fluidnet_tpu_torch.train.train import init_train_state, train_step
+
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    os.makedirs(PAR_ROOT)
+    launches, out = {}, {}
+
+    def count(reports, key):
+        """Adds the ranks' launches (the phase's own stay uncounted)."""
+        for rep in reports:
+            for k, v in rep[key].items():
+                launches[k] = launches.get(k, 0) + v
+
+    # (a) + (b): the inputs, the whole-grid and per-slab references.
+    shape = (1, 1, PAR_RES, PAR_RES, PAR_RES)
+    flags = empty_domain(shape, True, device=dev)
+    c = PAR_RES // 2                  # a box across the middle z cut
+    flags[..., c - 16:c + 16, c - 28:c + 4, c - 28:c - 4] = \
+        int(CellType.TypeObstacle)
+    state, bcs = make_plume(dev, PAR_RES, flags)
+    state = rollout(state, mconf, PAR_ROLL, model, bcs)
+    u, d, f = state.u, state.density, state.flags
+    umax = u.abs().max().item()
+    # dt per window: the fastest cell moves W + 0.5 cells, past the clip.
+    cases = [(W, (W + 0.5) / umax) for W in PAR_WINDOWS]
+    method, strength = mconf.advection_method, mconf.maccormack_strength
+    jstate, _ = rolled_plume(dev, mconf, model)
+    jflags, jdiv = jstate.flags, velocity_divergence(jstate.u, jstate.flags)
+    in_path = os.path.join(PAR_ROOT, "sharded.pt")
+    torch.save({"u": u.cpu(), "density": d.cpu(), "flags": f.cpu(),
+                "cases": cases, "method": method, "strength": strength,
+                "jacobi": {"flags": jflags.cpu(), "div": jdiv.cpu(),
+                           "n_iter": PAR_JACOBI}}, in_path)
+    rs = load_script("torch_parallel_rank")
+    refs = {"u": u.cpu()}
+    for W, dt in cases:
+        whole = (advect_vel_fast(dt, u, f, method, strength, W).cpu(),
+                 advect_scalar_fast(dt, d, u, f, method, False, strength,
+                                    W).cpu())
+        slabs = {p: [[x.cpu() for x in rs.slab_reference(
+            dt, u, d, f, PAR_SP, r, method, strength, W, plain=p)]
+            for r in range(PAR_SP)] for p in (False, True)}
+        refs[W] = (whole, slabs, planted_faults(rs, u, d, f, W, dt, method,
+                                                strength))
+    j_plain = jacobi_plain(jflags, jdiv, PAR_JACOBI).cpu()
+    j_k3 = jacobi_cuda(jflags, jdiv, PAR_JACOBI).cpu()
+    k3_ms = cuda_ms(lambda: jacobi_cuda(jflags, jdiv, PAR_JACOBI), PAR_REPS)
+    del state, u, d, f, jstate, jflags, jdiv
+    torch.cuda.empty_cache()
+    log(f"parallel (a) sharded advection: {PAR_RES}^3 plume ({PAR_ROLL} "
+        f"ConvNet steps, a box across the middle cut), max |u| {umax:.6f},"
+        f" {method}, strength {strength}; (b) halo Jacobi {PAR_JACOBI} "
+        f"sweeps on the {RES}^3 plume's divergence; {PAR_SP} ranks on "
+        f"{torch.cuda.get_device_name(0)}")
+    reports, saved, secs = spawn_ranks(
+        ["--case", "sharded", "--inputs", in_path, "--reps",
+         str(PAR_REPS)], PAR_SP, "sharded")
+    log(f"parallel: {PAR_SP} ranks ran in {secs:.2f} s; transport "
+        f"{reports[0]['transport']}; slabs {reports[0]['slab']}")
+    H = 2 * cases[0][0] + 2
+    for rank, s in enumerate(saved):
+        lo, hi = s["halo"]
+        want = rs.cut_slab(refs["u"], PAR_SP, rank, H)
+        if not (torch.equal(lo, want[:, :, :H]) and
+                torch.equal(hi, want[:, :, -H:])):
+            raise AssertionError(f"parallel (a): rank {rank}'s exchanged "
+                                 f"planes differ from its neighbours'")
+    adv = {}
+
+    def within(errs):
+        return all(m <= PAR_MAX and f <= PAR_FRAC for m, f in errs.values())
+
+    for W, dt in cases:
+        (u_ref, d_ref), slabs, faults = refs[W]
+        got_u = torch.cat([s[W][0] for s in saved], dim=2)
+        got_d = torch.cat([s[W][1] for s in saved], dim=2)
+        errs = {"u": shard_err(got_u, u_ref),
+                "density": shard_err(got_d, d_ref)}
+        plain_err, plain_same = 0.0, True
+        for rank, s in enumerate(saved):
+            if not (torch.equal(s[W][0], slabs[False][rank][0]) and
+                    torch.equal(s[W][1], slabs[False][rank][1])):
+                raise AssertionError(f"parallel (a) W={W}: rank {rank}'s "
+                                     f"slab differs from the same slab "
+                                     f"advected in one process")
+            for got, ref, what in zip(s[W], slabs[True][rank],
+                                      ("u", "density")):
+                plain_err = max(plain_err, max_err(
+                    got, ref, f"parallel (a) W={W} rank {rank} {what} vs "
+                    f"plain", quiet=True))
+                plain_same = plain_same and torch.equal(got, ref)
+        if not within(errs):
+            raise AssertionError(f"parallel (a) W={W}: gathered shards vs "
+                                 f"the whole grid (max, share over "
+                                 f"{PAR_ROUND}) {errs}, limits {PAR_MAX}, "
+                                 f"{PAR_FRAC}")
+        fault_errs = {k: {"u": shard_err(fu, u_ref),
+                          "density": shard_err(fd, d_ref)}
+                      for k, (fu, fd) in faults.items()}
+        for k, e in fault_errs.items():
+            if within(e):
+                raise AssertionError(f"parallel (a) W={W}: the planted "
+                                     f"fault {k} passes the limits: {e}")
+        per = [r["cases"][str(W)] for r in reports]
+        for rank, p in enumerate(per):
+            if p["launches_per_step"] != PAR_STEP:
+                raise AssertionError(f"parallel (a) W={W}: rank {rank} "
+                                     f"launched {p['launches_per_step']} a "
+                                     f"step, expected {PAR_STEP}")
+        step_ms = [float(np.median(p["step_ms"])) for p in per]
+        exch_ms = [float(np.median(p["exchange_ms"])) for p in per]
+        adv[W] = {"dt": dt, "vs_whole_max_and_share": errs,
+                  "bit_equal_to_slabs": True,
+                  "vs_plain_slabs_max_abs_err": plain_err,
+                  "identical_to_plain_slabs": plain_same,
+                  "planted_faults_max_and_share": fault_errs,
+                  "identical_to_whole": bool(torch.equal(got_u, u_ref) and
+                                             torch.equal(got_d, d_ref)),
+                  "launches_per_step": PAR_STEP,
+                  "step_ms_per_rank": step_ms,
+                  "exchange_ms_per_rank": exch_ms}
+        log(f"parallel (a) W={W}, dt {dt:.6f}: slabs equal to the bit to "
+            f"one process's; against the plain versions' slabs max abs err "
+            f"{plain_err:.3e} (limit {TOL} of the field's max"
+            f"{'; bit-identical' if plain_same else ''}); gathered vs whole "
+            f"grid, max error over the field's max and the share of cells "
+            f"past {PAR_ROUND}: u {errs['u'][0]:.3e}, {errs['u'][1]:.3e}; "
+            f"density {errs['density'][0]:.3e}, {errs['density'][1]:.3e} "
+            f"(limits {PAR_MAX}, {PAR_FRAC}); planted faults, failing them: "
+            + "; ".join(f"{k} u {e['u'][0]:.3e}, {e['u'][1]:.3e}, density "
+                        f"{e['density'][0]:.3e}, {e['density'][1]:.3e}"
+                        for k, e in fault_errs.items()) + f"; launches a step per rank {PAR_STEP};"
+            f" ms a sharded step per rank {[round(v, 3) for v in step_ms]}, "
+            f"exchange {[round(v, 3) for v in exch_ms]}")
+    got_p = torch.cat([s["jacobi"] for s in saved], dim=2)
+    for what, ref in (("jacobi_plain", j_plain), ("K3", j_k3)):
+        if not torch.equal(got_p, ref):
+            raise AssertionError(f"parallel (b): halo Jacobi differs from "
+                                 f"{what} by {(got_p - ref).abs().max()}")
+    jac_ms = [float(np.median(r["jacobi"]["ms"])) for r in reports]
+    log(f"parallel (b) halo Jacobi {PAR_JACOBI} sweeps at {RES}^3 over "
+        f"{PAR_SP} ranks: equal to the bit to jacobi_plain and K3 on the "
+        f"whole grid; ms per rank {[round(v, 3) for v in jac_ms]}, K3 "
+        f"{k3_ms:.4f} ms")
+    for r in reports:
+        if r["jacobi"]["launches"]:
+            raise AssertionError(f"parallel (b): the halo Jacobi launched "
+                                 f"{r['jacobi']['launches']}")
+    count(reports, "launches_total")
+    out["sharded_advection"] = {"res": PAR_RES, "sp": PAR_SP,
+                                "transport": reports[0]["transport"],
+                                "windows": adv, "spawn_s": secs,
+                                "peak_gib_per_rank": [r["peak_gib"] for r in
+                                                      reports]}
+    out["halo_jacobi"] = {"res": RES, "sweeps": PAR_JACOBI,
+                          "bit_equal_to_plain_and_k3": True,
+                          "ms_per_rank": jac_ms, "k3_ms": k3_ms}
+
+    # (c) data-parallel training against one process on the whole batch,
+    # the reject guard off so that the update always lands.
+    mconf_t = recipe_mconf().replace(loss_reject_threshold=0.0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        st = init_train_state(17, mconf_t, dev)
+        init = [p.detach().to("cpu", copy=True) for p in st.params]
+        st, terms = train_step(st, batch,
+                               torch.Generator().manual_seed(PAR_GEN_SEED),
+                               mconf_t, 4)
+        ref_loss = float(terms["total"])
+        ref_params = [p.detach().to("cpu", copy=True) for p in st.params]
+        moved = max((a - b).abs().max().item()
+                    for a, b in zip(ref_params, init))
+        if not moved > 0:
+            raise AssertionError("parallel (c): the step left the params")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(st, batch, torch.Generator().manual_seed(PAR_GEN_SEED),
+                   mconf_t, 4)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        in_path = os.path.join(PAR_ROOT, "train.pt")
+        torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                    "mconf": mconf_t, "model_seed": 17,
+                    "gen_seed": PAR_GEN_SEED, "n": 4}, in_path)
+        reports, saved, secs = spawn_ranks(
+            ["--case", "train", "--inputs", in_path], PAR_DP, "train")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = 0.0
+    for rank, (r, s) in enumerate(zip(reports, saved)):
+        if r["launches"] != train_launches(4):
+            raise AssertionError(f"parallel (c): rank {rank} launched "
+                                 f"{r['launches']}, expected "
+                                 f"{train_launches(4)}")
+        loss = s["terms"]["total"]
+        if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss):
+            raise AssertionError(f"parallel (c): rank {rank} loss {loss} vs "
+                                 f"one process {ref_loss}")
+        for i, (a, b) in enumerate(zip(s["params"], ref_params)):
+            rel = (torch.linalg.norm(a - b) /
+                   torch.linalg.norm(b).clamp_min(1e-30)).item()
+            if not rel <= GRAD_TOL:
+                raise AssertionError(f"parallel (c): rank {rank} param {i} "
+                                     f"relative L2 {rel}")
+            worst = max(worst, rel)
+    count(reports, "launches_total")
+    rank_ms = [r["step_ms"][0] for r in reports]
+    log(f"parallel (c) train step n=4, {TRAIN_B}x{TRAIN_RES}^3 over "
+        f"{PAR_DP} ranks of {reports[0]['local_batch'][0]} samples "
+        f"(transport {reports[0]['transport']}): loss "
+        f"{[r['terms']['total'] for r in reports]} vs one process "
+        f"{ref_loss} (rtol 1e-5); params worst relative L2 {worst:.3e} "
+        f"(limit {GRAD_TOL}; the step moved them up to {moved:.3e}); "
+        f"launches per rank {reports[0]['launches']}; ms a step per rank "
+        f"{[round(v, 3) for v in rank_ms]}, one process {one_ms:.3f}")
+    out["dp_train"] = {"ranks": PAR_DP, "loss": ref_loss,
+                       "rank_losses": [r["terms"]["total"] for r in reports],
+                       "params_rel_l2_max": worst, "params_moved": moved,
+                       "transport": reports[0]["transport"],
+                       "step_ms_per_rank": rank_ms, "one_process_ms": one_ms,
+                       "spawn_s": secs}
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    return launches, out
+
+
 def stats_phase(root):
     """cli.stats.compute on the generated 64^3 test split (every sample):
     the bundled ConvNet, jacobi-34 and PCG (34 iterations, the CLI's
@@ -2248,6 +2590,7 @@ def main():
     step_launches, per_n = train_steps_phase(dev, batch)
     grad_rel = train_grad_phase(dev, batch)
     model_launches, model_out = models_phase(dev, batch)
+    par_launches, par_out = parallel_phase(dev, mconf, model, batch)
 
     shutil.rmtree(SIM3D_ROOT, ignore_errors=True)
     try:
@@ -2263,7 +2606,8 @@ def main():
                                                sim3d_launches,
                                                exact_launches,
                                                model_launches,
-                                               loader_launches]:
+                                               loader_launches,
+                                               par_launches]:
         for key, n in per.items():
             total[key] = total.get(key, 0) + n
     for key in KERNELS:
@@ -2311,6 +2655,7 @@ def main():
     log(json.dumps({"loader": loader_out}))
     log(json.dumps({"models": {"res": RES, "train_shape": [
         TRAIN_B, TRAIN_RES, TRAIN_RES, TRAIN_RES], **model_out}}))
+    log(json.dumps({"parallel": par_out}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -16,7 +16,9 @@ followed by Jacobi polish sweeps) and with the Jacobi and PCG solvers
 the adaptive window); training (`cli/train.py`, fed by the device cache
 or, past it, by the threaded host loader; `native/` is the C++ host
 runtime of frame reads, binvox decoding and the flood fill), the offline 3-D
-simulation (`cli/sim3d.py`) and the statistics (`cli/stats.py`).
+simulation (`cli/sim3d.py`), the statistics (`cli/stats.py`) and the
+scale-out layer on torch.distributed (`parallel/`: the z-sharded Jacobi
+and advection, data-parallel training across processes).
 Constructors build on the CUDA device unless given
 device="cpu". Layout, argument order and semantics follow the JAX
 package: every field is a 5-D (batch, channel, z, y, x) tensor.

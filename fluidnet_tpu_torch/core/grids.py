@@ -107,3 +107,21 @@ def empty_domain(shape, is_3d: bool, bnd: int = 1, device=None,
 def flags_to_occupancy(flags) -> torch.Tensor:
     """Flags -> {0, 1} float obstacle occupancy."""
     return is_obstacle(flags).to(torch.float32)
+
+
+def zero_state(batch, size_xyz, is_3d: bool, n_density: int = 1,
+               dtype=torch.float32, device=None) -> FluidState:
+    """An empty-domain state, mirroring fluid_net_3d_sim.lua:62-69: zero
+    u, p and density, flags from empty_domain. size_xyz is (x, y, z); a
+    2-D state needs z == 1. Built on resolve_device(device)."""
+    x, y, z = size_xyz
+    if not is_3d and z != 1:
+        raise ValueError(f"zero_state: a 2-D state needs z == 1, got {z}")
+    device = resolve_device(device)
+    cu = 3 if is_3d else 2
+    return FluidState(
+        u=torch.zeros((batch, cu, z, y, x), dtype=dtype, device=device),
+        p=torch.zeros((batch, 1, z, y, x), dtype=dtype, device=device),
+        flags=empty_domain((batch, 1, z, y, x), is_3d, device=device),
+        density=torch.zeros((batch, n_density, z, y, x), dtype=dtype,
+                            device=device))

@@ -1,0 +1,7 @@
+"""Scale-out on torch.distributed: a ('dp', 'sp') DeviceMesh, the z-halo
+Jacobi, z-sharded windowed advection and multi-process data parallelism
+(port of fluidnet_tpu.parallel)."""
+
+from fluidnet_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
+                                              spatial_sharding)
+from fluidnet_tpu_torch.parallel.halo import halo_jacobi_solve

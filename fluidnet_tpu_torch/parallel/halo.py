@@ -1,0 +1,110 @@
+"""Explicit halo exchange over a z-sharded grid, and the halo Jacobi.
+
+Port of fluidnet_tpu.parallel.halo: the scale-out answer to the
+reference's single-GPU Jacobi solver (generic/tfluids.cu:1764-1926). The
+grid's z axis is split over the mesh's 'sp' dim; every rank holds a slab
+of zl = Z / n_sp planes, and every sweep exchanges one z-plane with each
+neighbour (SURVEY.md §5.8: halos for domain decomposition). Where JAX
+runs `ppermute` inside a `shard_map`, each rank here posts its sends and
+receives with `dist.batch_isend_irecv` on the 'sp' group
+(`exchange_z_planes`), staged through the host under gloo
+(parallel/mesh.host_staged).
+
+`halo_jacobi_solve` is plain PyTorch, as the JAX function is plain jnp:
+every sweep is solvers/cuda_jacobi.jacobi_update, the combine of K3's plain
+version, on neighbour planes that come from the exchange at the slab ends.
+The masks JAX builds on the global array before sharding come from one
+exchange of a flags plane: the neighbour-obstacle masks from the extended
+slab, the zero mask from the global z index (`global_border_mask`). So a
+sharded solve adds the same numbers in the same order as jacobi_plain on
+the whole grid, and equals it to the bit.
+"""
+
+import torch
+import torch.distributed as dist
+
+from fluidnet_tpu_torch.core.celltype import is_obstacle
+from fluidnet_tpu_torch.ops import stencil as st
+from fluidnet_tpu_torch.parallel.mesh import host_staged
+from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_update
+
+
+def exchange_z_planes(xs, h: int, group):
+    """For each (b, c, zl, y, x) tensor of `xs`: (lo, hi), the h z-planes
+    just below this rank's slab (the top planes of the rank before it on
+    `group`) and just above (the bottom planes of the rank after it);
+    zeros past the mesh ends. One batch of sends and receives for all."""
+    idx, n = dist.get_rank(group), dist.get_world_size(group)
+    out, ops = [], []
+    for tag, x in enumerate(xs):
+        if x.shape[2] < h:
+            raise ValueError(f"exchange: slab of {x.shape[2]} z-planes "
+                             f"cannot give {h}")
+        dev = torch.device("cpu") if host_staged(x, group) else x.device
+        shape = x.shape[:2] + (h,) + x.shape[3:]
+        lo = torch.zeros(shape, dtype=x.dtype, device=dev)
+        hi = torch.zeros(shape, dtype=x.dtype, device=dev)
+        for peer, send, recv in ((idx - 1, x[:, :, :h], lo),
+                                 (idx + 1, x[:, :, -h:], hi)):
+            if 0 <= peer < n:
+                rank = dist.get_global_rank(group, peer)
+                send = send.to(dev).contiguous()
+                ops += [dist.P2POp(dist.isend, send, rank, group, tag),
+                        dist.P2POp(dist.irecv, recv, rank, group, tag)]
+        out.append((lo, hi))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return [(lo.to(x.device), hi.to(x.device)) for x, (lo, hi) in
+            zip(xs, out)]
+
+
+def global_border_mask(shape, z_len_global: int, z0_global: int,
+                       device=None) -> torch.Tensor:
+    """Width-1 domain border of a local 3-D slab of `shape` (b, c, zl, y,
+    x) whose first plane is global plane z0_global: the x/y edges are
+    local (unsharded axes); the z edge is where the GLOBAL index is 0 or
+    z_len_global - 1 (a slab's own ends are halo or neighbours, not
+    border). Bool (1, 1, zl, y, x)."""
+    Zl, Y, X = (int(v) for v in shape[2:])
+    xi = torch.arange(X, device=device).view(1, 1, 1, 1, X)
+    yi = torch.arange(Y, device=device).view(1, 1, 1, Y, 1)
+    zg = torch.arange(Zl, device=device).view(1, 1, Zl, 1, 1) + \
+        int(z0_global)
+    border = (xi == 0) | (xi == X - 1) | (yi == 0) | (yi == Y - 1) | \
+        (zg == 0) | (zg == z_len_global - 1)
+    return border.expand(1, 1, Zl, Y, X)
+
+
+def halo_jacobi_solve(flags_l, div_l, mesh, n_iter: int = 100):
+    """Jacobi pressure solve on this rank's z-slab of a grid z-sharded
+    over the mesh's 'sp' dim: n_iter sweeps from p = 0, one plane
+    exchanged with each neighbour a sweep. flags_l (b, 1, zl, y, x) int32
+    and div_l (b, 1, zl, y, x) float32 are this rank's slabs (what
+    shard_batch or local_part gives; they raise when Z does not divide over
+    sp). 3-D only. Returns this rank's slab of p."""
+    sp = mesh["sp"]
+    group, n, idx = sp.get_group(), sp.size(), sp.get_local_rank()
+    zl = div_l.shape[2]
+    Z = zl * n
+    if div_l.dim() != 5 or Z <= 1:
+        raise ValueError("halo_jacobi_solve is for 3-D grids (b, 1, z, y, "
+                         "x) with z > 1")
+    if flags_l.shape != div_l.shape:
+        raise ValueError(f"halo_jacobi_solve: flags {tuple(flags_l.shape)} "
+                         f"do not match div {tuple(div_l.shape)}")
+    (f_lo, f_hi), = exchange_z_planes([flags_l], 1, group)
+    ob_ext = is_obstacle(torch.cat([f_lo, flags_l, f_hi], dim=2))
+    ob = ob_ext[:, :, 1:-1]
+    zero = global_border_mask(div_l.shape, Z, idx * zl, div_l.device) | ob
+    obs_nb = [st.xm(ob, False), st.xp(ob, False), st.ym(ob, False),
+              st.yp(ob, False), ob_ext[:, :, :-2], ob_ext[:, :, 2:]]
+    masks = (zero, obs_nb, torch.tensor(6.0, device=div_l.device))
+    p = torch.zeros_like(div_l)
+    for _ in range(n_iter):
+        (lo, hi), = exchange_z_planes([p], 1, group)
+        shifted = [st.xm(p), st.xp(p), st.ym(p), st.yp(p),
+                   torch.cat([lo, p[:, :, :-1]], dim=2),
+                   torch.cat([p[:, :, 1:], hi], dim=2)]
+        p = jacobi_update(p, div_l, shifted, masks)
+    return p

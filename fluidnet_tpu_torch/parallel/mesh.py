@@ -1,0 +1,167 @@
+"""Device mesh and sharding helpers on torch.distributed.
+
+Port of fluidnet_tpu.parallel.mesh. The reference is single-process and
+single-GPU (SURVEY.md §2.3); this is the scale-out layer it never had: a
+('dp', 'sp') DeviceMesh over the ranks of the default process group,
+
+  dp: data parallel over the batch axis (independent scenes),
+  sp: spatial decomposition over the grid's z axis (grids past one card).
+
+The port runs SPMD: one process per rank, each holding its own slice of a
+tensor. Where JAX's GSPMD inserts collectives from sharding annotations,
+the port spells every exchange out: the sharded functions
+(parallel/halo.py, parallel/advect_sharded.py) exchange z-planes on the
+'sp' group, and train_step(group=) averages the gradients over the
+data-parallel group (`data_parallel_group`). A sharding here is only a
+description: which mesh dims split which tensor axis; `local_part` cuts
+this rank's slice by it.
+
+Host staging: the gloo backend moves host tensors (its point-to-point ops
+take no CUDA tensor), so every collective of this package stages a CUDA
+tensor through the host exactly when the group's backend is gloo
+(`host_staged`); under NCCL the card's tensors go as they are.
+"""
+
+import os
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+class Sharding(NamedTuple):
+    """How a tensor lies on `mesh`: spec[i] is None (axis i whole on every
+    rank), a mesh dim name, or a tuple of names (split over their product,
+    the first name major)."""
+    mesh: DeviceMesh
+    spec: tuple
+
+
+def make_mesh(n_dp: Optional[int] = None, n_sp: int = 1,
+              device_type: str = "cuda") -> DeviceMesh:
+    """A ('dp', 'sp') DeviceMesh over the initialised default group; rank
+    r sits at (r // n_sp, r % n_sp), as device r of JAX's make_mesh. On
+    'cuda' each rank takes a card (select_device)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: no process group; call "
+                           "parallel.multihost.init_multihost first")
+    world = dist.get_world_size()
+    if n_dp is None:
+        n_dp = world // n_sp
+    if n_dp * n_sp != world:
+        raise ValueError(f"make_mesh: dp {n_dp} x sp {n_sp} is not the "
+                         f"world size {world}")
+    select_device(device_type)
+    return init_device_mesh(device_type, (n_dp, n_sp),
+                            mesh_dim_names=("dp", "sp"))
+
+
+def select_device(device_type: str):
+    """On 'cuda', unless this process already uses a card: card LOCAL_RANK
+    (else its rank) modulo the card count, so that several ranks share one
+    card when there are more ranks than cards (DeviceMesh would take card
+    LOCAL_RANK, which need not exist)."""
+    if device_type != "cuda" or torch.cuda.is_initialized():
+        return
+    rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+
+
+def batch_sharding(mesh: DeviceMesh) -> Sharding:
+    """(b, c, z, y, x): b over dp, z over sp."""
+    return Sharding(mesh, ("dp", None, "sp", None, None))
+
+
+def spatial_sharding(mesh: DeviceMesh) -> Sharding:
+    """Pure spatial decomposition (one scene too big for one card)."""
+    return Sharding(mesh, (None, None, "sp", None, None))
+
+
+def replicated(mesh: DeviceMesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device on `mesh`."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def local_part(x, sharding: Sharding) -> torch.Tensor:
+    """This rank's slice of the global tensor `x` (a view where it can
+    be). Raises ValueError when an axis does not divide over its dims."""
+    mesh, spec = sharding
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    x = torch.as_tensor(x)
+    for axis, dims in enumerate(spec):
+        if dims is None:
+            continue
+        dims = (dims,) if isinstance(dims, str) else tuple(dims)
+        count, index = 1, 0
+        for d in dims:
+            i = names.index(d)
+            count *= mesh.shape[i]
+            index = index * mesh.shape[i] + coord[i]
+        n = x.shape[axis]
+        if n % count:
+            raise ValueError(f"axis {axis} of {tuple(x.shape)} ({n}) must "
+                             f"divide over {'x'.join(dims)} ({count})")
+        x = x.narrow(axis, index * (n // count), n // count)
+    return x
+
+
+def shard_batch(batch: dict, mesh: DeviceMesh, device=None) -> dict:
+    """This rank's part of a global host batch, on `device` (else its
+    device on the mesh): b split over dp, z over sp (batch_sharding),
+    non-5-D entries passed through (mesh.py:46-50)."""
+    if device is None:
+        device = mesh_device(mesh)
+    sharding = batch_sharding(mesh)
+    return {k: local_part(v, sharding).to(device).contiguous()
+            if getattr(v, "ndim", 0) == 5 else v for k, v in batch.items()}
+
+
+def data_parallel_group(mesh: DeviceMesh):
+    """The process group over the mesh's batch dims ('host' and 'dp'):
+    the ranks that share this rank's 'sp' coordinate, over which
+    train_step(group=) averages the gradients. Every rank must call it
+    (it creates one group per 'sp' coordinate)."""
+    names = mesh.mesh_dim_names
+    if "sp" not in names:
+        raise ValueError(f"data_parallel_group: mesh dims {names} have no "
+                         f"'sp'")
+    ranks = mesh.mesh.movedim(names.index("sp"), -1)
+    ranks = ranks.reshape(-1, ranks.shape[-1]).T.tolist()
+    if len(ranks) == 1:
+        return dist.group.WORLD
+    group, _ = dist.new_subgroups_by_enumeration(ranks)
+    return group
+
+
+def host_staged(x: torch.Tensor, group) -> bool:
+    """Whether a collective on `group` stages `x` through the host: a CUDA
+    tensor under gloo."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def transport(x: torch.Tensor, group) -> str:
+    """How this package's collectives move `x` on `group`: 'nccl', 'gloo'
+    or 'gloo, host-staged'."""
+    backend = dist.get_backend(group)
+    return f"{backend}, host-staged" if host_staged(x, group) else backend
+
+
+def all_reduce_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of `x` over the ranks of `group` (a sum, then a division
+    by the group's size), on x's device."""
+    n = dist.get_world_size(group)
+    if host_staged(x, group):
+        buf = x.cpu()
+        dist.all_reduce(buf, group=group)
+        return buf.to(x.device) / n
+    buf = x.clone()
+    dist.all_reduce(buf, group=group)
+    return buf / n

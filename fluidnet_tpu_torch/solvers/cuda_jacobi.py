@@ -57,10 +57,17 @@ def jacobi_sweep(p, div, masks, is_3d):
     """One sweep (kernel_jacobiIteration): neighbours summed x-, x+, y-,
     y+, z-, z+, an obstacle neighbour replaced by the centre value, then
     (sum + div) / (6 | 4), zero where the mask says so."""
-    zero, obs_nb, denom = masks
     shifts = (st.xm, st.xp, st.ym, st.yp) + ((st.zm, st.zp) if is_3d
                                              else ())
-    nbs = [torch.where(o, p, sh(p)) for sh, o in zip(shifts, obs_nb)]
+    return jacobi_update(p, div, [sh(p) for sh in shifts], masks)
+
+
+def jacobi_update(p, div, shifted, masks):
+    """The combine of one sweep from the neighbour fields `shifted` (p
+    read at x-, x+, y-, y+[, z-, z+]; parallel/halo.py passes z-planes
+    from its neighbours): the summation order of the kernel."""
+    zero, obs_nb, denom = masks
+    nbs = [torch.where(o, p, s) for s, o in zip(shifted, obs_nb)]
     tot = nbs[0] + nbs[1]
     for nb in nbs[2:]:
         tot = tot + nb

@@ -53,6 +53,7 @@ from fluidnet_tpu_torch.ops.forces import (add_buoyancy, add_gravity,
                                            vorticity_confinement,
                                            vorticity_confinement_xla)
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
+from fluidnet_tpu_torch.parallel.mesh import all_reduce_mean
 from fluidnet_tpu_torch.sim.simulate import FlagConsts, simulate
 from fluidnet_tpu_torch.solvers.cg import solve_pcg
 from fluidnet_tpu_torch.solvers.components import normalize_pressure_mean
@@ -406,16 +407,27 @@ def _reject_ok(terms, grad_norm, mconf: ModelConfig):
 
 def train_step(state: TrainState, batch, gen, mconf: ModelConfig,
                n_future: int, draws: Optional[Draws] = None,
-               use_kernels: bool = True):
+               use_kernels: bool = True, group=None):
     """One optimization step (train.py:297-311); returns (state, terms),
     terms detached with grad_norm and rejected added. A rejected update
     keeps the params and the optimizer state (selected on the device, no
-    host read); the step count still advances."""
+    host read); the step count still advances.
+
+    Data parallel: with a process group (parallel/mesh.
+    data_parallel_group), `batch` is this rank's equal share of the
+    global batch, and the gradients and loss terms are averaged over the
+    group (one all_reduce) before the norm, the reject guard and the
+    optimizer: the psum GSPMD inserts in JAX (multihost.py:21-23). Every
+    rank draws the same dt and forces from its generator, the model scales
+    each sample by its own input, and the loss is a mean over equal
+    shards, so the mean is the step on the global batch."""
     params = state.params
     with torch.enable_grad():
         total, terms = loss_fn(state.model, batch, gen, mconf, n_future,
                                draws=draws, use_kernels=use_kernels)
         grads = torch.autograd.grad(total, params)
+    if group is not None:
+        grads, terms = _mean_over(group, grads, terms)
     opt = make_optimizer(mconf)
     with torch.no_grad():
         updates, new_opt = opt.update(grads, state.opt_state)
@@ -433,6 +445,20 @@ def train_step(state: TrainState, batch, gen, mconf: ModelConfig,
     terms["rejected"] = 1.0 - ok.to(F32)
     state.step += 1
     return state, terms
+
+
+def _mean_over(group, grads, terms):
+    """The gradients and loss terms averaged over the ranks of `group`,
+    in one all_reduce of their concatenation."""
+    keys = list(terms)
+    flat = torch.cat([g.detach().reshape(-1) for g in grads] +
+                     [torch.stack([terms[k].detach() for k in keys])])
+    flat = all_reduce_mean(flat, group)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return out, dict(zip(keys, flat[i:]))
 
 
 def eval_step(batch, model, gen, mconf: ModelConfig, n_future: int,

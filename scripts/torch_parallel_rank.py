@@ -1,0 +1,246 @@
+#!/usr/bin/env python3
+"""One rank of the port's scale-out paths (fluidnet_tpu_torch/parallel/),
+started by torchrun or by chip_smoke.py's phase 20 with torchrun's
+variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
+
+    torchrun --nproc_per_node N scripts/torch_parallel_rank.py \\
+        --case sharded --inputs <in.pt> --out <dir> [--backend nccl]
+
+  --case sharded: the inputs hold a global state (u, density, flags) and
+      the advection cases [(window, dt)]. On a 1 x WORLD_SIZE ('dp', 'sp')
+      mesh each rank takes its z-slab and runs advect_step_z_sharded
+      (K1's unfused sweeps, K5) once with its launches counted, then
+      --reps timed steps and --reps timed exchanges of the step's halos;
+      then halo_jacobi_solve on the inputs' jacobi flags and div.
+  --case train: the inputs hold a host batch, the mconf, the model and
+      generator seeds and the horizon. On make_global_mesh(n_dp =
+      LOCAL_WORLD_SIZE) each rank takes its samples (shard_host_batch) and
+      runs train_step(group=) twice, deterministic cuDNN; the first step's
+      terms, params and launches are kept, the second is timed.
+
+Each rank writes rank<r>.pt (its slabs, the halo planes its first
+exchange received, or its params) and rank<r>.json (its transport,
+launches a step, all its launches, times) under --out. gloo on the card
+stages each exchange through the host and lets several ranks share one
+card; NCCL needs a card a rank. Failures raise: the exit code is then not
+0. `spawn_local` starts the ranks of one host without torchrun (what
+chip_smoke.py's phase 20 and tests/test_torch_cuda.py do);
+`slab_reference` computes a rank's slab in one process, the reference
+those and tests/test_torch_parallel.py hold the ranks against.
+"""
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from fluidnet_tpu_torch.ops.cuda import _build  # noqa: E402
+from fluidnet_tpu_torch.parallel.mesh import (  # noqa: E402
+    data_parallel_group, local_part, make_mesh, mesh_device,
+    spatial_sharding, transport)
+from fluidnet_tpu_torch.parallel.multihost import (  # noqa: E402
+    init_multihost, make_global_mesh, shard_host_batch)
+
+
+def cut_slab(x, n, rank, h):
+    """Rank `rank`'s (of n along z) slab of the whole-grid tensor x with
+    h planes of each neighbour, zeros past the grid's ends: what the
+    exchange extends that rank's slab to."""
+    zl = x.shape[2] // n
+    pad = torch.nn.functional.pad(x, [0, 0, 0, 0, h, h])
+    return pad[:, :, rank * zl:rank * zl + zl + 2 * h].contiguous()
+
+
+def slab_reference(dt, u, d, f, n, rank, method, strength, window,
+                   plain=False):
+    """What advect_step_z_sharded gives rank `rank` of n on the whole
+    grid (u, d, f), computed in this process: the rank's halo-extended
+    slab cut from the grid and advected by advect_sharded.advect_slab
+    (`plain=True`: the kernels' plain versions). (u', density')."""
+    from fluidnet_tpu_torch.parallel.advect_sharded import advect_slab
+    H = 2 * int(window) + 2
+    Z = f.shape[2]
+    ue, de, fe = (cut_slab(t, n, rank, H) for t in (u, d, f))
+    return advect_slab(dt, ue, de, fe, Z, rank * (Z // n) - H, method,
+                       strength, window, plain=plain)
+
+
+def counted(fn):
+    """(fn(), the kernel launches it made)."""
+    before = dict(_build.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                 if v - before.get(k, 0)}
+
+
+def timed(fn, reps):
+    """Milliseconds of each of `reps` calls of fn(), the ranks released
+    together by a barrier, each call closed by a synchronize."""
+    out = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def sharded(inp, reps, rank):
+    from fluidnet_tpu_torch.parallel.advect_sharded import (
+        _exchange_z_halo, advect_step_z_sharded)
+    from fluidnet_tpu_torch.parallel.halo import (exchange_z_planes,
+                                                  halo_jacobi_solve)
+    mesh = make_mesh(n_dp=1, n_sp=dist.get_world_size())
+    dev = mesh_device(mesh)
+    sp = spatial_sharding(mesh)
+    group = mesh["sp"].get_group()
+    u, d, f = (local_part(inp[k], sp).to(dev).contiguous()
+               for k in ("u", "density", "flags"))
+    info = {"rank": rank, "device": str(dev),
+            "transport": transport(u, group), "slab": list(u.shape),
+            "cases": {}}
+    lo, hi = exchange_z_planes([u], 2 * inp["cases"][0][0] + 2, group)[0]
+    saved = {"halo": (lo.cpu(), hi.cpu())}
+    for W, dt in inp["cases"]:
+        def step():
+            return advect_step_z_sharded(dt, u, d, f, mesh, inp["method"],
+                                         inp["strength"], W)
+        (u_new, d_new), per_step = counted(step)
+        saved[W] = (u_new.cpu(), d_new.cpu())
+        step_ms = timed(step, reps)
+        H = 2 * W + 2
+        exch_ms = timed(lambda: _exchange_z_halo([u, f, d], H, group), reps)
+        info["cases"][W] = {"launches_per_step": per_step,
+                            "step_ms": step_ms, "exchange_ms": exch_ms}
+    jac = inp["jacobi"]
+    jf, jd = (local_part(jac[k], sp).to(dev).contiguous()
+              for k in ("flags", "div"))
+    p, jac_launches = counted(lambda: halo_jacobi_solve(jf, jd, mesh,
+                                                         jac["n_iter"]))
+    info["jacobi"] = {"launches": jac_launches,
+                      "ms": timed(lambda: halo_jacobi_solve(
+                          jf, jd, mesh, jac["n_iter"]), reps)}
+    saved["jacobi"] = p.cpu()
+    return info, saved
+
+
+def train(inp, rank):
+    from fluidnet_tpu_torch.train.train import init_train_state, train_step
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_global_mesh(n_dp=int(os.environ["LOCAL_WORLD_SIZE"]))
+    group = data_parallel_group(mesh)
+    batch = shard_host_batch(inp["batch"], mesh)
+    mconf, n = inp["mconf"], inp["n"]
+    state = init_train_state(inp["model_seed"], mconf, mesh_device(mesh))
+
+    def step():
+        return train_step(state, batch,
+                          torch.Generator().manual_seed(inp["gen_seed"]),
+                          mconf, n, group=group)
+    (state, terms), launches = counted(step)
+    saved = {"terms": {k: float(v) for k, v in terms.items()},
+             "params": [p.detach().to("cpu", copy=True)
+                        for p in state.params]}
+    info = {"rank": rank, "transport": transport(batch["u_div"], group),
+            "local_batch": list(batch["u_div"].shape), "launches": launches,
+            "terms": saved["terms"], "step_ms": timed(step, 1)}
+    return info, saved
+
+
+def spawn_local(args, world, out, timeout, tag="ranks", backend="gloo"):
+    """Runs `world` ranks of this script on one host (torchrun's variables
+    set here) with `args` and `backend`, each rank's output in
+    out/<tag>_rank<r>.log. Raises as soon as a rank exits other than 0,
+    or past `timeout` seconds, and kills every rank left. Returns ([each
+    rank's JSON report], [each rank's saved tensors], seconds)."""
+    import torch
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(world):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                       RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank))
+            log = open(os.path.join(out, f"{tag}_rank{rank}.log"), "w")
+            procs.append((log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), *args,
+                 "--backend", backend, "--out", out], env=env, stdout=log,
+                stderr=subprocess.STDOUT)))
+        while any(p.poll() is None for _, p in procs):
+            if time.perf_counter() - t0 > timeout:
+                raise RuntimeError(f"{tag}: ranks ran past {timeout} s")
+            time.sleep(0.2)
+            failed = [r for r, (_, p) in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed:
+                log = procs[failed[0]][0]
+                log.flush()
+                with open(log.name) as f:
+                    tail = f.read()[-4000:]
+                raise RuntimeError(f"{tag}: rank {failed[0]} exited "
+                                   f"{procs[failed[0]][1].returncode}:\n"
+                                   f"{tail}")
+    finally:
+        for log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    secs = time.perf_counter() - t0
+    reports, saved = [], []
+    for rank in range(world):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+        saved.append(torch.load(os.path.join(out, f"rank{rank}.pt"),
+                                weights_only=False))
+    return reports, saved, secs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--case", choices=("sharded", "train"), required=True)
+    ap.add_argument("--inputs", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_parallel_rank: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not init_multihost(backend=args.backend):
+        raise SystemExit("torch_parallel_rank: needs WORLD_SIZE > 1 and "
+                         "torchrun's variables")
+    rank = dist.get_rank()
+    inp = torch.load(args.inputs, weights_only=False)
+    info, saved = sharded(inp, args.reps, rank) if args.case == "sharded" \
+        else train(inp, rank)
+    info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    info["launches_total"] = dict(_build.launches)
+    torch.save(saved, os.path.join(args.out, f"rank{rank}.pt"))
+    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -670,3 +670,86 @@ def test_exact_route_step_matches_cpu(dev):
     off = branch_diff(traces["cpu"], traces["cuda"], dev)
     assert len(traces["cpu"]) == 8   # 2 scalar, 6 velocity traces
     assert all(off[k] == 0 for k in TRACE_KEYS if k != "position"), off
+
+
+def _rank_script():
+    """scripts/torch_parallel_rank.py as a module."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "torch_parallel_rank.py")
+    spec = importlib.util.spec_from_file_location("torch_parallel_rank",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_sharded_paths_on_two_ranks(dev, tmp_path, backend):
+    """parallel/ on 2 ranks, each on card rank % device_count: gloo (the
+    exchange staged through the host; both on one card when there is one)
+    or NCCL (device tensors; needs two cards). A 1x24x20x28 grid with 15%
+    obstacles cut at z 12,
+    maccormackOurs at W = 1 and 2: each rank's exchanged planes equal its
+    neighbours' (a torch.cat of the zero-padded grid's planes); each
+    slab equal to the bit to the same halo-extended slab advected in this
+    process, and within 1e-5 of each field's largest value of that slab
+    advected by the kernels' plain versions; the gathered shards within 1e-5 of each field's largest value
+    of the whole-grid advection (a slab's positions round at its own
+    index magnitude); K1's two unfused sweeps and K5 twice a step, on
+    each rank; the halo Jacobi (8 sweeps) equal to the bit to K3 and
+    jacobi_plain on the whole grid."""
+    from fluidnet_tpu_torch.ops.advect_fast import (advect_scalar_fast,
+                                                    advect_vel_fast)
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card a rank: two CUDA devices")
+    rng = np.random.default_rng(29)
+    shape = (1, 1, 24, 20, 28)
+    flags = torch.tensor(_flags(rng, shape).astype(np.int32))
+    u = torch.tensor(rng.standard_normal((1, 3) + shape[2:]) * 1.5,
+                     dtype=torch.float32)
+    d = torch.tensor(rng.random(shape), dtype=torch.float32)
+    div = torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+    cases = [(1, 0.4), (2, 0.8)]
+    inp = {"u": u, "density": d, "flags": flags, "cases": cases,
+           "method": "maccormackOurs", "strength": 0.6,
+           "jacobi": {"flags": flags, "div": div, "n_iter": 8}}
+    torch.save(inp, tmp_path / "in.pt")
+    rank_script = _rank_script()
+    reports, saved, _ = rank_script.spawn_local(
+        ["--case", "sharded", "--inputs", str(tmp_path / "in.pt"), "--reps",
+         "1"], 2, str(tmp_path), 300, "test", backend)
+    u_c, d_c, f_c = u.to(dev), d.to(dev), flags.to(dev)
+    for rank, (rep, s) in enumerate(zip(reports, saved)):
+        assert rep["transport"] == {"gloo": "gloo, host-staged",
+                                    "nccl": "nccl"}[backend]
+        assert rep["device"] == f"cuda:{rank % torch.cuda.device_count()}"
+        want = rank_script.cut_slab(u, 2, rank, 4)
+        assert torch.equal(s["halo"][0], want[:, :, :4])
+        assert torch.equal(s["halo"][1], want[:, :, -4:])
+    for W, dt in cases:
+        for rank, s in enumerate(saved):
+            want_u, want_d = rank_script.slab_reference(
+                dt, u_c, d_c, f_c, 2, rank, "maccormackOurs", 0.6, W)
+            assert torch.equal(s[W][0], want_u.cpu()), (W, rank)
+            assert torch.equal(s[W][1], want_d.cpu()), (W, rank)
+            plain_u, plain_d = rank_script.slab_reference(
+                dt, u_c, d_c, f_c, 2, rank, "maccormackOurs", 0.6, W,
+                plain=True)
+            _close(s[W][0], plain_u.cpu(), f"u W={W} rank {rank} vs plain")
+            _close(s[W][1], plain_d.cpu(),
+                   f"density W={W} rank {rank} vs plain")
+            assert reports[rank]["cases"][str(W)]["launches_per_step"] == {
+                "mac_sweep_unfused_fwd": 1, "mac_sweep_unfused_bwd": 1,
+                "warp": 2}
+        whole_u = advect_vel_fast(dt, u_c, f_c, "maccormackOurs", 0.6, W)
+        whole_d = advect_scalar_fast(dt, d_c, u_c, f_c, "maccormackOurs",
+                                     False, 0.6, W)
+        _close(torch.cat([s[W][0] for s in saved], 2), whole_u.cpu(),
+               f"u W={W}")
+        _close(torch.cat([s[W][1] for s in saved], 2), whole_d.cpu(),
+               f"density W={W}")
+    p = torch.cat([s["jacobi"] for s in saved], 2)
+    assert torch.equal(p, jacobi_cuda(f_c, div.to(dev), 8).cpu())
+    assert torch.equal(p, jacobi_plain(flags, div, 8))
