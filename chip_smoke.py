@@ -186,11 +186,40 @@ the card), in these phases:
              launches train_launches(4). A rank that fails or runs past
              PAR_TIMEOUT fails the phase; the ranks' launches are added to
              the kernels line.
+ 21. sharded step: the z-sharded rollout (parallel/simulate_sharded.py)
+             in STEP_SP = 4 ranks of scripts/torch_parallel_rank.py sharing
+             the card under gloo, as phase 20's. Each run starts each rank
+             from its slab of a global plume with bench.py's knobs and the
+             bundled model and is held against one process's rollout with
+             the kernels on the same state (STEP_RUNS): (a) a float32 copy
+             of the checkpoint, 8 ConvNet steps of the 128^3 plume after 12
+             steps (the gathered u, p, density within STEP_MAX of the
+             field's largest value, at most STEP_FRAC of the cells past
+             STEP_ROUND: tests/test_torch_sharded_sim.py's limits); (b)
+             the checkpoint as shipped (bf16), 8 steps: the errors
+             reported, the final ||div||_2 of the gathered state within
+             STEP_DIV_REL of one process's; (c) ConvNet + p8 (float32),
+             (d) jacobi-34 on the halo Jacobi, both held as (a); (e) the
+             empty 256^3 plume, bf16, 4 steps, held as (b); (f) (a) and
+             (b) with the ghost planes of step 2's exchange zeroed must
+             fail their limits; (g) why bf16 rounds apart: (b) with the
+             whole grid's input scale of each step fed to the slabs, and
+             one step of each, each rank's own planes against the whole
+             grid's cell by cell. Every rank runs each rollout a second
+             time with the kernels' plain versions on the same slab (K1,
+             K2, K3 at the shapes this path gives them) and must give the
+             same bits. Each rank launches K1's fused forward and backward
+             and K2's prologue once a step (K2's forces block in (d)), K3
+             once a step in (c). Per rank: ms a step (a rollout over its
+             steps), ms an exchange of the step's fields, beside one
+             process's ms a step. A rank that fails or runs past
+             PAR_TIMEOUT fails the phase; the ranks' launches are added to
+             the kernels line.
 
-The last lines are a JSON object per group of phases (phase 20's is
-"parallel"), the card's name and power limit, a JSON object with one
-entry per kernel, and {"ok": true, "device": {...}}. Any failure
-raises: the exit code is then not 0 and no result line is printed.
+The last lines are a JSON object per group of phases (phase 20's is "parallel",
+phase 21's "sharded_step"), the card's name and power limit, a JSON object with
+one entry per kernel, and {"ok": true, "device": {...}}. Any failure raises:
+the exit code is then not 0 and no result line is printed.
 Outputs under build/ are removed at the end.
 """
 
@@ -357,6 +386,57 @@ PAR_FAULTS = ("zero_halo", "swapped_halo")
 # Launches of one sharded maccormackOurs step with one density channel.
 PAR_STEP = {"mac_sweep_unfused_fwd": 1, "mac_sweep_unfused_bwd": 1,
             "warp": 2}
+
+
+# Phase 21: the z-sharded rollout (parallel/simulate_sharded.py) in ranks of
+# scripts/torch_parallel_rank.py that share the card under gloo: the
+# bench's plume at 128^3 over STEP_SP ranks, STEP_N steps a run, and the
+# empty 256^3 plume STEP_BIG_N steps.
+STEP_SP, STEP_N = 4, 8
+STEP_BIG, STEP_BIG_N = 256, 4
+# tests/test_torch_sharded_sim.py's limits (its PORT_*): the gathered
+# slabs against one process's rollout with the kernels, the largest
+# difference over the field's largest value and the share of cells past
+# STEP_ROUND of it. The bf16 trunk rounds apart from the whole grid's in
+# many cells (PERF.md §6) and is held by its final ||div||_2 within
+# STEP_DIV_REL of one process's: on an H100, 8x the largest sound reading
+# (1.257e-05, bf16 fed the whole grid's input scale; 1.734e-06 at 128^3,
+# 4.625e-07 at 256^3) and 2.5x under the planted bf16 fault's 2.480e-04.
+STEP_MAX, STEP_ROUND, STEP_FRAC = 3e-4, 1e-5, 1e-3
+STEP_DIV_REL = 1e-4
+K1_FUSED = {"mac_sweep_fwd": 1, "mac_sweep_bwd": 1}
+CONVNET_STEP = dict(K1_FUSED, prologue=1)
+# Each run of phase 21: mconf changes, conv dtype, state (a key of the
+# phase's states, or the empty plume's resolution), steps, the run whose
+# one-process rollout it is held against, how it is held, a planted
+# fault (the ghost planes of step 2's exchange zeroed), whether the model
+# is fed the whole grid's input scale of each step in place of the
+# slab's, and the launches a rank makes a step. Held: "limits" (STEP_MAX,
+# STEP_FRAC), "div" (STEP_DIV_REL), "fails_limits" and "fails_div" (a
+# planted fault must fail them), "report" (errors reported: whether the
+# bf16 trunk rounds apart on a slab through its input scale's sums or
+# through the convolutions themselves).
+STEP_DEFAULT = dict(kw={}, dtype="float32", state="rolled", steps=STEP_N,
+                    ref=None, held="limits", fault=False, fed=False,
+                    launches=CONVNET_STEP)
+STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
+    "f32": {},
+    "bf16": dict(dtype="bfloat16", held="div"),
+    "p8": dict(kw=dict(polish_iters=8),
+               launches=dict(CONVNET_STEP, jacobi=1)),
+    "jacobi34": dict(kw=dict(sim_method="jacobi", max_iter=34),
+                     launches=dict(K1_FUSED, forces_block=1)),
+    "big": dict(dtype="bfloat16", state=STEP_BIG, steps=STEP_BIG_N,
+                held="div"),
+    "fault": dict(ref="f32", fault=True, held="fails_limits"),
+    "fault_bf16": dict(dtype="bfloat16", ref="bf16", fault=True,
+                       held="fails_div"),
+    "bf16_fed": dict(dtype="bfloat16", ref="bf16", fed=True,
+                     held="report"),
+    "bf16_1": dict(dtype="bfloat16", steps=1, held="report"),
+    "bf16_1_fed": dict(dtype="bfloat16", steps=1, ref="bf16_1", fed=True,
+                       held="report"),
+}.items()}
 
 
 def train_launches(n):
@@ -2503,6 +2583,190 @@ def parallel_phase(dev, mconf, model, batch):
     return launches, out
 
 
+# --- phase 21: the z-sharded rollout ----------------------------------------
+
+
+def step_err(a, b):
+    """(max |a - b|, the share of cells with |a - b| > STEP_ROUND x max
+    |b|), both over max |b|."""
+    scale = b.abs().max().clamp_min(1e-30)
+    err = (a - b).abs() / scale
+    return err.max().item(), (err > STEP_ROUND).double().mean().item()
+
+
+def sharded_step_phase(dev, mconf, model):
+    """Phase 21: rollout_z_sharded in STEP_SP ranks sharing the card
+    (gloo, host-staged exchanges), each run of STEP_RUNS against one
+    process's rollout with the kernels on the same state, and on every
+    rank against the same slab's rollout with the kernels' plain versions
+    (equal to the bit). Returns (the ranks' summed kernel launches, the
+    result line's entry)."""
+    from fluidnet_tpu_torch.core.grids import FluidState
+    from fluidnet_tpu_torch.sim.simulate import rollout
+
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    os.makedirs(PAR_ROOT)
+    rs = load_script("torch_parallel_rank")
+    rolled, _ = rolled_plume(dev, mconf, model)
+    states = {"rolled": {k: getattr(rolled, k).cpu()
+                         for k in ("u", "p", "flags", "density")}}
+    del rolled
+    runs, refs = [], {}
+    for name, run in STEP_RUNS.items():
+        m = mconf.replace(conv_compute_dtype=run["dtype"], **run["kw"])
+        runs.append({"name": name, "mconf": m, "state": run["state"],
+                     "steps": run["steps"], "fault": run["fault"]})
+        if run["ref"] != name:
+            continue
+        state, bcs = rs.plume(states, run["state"])
+        state = FluidState(**{k: getattr(state, k).to(dev)
+                              for k in ("u", "p", "flags", "density")})
+        bcs = type(bcs)(**{k: None if v is None else v.to(dev)
+                           for k, v in vars(bcs).items()})
+        net = rec = None
+        if m.sim_method == "convnet":
+            net = model if run["dtype"] == mconf.conv_compute_dtype else \
+                retyped_model(model, m, dev)
+            rec = rs.InputScale(net)
+        out = rollout(state, m, run["steps"], rec, bcs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(state, m, run["steps"], net, bcs)
+        torch.cuda.synchronize()
+        refs[name] = {
+            "out": {k: getattr(out, k).cpu() for k in ("u", "p",
+                                                       "density")},
+            "div": final_check(out, f"sharded step ({name}), one process"),
+            "ms": (time.perf_counter() - t0) / run["steps"] * 1e3,
+            "scales": [] if rec is None else [s.cpu() for s in rec.seen]}
+        del state, bcs, out, net, rec
+        torch.cuda.empty_cache()
+    for r in runs:
+        if STEP_RUNS[r["name"]]["fed"]:
+            r["scales"] = refs[STEP_RUNS[r["name"]]["ref"]]["scales"]
+    in_path = os.path.join(PAR_ROOT, "step.pt")
+    torch.save({"states": states, "runs": runs, "model": BUNDLED}, in_path)
+    log(f"sharded step: the bench's plume at {RES}^3 (12 ConvNet steps in), "
+        f"{STEP_N} steps a run, and the empty plume at {STEP_BIG}^3, "
+        f"{STEP_BIG_N} steps, z-sharded over {STEP_SP} ranks on "
+        f"{torch.cuda.get_device_name(0)}")
+    reports, saved, secs = spawn_ranks(
+        ["--case", "step", "--inputs", in_path, "--reps", str(PAR_REPS)],
+        STEP_SP, "step")
+    launches, out = {}, {"sp": STEP_SP, "res": RES, "steps": STEP_N,
+                         "big_res": STEP_BIG, "big_steps": STEP_BIG_N,
+                         "transport": reports[0]["runs"]["f32"]["transport"],
+                         "spawn_s": secs, "runs": {}}
+    for rep in reports:
+        for k, v in rep["launches_total"].items():
+            launches[k] = launches.get(k, 0) + v
+    for name, run in STEP_RUNS.items():
+        ref, held, n = refs[run["ref"]], run["held"], run["steps"]
+        want = ref["out"]
+        got = {k: torch.cat([s[name][k] for s in saved], dim=2)
+               for k in ("u", "p", "density")}
+        errs = {k: step_err(got[k], want[k]) for k in got}
+        recs = [r["runs"][name] for r in reports]
+        expect = {k: v * n for k, v in run["launches"].items()}
+        for rank, r in enumerate(recs):
+            if r["launches"] != expect:
+                raise AssertionError(f"sharded step ({name}): rank {rank} "
+                                     f"launched {r['launches']}, expected "
+                                     f"{expect}")
+            if not r["plain_equal"]:
+                raise AssertionError(f"sharded step ({name}): rank {rank}'s "
+                                     f"slab with the kernels differs from "
+                                     f"its plain versions' by "
+                                     f"{r['plain_max_abs']}")
+        flags = (states["rolled"]["flags"] if run["state"] == "rolled" else
+                 rs.plume({}, run["state"])[0].flags)
+        gstate = FluidState(u=got["u"].to(dev), p=got["p"].to(dev),
+                            flags=flags.to(dev),
+                            density=got["density"].to(dev))
+        div = final_check(gstate, f"sharded step ({name}), gathered")
+        del gstate
+        div_rel = abs(div - ref["div"]) / max(ref["div"], 1e-30)
+        within = all(e[0] <= STEP_MAX and e[1] <= STEP_FRAC
+                     for e in errs.values())
+        div_ok = div_rel <= STEP_DIV_REL
+        res = {"held": held, "max_and_share": errs, "div_l2": div,
+               "div_l2_one_process": ref["div"], "div_rel": div_rel,
+               "launches_per_rank": recs[0]["launches"],
+               "plain_equal_all_ranks": True}
+        what = (f"gathered vs one process (max over the field's max, share "
+                f"past {STEP_ROUND}): " + ", ".join(
+                    f"{k} {e[0]:.3e} {e[1]:.3e}" for k, e in errs.items()) +
+                f"; ||div||_2 {div:.6f} vs {ref['div']:.6f}, relative "
+                f"{div_rel:.3e}; each rank's slab equal to the bit to its "
+                f"plain versions'")
+        if held == "limits" and not within:
+            raise AssertionError(f"sharded step ({name}): {what}; limits "
+                                 f"{STEP_MAX}, {STEP_FRAC}")
+        if held == "div" and not div_ok:
+            raise AssertionError(f"sharded step ({name}): {what}; limit "
+                                 f"{STEP_DIV_REL}")
+        if held == "fails_limits" and within:
+            raise AssertionError(f"sharded step ({name}): the planted ghost "
+                                 f"fault passes the limits: {what}")
+        if held == "fails_div" and div_ok:
+            raise AssertionError(f"sharded step ({name}): the planted ghost "
+                                 f"fault passes the ||div||_2 limit "
+                                 f"{STEP_DIV_REL}: {what}")
+        if run["fault"]:
+            out["runs"][name] = res
+            log(f"sharded step ({name}): ghost planes of step 2's exchange "
+                f"zeroed; {what}: fails the "
+                f"{'limits' if held == 'fails_limits' else 'div limit'}, as "
+                f"it must")
+            continue
+        if held == "report":
+            zl = got["u"].shape[2] // STEP_SP
+            res["own_planes_cells_differing_per_rank"] = {
+                k: [int((got[k][:, :, r * zl:(r + 1) * zl] !=
+                         want[k][:, :, r * zl:(r + 1) * zl]).sum())
+                    for r in range(STEP_SP)] for k in got}
+            res["own_planes_cells"] = got["p"][:, :, :zl].numel()
+            one = ref["scales"][0].flatten()
+            res["first_scale"] = {
+                "one_process": one.tolist(),
+                "ranks": [r["scales"][0] for r in recs],
+                "max_rel_diff": max(
+                    (torch.tensor(r["scales"][0]) - one).abs().max().item() /
+                    one.abs().max().item() for r in recs)}
+            what += (f"; each rank's own planes: cells differing "
+                     f"{res['own_planes_cells_differing_per_rank']} of "
+                     f"{res['own_planes_cells']} a field; first input "
+                     f"scale relative to one process's "
+                     f"{res['first_scale']['max_rel_diff']:.3e}"
+                     f"{' (fed)' if run['fed'] else ''}")
+        step_ms = [r["step_ms"][0] for r in recs]
+        exch_ms = [float(np.median(r["exchange_ms"])) for r in recs]
+        res.update({
+            "slab": recs[0]["slab"], "ghost": recs[0]["ghost"],
+            "exchange_mib_each_way": recs[0]["exchange_mib"],
+            "step_ms_per_rank": step_ms, "exchange_ms_per_rank": exch_ms,
+            "one_process_step_ms": ref["ms"],
+            "step_ratio": max(step_ms) / ref["ms"]})
+        out["runs"][name] = res
+        log(f"sharded step ({name}, held: {held}): slab {recs[0]['slab']}, "
+            f"ghost {recs[0]['ghost']} planes "
+            f"({recs[0]['exchange_mib']:.3f} MiB each way); {what}; "
+            f"launches a rank {recs[0]['launches']} in {n} steps; ms a step "
+            f"per rank {[round(v, 3) for v in step_ms]}, one process "
+            f"{ref['ms']:.3f}; exchange {[round(v, 3) for v in exch_ms]}")
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    return launches, out
+
+
+def retyped_model(model, mconf, dev):
+    """A FluidNet of `mconf` (another conv dtype) holding model's
+    weights."""
+    from fluidnet_tpu_torch.models.fluidnet import FluidNet
+    net = FluidNet(mconf, device=dev)
+    net.load_state_dict(model.state_dict())
+    return net
+
+
 def stats_phase(root):
     """cli.stats.compute on the generated 64^3 test split (every sample):
     the bundled ConvNet, jacobi-34 and PCG (34 iterations, the CLI's
@@ -2591,6 +2855,7 @@ def main():
     grad_rel = train_grad_phase(dev, batch)
     model_launches, model_out = models_phase(dev, batch)
     par_launches, par_out = parallel_phase(dev, mconf, model, batch)
+    shard_launches, step_out = sharded_step_phase(dev, mconf, model)
 
     shutil.rmtree(SIM3D_ROOT, ignore_errors=True)
     try:
@@ -2607,7 +2872,8 @@ def main():
                                                exact_launches,
                                                model_launches,
                                                loader_launches,
-                                               par_launches]:
+                                               par_launches,
+                                               shard_launches]:
         for key, n in per.items():
             total[key] = total.get(key, 0) + n
     for key in KERNELS:
@@ -2656,6 +2922,7 @@ def main():
     log(json.dumps({"models": {"res": RES, "train_shape": [
         TRAIN_B, TRAIN_RES, TRAIN_RES, TRAIN_RES], **model_out}}))
     log(json.dumps({"parallel": par_out}))
+    log(json.dumps({"sharded_step": step_out}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

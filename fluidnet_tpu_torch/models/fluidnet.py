@@ -186,15 +186,27 @@ class BatchNorm(nn.Module):
         return out
 
 
+def input_chan(mconf, p_div, u_div, div):
+    """The channel the input scale is taken of (normalize_input_chan)."""
+    return {"UDiv": u_div, "pDiv": p_div, "div": div}[
+        mconf.normalize_input_chan]
+
+
+def scale_of(mconf, sq):
+    """The input scale from the per-sample (b,) variance or squared norm:
+    its root, clamped below at the threshold. Returns (b, 1, 1, 1, 1)."""
+    thr = mconf.normalize_input_threshold
+    ok = sq > thr * thr
+    s = torch.where(ok, torch.sqrt(torch.where(ok, sq, 1.0)), thr)
+    return s.clamp_min(thr).reshape(-1, 1, 1, 1, 1)
+
+
 def _input_scale(mconf, p_div, u_div, div):
     """Per-sample normalization scale (model.lua:92-131): std (unbiased)
     or l2 norm of the chosen channel, clamped below at the threshold.
     Returns (b, 1, 1, 1, 1)."""
-    chan = {"UDiv": u_div, "pDiv": p_div, "div": div}[
-        mconf.normalize_input_chan]
-    b = chan.shape[0]
-    flat = chan.reshape(b, -1)
-    thr = mconf.normalize_input_threshold
+    chan = input_chan(mconf, p_div, u_div, div)
+    flat = chan.reshape(chan.shape[0], -1)
     if mconf.normalize_input_func == "std":
         mean = flat.mean(dim=1, keepdim=True)
         sq = ((flat - mean) ** 2).sum(dim=1) / (flat.shape[1] - 1)
@@ -202,9 +214,7 @@ def _input_scale(mconf, p_div, u_div, div):
         sq = (flat * flat).sum(dim=1)
     else:
         raise ValueError(mconf.normalize_input_func)
-    ok = sq > thr * thr
-    s = torch.where(ok, torch.sqrt(torch.where(ok, sq, 1.0)), thr)
-    return s.clamp_min(thr).reshape(b, 1, 1, 1, 1)
+    return scale_of(mconf, sq)
 
 
 def _flatten(tree, prefix=""):
@@ -236,6 +246,11 @@ class FluidNet(nn.Module):
     applied setWallBcs to u_div and computed its divergence; passing it
     skips both input ops. Passing it is the explicit capability signal
     the JAX package probed with try/except (fault F2).
+
+    `input_scale`: with normalize_input, the function (mconf, p_div, u_div,
+    div) -> (b, 1, 1, 1, 1) scale that replaces `_input_scale` (a slab of
+    a z-sharded grid takes the scale of the whole grid:
+    parallel/simulate_sharded.py).
 
     The weights are built on `device`, the CUDA device by default
     (core.grids.resolve_device: no silent fall back to the CPU)."""
@@ -387,7 +402,8 @@ class FluidNet(nn.Module):
             h = torch.cat([h, skip], dim=1)
         return _apply_stage(self.final, h, nd, self.usize[-1], cdt)
 
-    def forward(self, p_div, u_div, flags, precomputed_div=None):
+    def forward(self, p_div, u_div, flags, precomputed_div=None,
+                input_scale=None):
         mconf = self.mconf
         ic = mconf.input_channels
         if precomputed_div is None:
@@ -397,7 +413,7 @@ class FluidNet(nn.Module):
             div = precomputed_div if ic.div else None
 
         if mconf.normalize_input:
-            s = _input_scale(mconf, p_div, u_div, div)
+            s = (input_scale or _input_scale)(mconf, p_div, u_div, div)
             p_div = p_div / s
             u_div = u_div / s
             if div is not None:

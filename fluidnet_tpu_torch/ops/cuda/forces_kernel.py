@@ -58,24 +58,27 @@ def slab(field, bc, inv):
 
 
 def prologue_plain(u, flags, density, buoy_g, grav_g, amp, dt, u_bc=None,
-                   u_inv=None):
+                   u_inv=None, dx=None):
     """Plain PyTorch version of K2 (runs on any device): the unfused
-    composition the kernel replaces, in simulate()'s order. Returns
-    (u'', div)."""
+    composition the kernel replaces, in simulate()'s order; `dx` as
+    ops.forces'. Returns (u'', div)."""
     if u_bc is not None:
         u = slab(u, u_bc, u_inv)
-    u = forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt)
+    u = forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt, dx)
     if u_bc is not None:
         u = slab(u, u_bc, u_inv)
     u = set_wall_bcs(u, flags)
     return u, velocity_divergence(u, flags)
 
 
-def scal7(buoy_g, grav_g, amp, dt, flags):
+def scal7(buoy_g, grav_g, amp, dt, flags, dx=None):
     """The kernel's 7 scalars [bx, by, bz, gx, gy, gz, amp]: add_buoyancy's
     per-face strength -buoy_g * dt / dx, add_gravity's force
-    grav_g * dt / dx, and the confinement strength (prologue.py:62-68)."""
-    dx = get_dx(flags)
+    grav_g * dt / dx, and the confinement strength (prologue.py:62-68).
+    dx None: from the flags' shape (a slab of a larger grid passes the
+    grid's)."""
+    if dx is None:
+        dx = get_dx(flags)
     f32 = torch.float32
     buoy_g = torch.as_tensor(buoy_g, dtype=f32).cpu().expand(3)
     grav_g = torch.as_tensor(grav_g, dtype=f32).cpu().expand(3)
@@ -180,7 +183,7 @@ def _launch(u, flags, density, u_bc, u_inv, out, YB, epi, sc, tile_y):
 
 
 def prologue_cuda(u, flags, density, buoy_g, grav_g, amp, dt, u_bc=None,
-                  u_inv=None, tile_y=None):
+                  u_inv=None, tile_y=None, dx=None):
     """Launches K2's prologue form on CUDA tensors: same arguments and
     result as prologue_plain. u (b,3,Z,Y,X) f32, flags (b,1,Z,Y,X) int32,
     density (b,1,Z,Y,X) f32; u_bc/u_inv: frozen slab masks (b,3,Z,YB,X)
@@ -197,7 +200,7 @@ def prologue_cuda(u, flags, density, buoy_g, grav_g, amp, dt, u_bc=None,
                     u_inv.shape != u_bc.shape or YB > Y):
         raise ValueError(f"prologue: slab masks of shape "
                          f"{tuple(u_bc.shape)} do not fit u {tuple(u.shape)}")
-    sc = scal7(buoy_g, grav_g, amp, dt, flags)
+    sc = scal7(buoy_g, grav_g, amp, dt, flags, dx)
     out = torch.empty((B, 4, Z, Y, X), device=dev, dtype=f32)
     _launch(u, flags, density, u_bc, u_inv, out, YB, True, sc, tile_y)
     _build.launches["prologue"] += 1
@@ -205,7 +208,7 @@ def prologue_cuda(u, flags, density, buoy_g, grav_g, amp, dt, u_bc=None,
 
 
 def forces_block_cuda(u, flags, density, buoy_g, grav_g, amp, dt,
-                      tile_y=None):
+                      tile_y=None, dx=None):
     """Launches K2's forces-block form on CUDA tensors: same arguments and
     result as ops.forces.forces_block_xla with (3,) gravity vectors and a
     scalar amp. u (b,3,Z,Y,X) f32, flags (b,1,Z,Y,X) int32, density
@@ -215,7 +218,7 @@ def forces_block_cuda(u, flags, density, buoy_g, grav_g, amp, dt,
     f32 = torch.float32
     dev = _build.require_cuda("forces_block", u, flags, density,
                               dtypes=[f32, torch.int32, f32])
-    sc = scal7(buoy_g, grav_g, amp, dt, flags)
+    sc = scal7(buoy_g, grav_g, amp, dt, flags, dx)
     out = torch.empty((B, 3, Z, Y, X), device=dev, dtype=f32)
     _launch(u, flags, density, None, None, out, 0, False, sc, tile_y)
     _build.launches["forces_block"] += 1

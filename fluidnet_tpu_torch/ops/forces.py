@@ -5,7 +5,9 @@ Main_addGravity :1239-1306, Main_vorticityConfinement :1312-1458) in plain
 PyTorch, and `forces_block`, the dispatch of the fused forces block onto
 kernel K2 (ops/cuda/forces_kernel.py). A gravity vector is (3,) or, for
 per-sample force scales, (B, 3); a confinement strength is a scalar or
-(B,).
+(B,). `dx` (buoyancy and gravity) is the cell size, 1 / the longest axis
+of the grid: None reads it from the flags' shape (core.grids.get_dx); a
+slab of a larger grid passes the grid's.
 """
 
 import torch
@@ -34,12 +36,12 @@ def _samp(strength, like):
     return s.reshape(s.shape + (1, 1, 1))
 
 
-def add_buoyancy(u, flags, density, gravity, dt):
+def add_buoyancy(u, flags, density, gravity, dt, dx=None):
     """U += 0.5 * strength * (rho(i) + rho(i-1)) on fluid-fluid faces,
     strength = -gravity * dt / dx (tfluids.cc:1190-1191)."""
     is_3d = check_shapes(u, flags, density)
     gravity = torch.as_tensor(gravity, dtype=u.dtype, device=u.device)
-    strength = -gravity * (dt / get_dx(flags))
+    strength = -gravity * (dt / (get_dx(flags) if dx is None else dx))
 
     fl = is_fluid(flags)[:, 0]
     interior = ~border_mask(flags.shape, is_3d, 1, u.device)[:, 0]
@@ -58,13 +60,13 @@ def add_buoyancy(u, flags, density, gravity, dt):
     return torch.stack([ux, uy], dim=1)
 
 
-def add_gravity(u, flags, gravity, dt):
+def add_gravity(u, flags, gravity, dt, dx=None):
     """U += gravity * dt / dx on faces between fluid/empty cells
     (tfluids.cc:1280-1300): the current cell is fluid or empty; add
     force.x if fluid(i-1) or (cur fluid and empty(i-1))."""
     is_3d = check_shapes(u, flags)
     gravity = torch.as_tensor(gravity, dtype=u.dtype, device=u.device)
-    force = gravity * (dt / get_dx(flags))
+    force = gravity * (dt / (get_dx(flags) if dx is None else dx))
 
     fl = is_fluid(flags)[:, 0]
     em = is_empty(flags)[:, 0]
@@ -165,17 +167,17 @@ def vorticity_confinement(u, flags, strength):
     return vorticity_confinement_xla(u, flags, strength)
 
 
-def forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt):
+def forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt, dx=None):
     """The simulate() forces block as one composition: buoyancy -> gravity
     -> vorticity confinement (simulate.lua:216-239 ordering). Zero scales
     are exact no-ops. Keeps the JAX name; K2's forces-block form is
     checked against it."""
-    u = add_buoyancy(u, flags, density, buoy_g, dt)
-    u = add_gravity(u, flags, grav_g, dt)
+    u = add_buoyancy(u, flags, density, buoy_g, dt, dx)
+    u = add_gravity(u, flags, grav_g, dt, dx)
     return vorticity_confinement_xla(u, flags, amp)
 
 
-def forces_block(u, flags, density, buoy_g, grav_g, amp, dt):
+def forces_block(u, flags, density, buoy_g, grav_g, amp, dt, dx=None):
     """The fused forces block (JAX ops/forces.py:202-214). 3-D with one
     (3,) gravity vector per force and a scalar amp runs K2's forces-block
     form (ops/cuda/forces_kernel.forces_block_cuda) on CUDA tensors, its
@@ -192,10 +194,10 @@ def forces_block(u, flags, density, buoy_g, grav_g, amp, dt):
         from fluidnet_tpu_torch.ops.replay import replay
         return replay(
             lambda x, r: forces_block_cuda(x, flags, r, buoy_g, grav_g, amp,
-                                           dt),
+                                           dt, dx=dx),
             lambda x, r: forces_block_xla(x, flags, r, buoy_g, grav_g, amp,
-                                          dt), u, density)
-    return forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt)
+                                          dt, dx), u, density)
+    return forces_block_xla(u, flags, density, buoy_g, grav_g, amp, dt, dx)
 
 
 def _add_force_field(u, flags, force, is_3d):

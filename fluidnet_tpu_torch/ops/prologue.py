@@ -18,13 +18,14 @@ prologue_ref = prologue_plain
 
 
 def projection_prologue(u, flags, density, buoy_g, grav_g, amp, dt,
-                        u_bc=None, u_inv=None):
+                        u_bc=None, u_inv=None, dx=None):
     """Fused (slab BC -> forces -> slab BC -> setWallBcs -> divergence).
 
     u (b,3,z,y,x) f32; flags (b,1,z,y,x) int32; density (b,1,z,y,x);
     buoy_g, grav_g: scaled gravity 3-vectors; amp: the (dx-scaled)
     confinement strength; dt: float; u_bc/u_inv: frozen slab masks
-    (b,3,z,YB,x) or None. Returns (u'', div (b,1,z,y,x)).
+    (b,3,z,YB,x) or None; dx: the cell size (None: from the flags'
+    shape). Returns (u'', div (b,1,z,y,x)).
 
     CPU tensors run prologue_ref; CUDA tensors launch K2, whose gradient
     with respect to u and density replays prologue_ref (the JAX custom VJP,
@@ -41,9 +42,9 @@ def projection_prologue(u, flags, density, buoy_g, grav_g, amp, dt,
                                   "batched scales; fault F1)")
     if u.device.type == "cpu":
         return prologue_ref(u, flags, density, buoy_g, grav_g, amp, dt,
-                            u_bc, u_inv)
+                            u_bc, u_inv, dx)
     return replay(
         lambda x, r: prologue_cuda(x, flags, r, buoy_g, grav_g, amp, dt,
-                                   u_bc, u_inv),
+                                   u_bc, u_inv, dx=dx),
         lambda x, r: prologue_ref(x, flags, r, buoy_g, grav_g, amp, dt, u_bc,
-                                  u_inv), u, density)
+                                  u_inv, dx), u, density)

@@ -18,6 +18,12 @@ exchange of a flags plane: the neighbour-obstacle masks from the extended
 slab, the zero mask from the global z index (`global_border_mask`). So a
 sharded solve adds the same numbers in the same order as jacobi_plain on
 the whole grid, and equals it to the bit.
+
+`exchange_ghost` is the one-sided form the whole sharded step uses
+(parallel/simulate_sharded.py): a slab grows by g planes from each
+neighbour and by nothing past the domain ends, so every extended slab is
+a contiguous range of the whole grid. `exchange_z_planes` fills zeros past
+the ends, as JAX's ppermute halos do (parallel/advect_sharded.py).
 """
 
 import torch
@@ -29,11 +35,12 @@ from fluidnet_tpu_torch.parallel.mesh import host_staged
 from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_update
 
 
-def exchange_z_planes(xs, h: int, group):
+def _swap_planes(xs, h: int, group):
     """For each (b, c, zl, y, x) tensor of `xs`: (lo, hi), the h z-planes
-    just below this rank's slab (the top planes of the rank before it on
-    `group`) and just above (the bottom planes of the rank after it);
-    zeros past the mesh ends. One batch of sends and receives for all."""
+    of the rank before this one on `group` (its top planes) and of the
+    rank after it (its bottom planes), None past the mesh ends; on the
+    host when the collective stages through it. One batch of sends and
+    receives for all."""
     idx, n = dist.get_rank(group), dist.get_world_size(group)
     out, ops = [], []
     for tag, x in enumerate(xs):
@@ -42,21 +49,47 @@ def exchange_z_planes(xs, h: int, group):
                              f"cannot give {h}")
         dev = torch.device("cpu") if host_staged(x, group) else x.device
         shape = x.shape[:2] + (h,) + x.shape[3:]
-        lo = torch.zeros(shape, dtype=x.dtype, device=dev)
-        hi = torch.zeros(shape, dtype=x.dtype, device=dev)
-        for peer, send, recv in ((idx - 1, x[:, :, :h], lo),
-                                 (idx + 1, x[:, :, -h:], hi)):
+        pair = []
+        for peer, send in ((idx - 1, x[:, :, :h]), (idx + 1, x[:, :, -h:])):
+            recv = None
             if 0 <= peer < n:
+                recv = torch.empty(shape, dtype=x.dtype, device=dev)
                 rank = dist.get_global_rank(group, peer)
                 send = send.to(dev).contiguous()
                 ops += [dist.P2POp(dist.isend, send, rank, group, tag),
                         dist.P2POp(dist.irecv, recv, rank, group, tag)]
-        out.append((lo, hi))
+            pair.append(recv)
+        out.append(pair)
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return [(lo.to(x.device), hi.to(x.device)) for x, (lo, hi) in
-            zip(xs, out)]
+    return out
+
+
+def exchange_z_planes(xs, h: int, group):
+    """For each (b, c, zl, y, x) tensor of `xs`: (lo, hi), the h z-planes
+    just below this rank's slab (the top planes of the rank before it on
+    `group`) and just above (the bottom planes of the rank after it);
+    zeros past the mesh ends. One batch of sends and receives for all."""
+    out = []
+    for x, pair in zip(xs, _swap_planes(xs, h, group)):
+        shape = x.shape[:2] + (h,) + x.shape[3:]
+        out.append(tuple(torch.zeros(shape, dtype=x.dtype, device=x.device)
+                         if t is None else t.to(x.device) for t in pair))
+    return out
+
+
+def exchange_ghost(xs, g: int, group):
+    """Each (b, c, zl, y, x) slab of `xs` extended by the g z-planes of
+    each neighbour on `group`, and by nothing past the global domain ends:
+    the first and last ranks get a one-sided ghost zone, so every
+    extended slab is a contiguous range of the whole grid and a
+    positional border test on it falls where it falls on the whole grid.
+    One batch of sends and receives for all. Returns [the extended
+    slabs]."""
+    return [torch.cat([t.to(x.device) for t in (lo, x, hi) if t is not None],
+                      dim=2)
+            for x, (lo, hi) in zip(xs, _swap_planes(xs, g, group))]
 
 
 def global_border_mask(shape, z_len_global: int, z0_global: int,

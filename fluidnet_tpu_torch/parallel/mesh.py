@@ -154,14 +154,31 @@ def transport(x: torch.Tensor, group) -> str:
     return f"{backend}, host-staged" if host_staged(x, group) else backend
 
 
+def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+    """`op` of `x` over the ranks of `group`, on x's device (x itself is
+    left as it is)."""
+    if host_staged(x, group):
+        buf = x.cpu()
+        dist.all_reduce(buf, op=op, group=group)
+        return buf.to(x.device)
+    buf = x.clone()
+    dist.all_reduce(buf, op=op, group=group)
+    return buf
+
+
 def all_reduce_mean(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of `x` over the ranks of `group` (a sum, then a division
     by the group's size), on x's device."""
-    n = dist.get_world_size(group)
-    if host_staged(x, group):
-        buf = x.cpu()
-        dist.all_reduce(buf, group=group)
-        return buf.to(x.device) / n
-    buf = x.clone()
-    dist.all_reduce(buf, group=group)
-    return buf / n
+    return _all_reduce(x, group, dist.ReduceOp.SUM) / \
+        dist.get_world_size(group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group`, on x's device."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `x` over the ranks of `group`, on x's
+    device."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX)

@@ -41,6 +41,12 @@ advection (ops/advect.py): each density channel, then the velocity, with
 the line-traced backtrace and the fluid-aware interpolation, in plain
 PyTorch (no kernel; K1 is not launched).
 
+A slab of a grid z-sharded over ranks (parallel/simulate_sharded.py) runs
+this same step on its ghost-extended planes with a `SlabStep`: the grid's
+dx, the window from the grid's max|u|, the ConvNet's input scale from the
+grid's sums, and the Jacobi solves that reach past the ghost zone (the
+polish, jacobi-n) replaced by their sharded forms.
+
 simulate(grad=True) records the step for autograd: every kernel on the way
 has the gradient rule of its JAX custom VJP (not with advection_window 0,
 which raises). rollout() and the default simulate() run under
@@ -50,7 +56,7 @@ torch.no_grad.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -195,6 +201,22 @@ def _resolve_forces(state, mconf, dt, buoyancy_scale, gravity_scale,
         mconf.vorticity_confinement_amp > 0)
 
 
+@dataclasses.dataclass(frozen=True)
+class SlabStep:
+    """What a step on one ghost-extended slab of a z-sharded grid takes
+    from the whole grid (parallel/simulate_sharded.py): `dx`, the grid's
+    cell size; `window`, the advection window chosen from the grid's
+    max|u|; `input_scale`, the ConvNet's (models.fluidnet.FluidNet.
+    forward's); `polish` (state, mconf, p, u, use_kernels) -> state and
+    `solve` (state, mconf, consts, use_kernels) -> state, the forms of
+    _polish and _solver_projection whose reach exceeds the ghost zone."""
+    dx: float
+    window: int
+    input_scale: Callable
+    polish: Callable
+    solve: Callable
+
+
 def _check_slice(state: FluidState, mconf: ModelConfig, model):
     """Validates the projection and its model."""
     if mconf.sim_method not in ("convnet", "jacobi", "pcg"):
@@ -302,17 +324,18 @@ def _window(mconf, u, dt):
     return W
 
 
-def _advect(state, mconf, consts, dt, plain):
+def _advect(state, mconf, consts, dt, plain, window=None):
     """Advection of the density channels and the velocity (the velocity
-    last, simulate.lua:183-199). 3-D with one density channel and a method
-    other than Manta's maccormack runs the fused combined path (K1, two
-    launches); otherwise each density channel, then the velocity (K5 for
-    every interpolation in 2-D and for the 3-D density, K1's unfused
-    velocity sweep in 3-D). advection_window 0 takes the exact gather path
-    (ops/advect.py, plain PyTorch) for each density channel, then the
-    velocity, in 2-D and 3-D (simulate.py:115-166)."""
+    last, simulate.lua:183-199) at `window` (None: _window's). 3-D with
+    one density channel and a method other than Manta's maccormack runs
+    the fused combined path (K1, two launches); otherwise each density
+    channel, then the velocity (K5 for every interpolation in 2-D and for
+    the 3-D density, K1's unfused velocity sweep in 3-D).
+    advection_window 0 takes the exact gather path (ops/advect.py, plain
+    PyTorch) for each density channel, then the velocity, in 2-D and 3-D
+    (simulate.py:115-166)."""
     u, flags, density = state.u, state.flags, state.density
-    W = _window(mconf, u, dt)
+    W = _window(mconf, u, dt) if window is None else window
     method = mconf.advection_method
     free = consts.free(flags, W + 1) if W and method.endswith("Ours") \
         else None
@@ -331,7 +354,7 @@ def _advect(state, mconf, consts, dt, plain):
     return advect_vel(dt, u, flags, **kw), density
 
 
-def _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels):
+def _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels, dx=None):
     """The unfused-projection forces (simulate.py:223-241): the fused
     block (K2's forces-block form) in 3-D with density, else each force on
     its own (3-D confinement with a scalar strength on K4)."""
@@ -340,11 +363,11 @@ def _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels):
         return u
     if state.is_3d and density is not None:
         block = forces_block if use_kernels else forces_block_xla
-        return block(u, flags, density[:, 0:1], buoy_g, grav_g, amp, dt)
+        return block(u, flags, density[:, 0:1], buoy_g, grav_g, amp, dt, dx)
     if forces.has_buoy:
-        u = add_buoyancy(u, flags, density[:, 0:1], buoy_g, dt)
+        u = add_buoyancy(u, flags, density[:, 0:1], buoy_g, dt, dx)
     if forces.has_grav:
-        u = add_gravity(u, flags, grav_g, dt)
+        u = add_gravity(u, flags, grav_g, dt, dx)
     if forces.has_vc:
         vc = vorticity_confinement if use_kernels \
             else vorticity_confinement_xla
@@ -353,21 +376,25 @@ def _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels):
 
 
 def _step(state, mconf, model, bcs, consts, use_kernels, forces,
-          output_div=False):
+          output_div=False, slab: Optional[SlabStep] = None):
+    """One step; `slab` None on a whole grid, else what a ghost-extended
+    slab of a z-sharded grid takes from the whole grid."""
     dt = forces.dt
     flags = state.flags
-    u, density = _advect(state, mconf, consts, dt, not use_kernels)
+    u, density = _advect(state, mconf, consts, dt, not use_kernels,
+                         None if slab is None else slab.window)
     state = state.replace(u=u, density=density)
-    buoy_g, grav_g, amp = _forces_config(get_dx(flags), forces)
+    dx = get_dx(flags) if slab is None else slab.dx
+    buoy_g, grav_g, amp = _forces_config(dx, forces)
     convnet = mconf.sim_method == "convnet"
     if state.is_3d and convnet and not output_div and \
             density is not None and not forces.batched:
         state = _convnet_projection(state, mconf, model, bcs, buoy_g,
-                                    grav_g, amp, dt, use_kernels)
+                                    grav_g, amp, dt, use_kernels, slab)
     else:
         # 3. External BCs; 4.-6. forces (simulate.py:199-241).
         state = apply_boundaries(state, bcs)
-        u = _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels)
+        u = _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels, dx)
         if output_div:
             return state.replace(u=u)
         # 7. Projection (simulate.py:248-290).
@@ -375,10 +402,13 @@ def _step(state, mconf, model, bcs, consts, use_kernels, forces,
             u = set_wall_bcs(u, flags)
         state = apply_boundaries(state.replace(u=u), bcs)
         if convnet:
-            state = _polish(state, mconf, *model(state.p, state.u, flags),
-                            use_kernels)
+            polish, kw = _slab_model(slab)
+            state = polish(state, mconf,
+                           *model(state.p, state.u, flags, **kw),
+                           use_kernels)
         else:
-            state = _solver_projection(state, mconf, consts, use_kernels)
+            solve = _solver_projection if slab is None else slab.solve
+            state = solve(state, mconf, consts, use_kernels)
     state = apply_boundaries(state, bcs)
     u = state.u
     if u.requires_grad:
@@ -400,11 +430,20 @@ def _polish(state, mconf, p, u, use_kernels):
     return state.replace(u=u, p=p)
 
 
+def _slab_model(slab: Optional[SlabStep]):
+    """(the polish, the model's extra arguments) on a whole grid (slab
+    None) or on a slab of a z-sharded one."""
+    if slab is None:
+        return _polish, {}
+    return slab.polish, {"input_scale": slab.input_scale}
+
+
 def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp, dt,
-                        use_kernels):
+                        use_kernels, slab: Optional[SlabStep] = None):
     """The fused ConvNet path: p/density slab BCs, K2's prologue, the
-    ConvNet, the optional Jacobi polish. Returns the state before the
-    final BCs."""
+    ConvNet, the optional Jacobi polish; on a slab (`slab`) with the
+    grid's dx, input scale and the slab's polish. Returns the state before
+    the final BCs."""
     flags = state.flags
     # External BCs on p and density; the u slab runs in the prologue.
     bcs_nou = bcs
@@ -418,15 +457,17 @@ def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp, dt,
     u_inv = bcs.u_bc_inv_mask if bcs is not None else None
     prologue = projection_prologue if use_kernels else prologue_ref
     u, div = prologue(state.u, flags, state.density[:, 0:1], buoy_g, grav_g,
-                      amp, float(dt), u_bc, u_inv)
+                      amp, float(dt), u_bc, u_inv,
+                      None if slab is None else slab.dx)
 
     # The p/density slabs are idempotent masks, reapplied as the JAX step
     # does. The model takes the prologue's divergence (fault F3 fixed: the
     # gradient reaches u through it).
     state = apply_boundaries(state.replace(u=u), bcs_nou)
-    return _polish(state, mconf,
-                   *model(state.p, u, flags, precomputed_div=div),
-                   use_kernels)
+    polish, kw = _slab_model(slab)
+    return polish(state, mconf,
+                  *model(state.p, u, flags, precomputed_div=div, **kw),
+                  use_kernels)
 
 
 def _solver_projection(state, mconf, consts, use_kernels):

@@ -4,7 +4,8 @@ started by torchrun or by chip_smoke.py's phase 20 with torchrun's
 variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
 
     torchrun --nproc_per_node N scripts/torch_parallel_rank.py \\
-        --case sharded --inputs <in.pt> --out <dir> [--backend nccl]
+        --case sharded|train|step --inputs <in.pt> --out <dir> \
+        [--backend nccl]
 
   --case sharded: the inputs hold a global state (u, density, flags) and
       the advection cases [(window, dt)]. On a 1 x WORLD_SIZE ('dp', 'sp')
@@ -17,6 +18,18 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       LOCAL_WORLD_SIZE) each rank takes its samples (shard_host_batch) and
       runs train_step(group=) twice, deterministic cuDNN; the first step's
       terms, params and launches are kept, the second is timed.
+  --case step: the inputs hold global plume states and the runs [{name,
+      mconf, state, steps, fault, scales}] (`state`: a key of the inputs'
+      states, or a resolution for the empty plume from zeros; `scales`,
+      optional: the whole grid's input scale of each step, fed to the
+      model in place of the slab's). On a 1 x WORLD_SIZE mesh each rank
+      takes its slab of the state and its plume BC masks (shard_state,
+      shard_bcs) and runs rollout_z_sharded with the bundled model
+      (mconf's conv dtype; none for jacobi) once with its launches counted
+      (`fault`: with zeroed_ghosts planted), once with every kernel's
+      plain version (use_kernels=False) on the same slab, its difference
+      to the first reported, then once more timed, and --reps timed
+      exchanges of the step's fields.
 
 Each rank writes rank<r>.pt (its slabs, the halo planes its first
 exchange received, or its params) and rank<r>.json (its transport,
@@ -30,6 +43,7 @@ those and tests/test_torch_parallel.py hold the ranks against.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import socket
@@ -72,6 +86,72 @@ def slab_reference(dt, u, d, f, n, rank, method, strength, window,
     ue, de, fe = (cut_slab(t, n, rank, H) for t in (u, d, f))
     return advect_slab(dt, ue, de, fe, Z, rank * (Z // n) - H, method,
                        strength, window, plain=plain)
+
+
+@contextlib.contextmanager
+def zeroed_ghosts(at_call, rank):
+    """Plants the fault the sharded step's checks must catch: the ghost
+    planes that call `at_call` of simulate_sharded.exchange_ghost returns
+    (call 0 extends the flags and BC masks at a rollout's start, then one
+    a step) are zeroed on rank `rank` of the 'sp' group."""
+    from fluidnet_tpu_torch.parallel import simulate_sharded as ss
+    real, calls = ss.exchange_ghost, []
+
+    def faulty(xs, g, group):
+        ext = real(xs, g, group)
+        calls.append(g)
+        if len(calls) - 1 != at_call:
+            return ext
+        lo = g * (rank > 0)
+        return [torch.cat([torch.zeros_like(e[:, :, :lo]),
+                           e[:, :, lo:lo + x.shape[2]],
+                           torch.zeros_like(e[:, :, lo + x.shape[2]:])],
+                          dim=2) for e, x in zip(ext, xs)]
+    ss.exchange_ghost = faulty
+    try:
+        yield
+    finally:
+        ss.exchange_ghost = real
+
+
+class InputScale(torch.nn.Module):
+    """`model` with the input scale of each call kept in `seen` (the
+    caller's `input_scale`, else models.fluidnet._input_scale), or, with
+    `fed`, replaced by fed[i % len(fed)] at its i-th call: a slab fed the
+    whole grid's scales."""
+
+    def __init__(self, model, fed=None):
+        super().__init__()
+        self.model, self.fed, self.seen = model, fed, []
+
+    def forward(self, p, u, flags, input_scale=None, **kw):
+        from fluidnet_tpu_torch.models.fluidnet import _input_scale
+
+        def scale(*args):
+            if self.fed is None:
+                s = (input_scale or _input_scale)(*args)
+            else:
+                s = self.fed[len(self.seen) % len(self.fed)].to(p.device)
+            self.seen.append(s)
+            return s
+        return self.model(p, u, flags, input_scale=scale, **kw)
+
+
+def plume(states, key):
+    """(global FluidState, its plume BC masks) on the host: states[key],
+    or the empty plume of bench.py from zeros when `key` is a
+    resolution."""
+    from fluidnet_tpu_torch.core.grids import FluidState, empty_domain
+    from fluidnet_tpu_torch.sim.simulate import create_plume_bcs
+    if isinstance(key, int):
+        shape = (1, 1, key, key, key)
+        state = FluidState(u=torch.zeros((1, 3) + shape[2:]),
+                           p=torch.zeros(shape),
+                           flags=empty_domain(shape, True, device="cpu"),
+                           density=torch.zeros(shape))
+    else:
+        state = FluidState(**states[key])
+    return state, create_plume_bcs(state, [1.0], u_scale=0.6, rad=0.15)
 
 
 def counted(fn):
@@ -160,6 +240,65 @@ def train(inp, rank):
     return info, saved
 
 
+def step(inp, reps, rank):
+    from fluidnet_tpu_torch.models.fluidnet import FluidNet
+    from fluidnet_tpu_torch.parallel import simulate_sharded as ss
+    from fluidnet_tpu_torch.utils.checkpoint import load_params
+    mesh = make_mesh(n_dp=1, n_sp=dist.get_world_size())
+    dev = mesh_device(mesh)
+    group = mesh["sp"].get_group()
+    info = {"rank": rank, "device": str(dev), "runs": {}}
+    saved = {}
+    for run in inp["runs"]:
+        mconf, n = run["mconf"], run["steps"]
+        state, bcs = plume(inp["states"], run["state"])
+        state_l = ss.shard_state(state, mesh, dev)
+        bcs_l = ss.shard_bcs(bcs, mesh, dev)
+        del state, bcs
+        model = None
+        if mconf.sim_method == "convnet":
+            model = InputScale(FluidNet(mconf, device=dev).load_jax_params(
+                load_params(inp["model"])), run.get("scales"))
+
+        def roll(use_kernels=True):
+            with zeroed_ghosts(2, rank) if run["fault"] \
+                    else contextlib.nullcontext():
+                return ss.rollout_z_sharded(state_l, mconf, n, mesh, model,
+                                            bcs_l, use_kernels=use_kernels)
+        out, launches = counted(roll)
+        keys = ("u", "p", "density")
+        saved[run["name"]] = {k: getattr(out, k).cpu() for k in keys}
+        rec = {"launches": launches, "slab": list(state_l.u.shape),
+               "ghost": ss.ghost_planes(mconf),
+               "transport": transport(state_l.u, group)}
+        if model is not None:
+            rec["scales"] = [s.flatten().tolist() for s in model.seen[:n]]
+        # The same rollout on the same slab with every kernel's plain
+        # version: K1, K2 and K3 give their plain versions' bits.
+        plain = roll(use_kernels=False)
+        rec["plain_max_abs"] = {
+            k: (getattr(out, k) - getattr(plain, k)).abs().max().item()
+            for k in keys}
+        rec["plain_equal"] = all(torch.equal(getattr(out, k),
+                                             getattr(plain, k))
+                                 for k in keys)
+        del plain
+        if not run["fault"]:
+            rec["step_ms"] = [t / n for t in timed(roll, 1)]
+            G = rec["ghost"]
+            fields = [state_l.u, state_l.density] + (
+                [state_l.p] if model is not None else [])
+            rec["exchange_ms"] = timed(
+                lambda: ss.exchange_ghost(fields, G, group), reps)
+            rec["exchange_mib"] = sum(
+                f.shape[0] * f.shape[1] * G * f.shape[3] * f.shape[4] *
+                f.element_size() for f in fields) / 2**20
+        info["runs"][run["name"]] = rec
+        del out, model, state_l, bcs_l
+        torch.cuda.empty_cache()
+    return info, saved
+
+
 def spawn_local(args, world, out, timeout, tag="ranks", backend="gloo"):
     """Runs `world` ranks of this script on one host (torchrun's variables
     set here) with `args` and `backend`, each rank's output in
@@ -215,7 +354,8 @@ def spawn_local(args, world, out, timeout, tag="ranks", backend="gloo"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--case", choices=("sharded", "train"), required=True)
+    ap.add_argument("--case", choices=("sharded", "train", "step"),
+                    required=True)
     ap.add_argument("--inputs", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
@@ -230,8 +370,9 @@ def main(argv=None):
                          "torchrun's variables")
     rank = dist.get_rank()
     inp = torch.load(args.inputs, weights_only=False)
-    info, saved = sharded(inp, args.reps, rank) if args.case == "sharded" \
-        else train(inp, rank)
+    info, saved = {"sharded": lambda: sharded(inp, args.reps, rank),
+                   "train": lambda: train(inp, rank),
+                   "step": lambda: step(inp, args.reps, rank)}[args.case]()
     info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     info["launches_total"] = dict(_build.launches)
     torch.save(saved, os.path.join(args.out, f"rank{rank}.pt"))
