@@ -12,8 +12,8 @@ around a voxelized obstacle, the exact advection route, cli/stats.py), the
 dyngather probe, the ConvNets of the generic stage path (tog, banks,
 batch norm, the pressure skip), the host data path (the threaded
 loader, the native C++ runtime) and the scale-out layer (z-sharded
-advection, the halo Jacobi, data-parallel training in ranks that share
-the card), in these phases:
+advection, the halo Jacobi, data-parallel training, the z-sharded step
+and its training, in ranks that share the card), in these phases:
 
   1. device: fails without CUDA; prints the card's name and power limit.
   2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
@@ -216,8 +216,28 @@ the card), in these phases:
              PAR_TIMEOUT fails the phase; the ranks' launches are added to
              the kernels line.
 
+ 22. sharded train: train_step(mesh=) (parallel/train_sharded.py) in
+             SPT_WORLD = 4 ranks of scripts/torch_parallel_rank.py sharing
+             the card under gloo, as phase 20's, with m3d_v5's recipe (the
+             reject guard off), n = 4, deterministic cuDNN and draws with
+             buoyancy and vorticity on, each run of SPT_RUNS against one
+             process's loss_fn and train_step on the whole batch: (a) dp 1
+             x sp 4 on phase 10's 6x64^3 batch, float32 convolutions; (b)
+             the same in bf16, as trained; (c) dp 2 x sp 2, bf16; (d) dp 1 x
+             sp 4 on 2 samples of the 128^3 plume, bf16. Each: the loss
+             terms within rtol and every gradient and param after 2 steps
+             within the relative L2 of its limits; each rank's gradients
+             equal to the bit to its rerun with every kernel's plain
+             version; each rank's launches train_launches(4); the planted
+             fault (the exchanges' adjoint drops the ghost planes'
+             cotangents) past the gradient limit. Per rank: ms a train step,
+             ms a forward and an adjoint exchange of a step's fields, its
+             collectives, peak memory; one process's ms and peak beside. A
+             rank that fails or runs past PAR_TIMEOUT fails the phase; the
+             ranks' launches are added to the kernels line.
+
 The last lines are a JSON object per group of phases (phase 20's is "parallel",
-phase 21's "sharded_step"), the card's name and power limit, a JSON object with
+phase 21's "sharded_step", phase 22's "sharded_train"), the card's name and power limit, a JSON object with
 one entry per kernel, and {"ok": true, "device": {...}}. Any failure raises:
 the exit code is then not 0 and no result line is printed.
 Outputs under build/ are removed at the end.
@@ -437,6 +457,34 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
     "bf16_1_fed": dict(dtype="bfloat16", steps=1, ref="bf16_1", fed=True,
                        held="report"),
 }.items()}
+
+
+# Phase 22: sp-sharded training (parallel/train_sharded.py) in SPT_WORLD
+# ranks of scripts/torch_parallel_rank.py sharing the card under gloo: m3d_v5's
+# recipe (the reject guard off), n = SPT_N, draws with buoyancy and
+# vorticity on, against one process's train_step on the whole batch. Each
+# run: its ('dp', 'sp') mesh, conv dtype, batch (phase 10's 6x64^3, or
+# SPT_BIG_B samples of the plume at SPT_BIG^3) and limits: each loss term
+# within rtol, each gradient and each param after 2 steps within the
+# relative L2; the planted fault (the exchanges' adjoint drops the ghost
+# planes' cotangents) must fail the latter. float32: phase 20's limits.
+# bf16: 8x the run's sound reading on an H100 (deterministic cuDNN: two
+# calls read the same digits), which stays under its planted fault's:
+# terms 3.323e-06 / 3.021e-07 / 4.237e-07, gradients 1.156e-03 /
+# 1.317e-03 / 2.520e-03, faults 4.863e-02 / 1.427e-02 / 2.095e-02 in (b)
+# / (c) / (d).
+SPT_WORLD, SPT_N, SPT_SEED, SPT_GEN_SEED = 4, 4, 17, 6
+SPT_BIG, SPT_BIG_B = 128, 2
+SPT_RUNS = {
+    "a_f32_sp4": dict(mesh=(1, 4), dtype="float32", batch="train",
+                      limits=dict(rtol=1e-5, rel_l2=GRAD_TOL)),
+    "b_bf16_sp4": dict(mesh=(1, 4), dtype="bfloat16", batch="train",
+                       limits=dict(rtol=2.7e-5, rel_l2=9.3e-3)),
+    "c_bf16_dp2_sp2": dict(mesh=(2, 2), dtype="bfloat16", batch="train",
+                           limits=dict(rtol=2.5e-6, rel_l2=1.06e-2)),
+    "d_bf16_sp4_big": dict(mesh=(1, 4), dtype="bfloat16", batch="big",
+                           limits=dict(rtol=3.4e-6, rel_l2=2.02e-2)),
+}
 
 
 def train_launches(n):
@@ -2758,6 +2806,174 @@ def sharded_step_phase(dev, mconf, model):
     return launches, out
 
 
+# --- phase 22: sp-sharded training -----------------------------------------
+
+
+def rounded(values):
+    return [round(v, 3) for v in values]
+
+
+def rel_l2(a, b):
+    return (torch.linalg.norm((a - b).double()) /
+            torch.linalg.norm(b.double()).clamp_min(1e-30)).item()
+
+
+def sharded_train_phase(dev, mconf, model, batch):
+    """Phase 22: train_step(mesh=) in SPT_WORLD ranks sharing the card
+    (gloo, host-staged exchanges), each run of SPT_RUNS against one
+    process's loss_fn gradients and train_step on the whole batch, and on
+    every rank against its rerun with the kernels' plain versions (equal
+    to the bit). Returns (the ranks' summed kernel launches, the result
+    line's entry)."""
+    from fluidnet_tpu_torch.train.train import (draw, init_train_state,
+                                                loss_fn, train_step)
+
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    os.makedirs(PAR_ROOT)
+    rolled, _ = rolled_plume(dev, mconf, model)
+    later = rolled_plume(dev, mconf, model, 24)[0]
+    big = {"u_div": torch.cat([rolled.u, later.u]),
+           "p_div": torch.cat([rolled.p, later.p]),
+           "flags": torch.cat([rolled.flags, later.flags]),
+           "density": torch.cat([rolled.density, later.density])}
+    big = {k: v[:SPT_BIG_B] for k, v in big.items()}
+    del rolled, later
+    batches = {"train": batch, "big": big}
+    base = recipe_mconf().replace(loss_reject_threshold=0.0)
+    draws = draw(torch.Generator().manual_seed(SPT_GEN_SEED), base)._replace(
+        b_scale=torch.tensor(2.0), g_scale=torch.tensor(0.0),
+        v_amp=torch.tensor(3.0))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    refs, runs = {}, []
+    try:
+        for name, run in SPT_RUNS.items():
+            m = base.replace(conv_compute_dtype=run["dtype"])
+            runs.append({"name": name, "mesh": run["mesh"], "mconf": m,
+                         "batch": run["batch"]})
+            key = (run["dtype"], run["batch"])
+            if key in refs:
+                continue
+            b = batches[run["batch"]]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            net = init_train_state(SPT_SEED, m, dev).model
+            total, terms = loss_fn(net, b, None, m, SPT_N, draws=draws)
+            grads = torch.autograd.grad(total, [
+                p for _, p in net.jax_named_parameters()])
+            st = init_train_state(SPT_SEED, m, dev)
+            ms = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = train_step(st, b, None, m, SPT_N, draws=draws)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            refs[key] = {
+                "terms": {k: float(v.detach()) for k, v in terms.items()},
+                "grads": [g.cpu() for g in grads],
+                "params": [p.detach().cpu() for p in st.params],
+                "ms": ms[-1], "peak_gib":
+                    torch.cuda.max_memory_allocated() / 2**30}
+            del net, grads, st
+    finally:
+        torch.backends.cudnn.deterministic = False
+    in_path = os.path.join(PAR_ROOT, "train_sp.pt")
+    torch.save({"batches": {k: {f: v.cpu() for f, v in b.items()}
+                            for k, b in batches.items()},
+                "runs": runs, "draws": draws, "n": SPT_N,
+                "model_seed": SPT_SEED}, in_path)
+    del big, batches
+    torch.cuda.empty_cache()
+    log(f"sharded train: m3d_v5's recipe, n = {SPT_N}, {TRAIN_B}x"
+        f"{TRAIN_RES}^3 and {SPT_BIG_B}x{SPT_BIG}^3, {SPT_WORLD} ranks on "
+        f"{torch.cuda.get_device_name(0)}")
+    reports, saved, secs = spawn_ranks(
+        ["--case", "train_sp", "--inputs", in_path, "--reps",
+         str(PAR_REPS)], SPT_WORLD, "train_sp")
+    launches, out = {}, {"world": SPT_WORLD, "n": SPT_N,
+                         "transport": reports[0]["runs"][runs[0]["name"]][
+                             "transport"], "spawn_s": secs, "runs": {}}
+    for rep in reports:
+        for k, v in rep["launches_total"].items():
+            launches[k] = launches.get(k, 0) + v
+    want_launches = train_launches(SPT_N)
+    failed = []
+    for name, run in SPT_RUNS.items():
+        ref = refs[(run["dtype"], run["batch"])]
+        lim = run["limits"]
+        recs = [r["runs"][name] for r in reports]
+        worst = {"terms": 0.0, "grads": 0.0, "params": 0.0, "fault": 0.0}
+        for rank, (r, s) in enumerate(zip(recs, saved)):
+            if r["launches"] != want_launches:
+                raise AssertionError(f"sharded train ({name}): rank {rank} "
+                                     f"launched {r['launches']}, expected "
+                                     f"{want_launches}")
+            if not r["plain_equal"]:
+                raise AssertionError(f"sharded train ({name}): rank {rank}'s "
+                                     f"gradients with the kernels differ "
+                                     f"from its plain versions' by "
+                                     f"{r['plain_max_abs']}")
+            for k, v in ref["terms"].items():
+                err = abs(r["terms"][k] - v) / max(abs(v), 1e-30)
+                worst["terms"] = max(worst["terms"], err if v else
+                                     abs(r["terms"][k]))
+            s = s[name]
+            for what in ("grads", "params"):
+                worst[what] = max(worst[what], max(
+                    rel_l2(a, b) for a, b in zip(s[what], ref[what])))
+            worst["fault"] = max(worst["fault"], max(
+                rel_l2(a, b) for a, b in zip(s["fault"], ref["grads"])))
+        res = {"mesh": run["mesh"], "dtype": run["dtype"],
+               "slab": recs[0]["slab"], "ghost": recs[0]["ghost"],
+               "limits": lim, "terms_rel_max": worst["terms"],
+               "grads_rel_l2_max": worst["grads"],
+               "params_rel_l2_max": worst["params"],
+               "fault_grads_rel_l2_max": worst["fault"],
+               "terms": recs[0]["terms"], "one_process_terms": ref["terms"],
+               "launches_per_rank": recs[0]["launches"],
+               "comms_per_rank": recs[0]["comms"],
+               "plain_equal_all_ranks": True,
+               "step_ms_per_rank": [r["step_ms"][-1] for r in recs],
+               "first_step_ms_per_rank": [r["step_ms"][0] for r in recs],
+               "one_process_step_ms": ref["ms"],
+               "exchange_ms_per_rank": [float(np.median(r["exchange_ms"]))
+                                        for r in recs],
+               "adjoint_ms_per_rank": [float(np.median(r["adjoint_ms"]))
+                                       for r in recs],
+               "exchange_mib_each_way": recs[0]["exchange_mib"],
+               "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+               "one_process_peak_gib": ref["peak_gib"]}
+        out["runs"][name] = res
+        log(f"sharded train ({name}): mesh dp x sp {run['mesh']}, "
+            f"{run['dtype']}, slab {res['slab']} + {res['ghost']} ghost "
+            f"planes ({res['exchange_mib_each_way']:.3f} MiB each way); vs "
+            f"one process: loss terms worst relative {worst['terms']:.3e} "
+            f"(limit {lim['rtol']}), gradients worst relative L2 "
+            f"{worst['grads']:.3e}, params after 2 steps {worst['params']:.3e}"
+            f" (limit {lim['rel_l2']}); planted fault's gradients "
+            f"{worst['fault']:.3e} (must fail); each rank's gradients equal "
+            f"to the bit to its plain versions'; launches a rank "
+            f"{recs[0]['launches']}; collectives a rank {recs[0]['comms']}; "
+            f"ms a step per rank {rounded(res['step_ms_per_rank'])} (first "
+            f"{rounded(res['first_step_ms_per_rank'])}), one process "
+            f"{ref['ms']:.3f}; exchange "
+            f"{rounded(res['exchange_ms_per_rank'])}, adjoint "
+            f"{rounded(res['adjoint_ms_per_rank'])}; peak GiB per rank "
+            f"{rounded(res['peak_gib_per_rank'])}, one process "
+            f"{ref['peak_gib']:.3f}")
+        if worst["terms"] > lim["rtol"] or worst["grads"] > lim["rel_l2"] \
+                or worst["params"] > lim["rel_l2"]:
+            failed.append(f"{name}: past its limits {lim}: {worst}")
+        if not worst["fault"] > lim["rel_l2"]:
+            failed.append(f"{name}: the planted adjoint fault passes the "
+                          f"limit {lim['rel_l2']}: {worst['fault']}")
+    if failed:
+        raise AssertionError("sharded train: " + "; ".join(failed))
+    shutil.rmtree(PAR_ROOT, ignore_errors=True)
+    return launches, out
+
+
 def retyped_model(model, mconf, dev):
     """A FluidNet of `mconf` (another conv dtype) holding model's
     weights."""
@@ -2856,6 +3072,7 @@ def main():
     model_launches, model_out = models_phase(dev, batch)
     par_launches, par_out = parallel_phase(dev, mconf, model, batch)
     shard_launches, step_out = sharded_step_phase(dev, mconf, model)
+    spt_launches, spt_out = sharded_train_phase(dev, mconf, model, batch)
 
     shutil.rmtree(SIM3D_ROOT, ignore_errors=True)
     try:
@@ -2873,7 +3090,8 @@ def main():
                                                model_launches,
                                                loader_launches,
                                                par_launches,
-                                               shard_launches]:
+                                               shard_launches,
+                                               spt_launches]:
         for key, n in per.items():
             total[key] = total.get(key, 0) + n
     for key in KERNELS:
@@ -2923,6 +3141,7 @@ def main():
         TRAIN_B, TRAIN_RES, TRAIN_RES, TRAIN_RES], **model_out}}))
     log(json.dumps({"parallel": par_out}))
     log(json.dumps({"sharded_step": step_out}))
+    log(json.dumps({"sharded_train": spt_out}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

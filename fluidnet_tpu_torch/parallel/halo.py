@@ -24,6 +24,13 @@ the whole grid, and equals it to the bit.
 neighbour and by nothing past the domain ends, so every extended slab is
 a contiguous range of the whole grid. `exchange_z_planes` fills zeros past
 the ends, as JAX's ppermute halos do (parallel/advect_sharded.py).
+
+Both are differentiable, as JAX's ppermute is: under autograd the
+backward runs the exchange's adjoint (`planes_adjoint`), which sends the
+cotangent of each received plane back to the rank that owns it, where it
+adds into that rank's own planes; nothing crosses the grid's ends. The
+backward is a collective too: every rank of the group must run it, and
+the ranks post their sends and receives in the forward's order.
 """
 
 import torch
@@ -35,25 +42,23 @@ from fluidnet_tpu_torch.parallel.mesh import host_staged
 from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_update
 
 
-def _swap_planes(xs, h: int, group):
-    """For each (b, c, zl, y, x) tensor of `xs`: (lo, hi), the h z-planes
-    of the rank before this one on `group` (its top planes) and of the
-    rank after it (its bottom planes), None past the mesh ends; on the
-    host when the collective stages through it. One batch of sends and
-    receives for all."""
+def _swap(sends, group):
+    """For each (down, up) pair of (b, c, h, y, x) tensors of `sends`
+    (None where there is no neighbour to send to): (from_below,
+    from_above), what the rank before this one on `group` sent up and what
+    the rank after it sent down, None past the mesh ends; on the host when
+    the collective stages through it. One batch of sends and receives for
+    all."""
     idx, n = dist.get_rank(group), dist.get_world_size(group)
     out, ops = [], []
-    for tag, x in enumerate(xs):
-        if x.shape[2] < h:
-            raise ValueError(f"exchange: slab of {x.shape[2]} z-planes "
-                             f"cannot give {h}")
-        dev = torch.device("cpu") if host_staged(x, group) else x.device
-        shape = x.shape[:2] + (h,) + x.shape[3:]
+    for tag, pair_send in enumerate(sends):
         pair = []
-        for peer, send in ((idx - 1, x[:, :, :h]), (idx + 1, x[:, :, -h:])):
+        for peer, send in zip((idx - 1, idx + 1), pair_send):
             recv = None
             if 0 <= peer < n:
-                recv = torch.empty(shape, dtype=x.dtype, device=dev)
+                dev = torch.device("cpu") if host_staged(send, group) \
+                    else send.device
+                recv = torch.empty(send.shape, dtype=send.dtype, device=dev)
                 rank = dist.get_global_rank(group, peer)
                 send = send.to(dev).contiguous()
                 ops += [dist.P2POp(dist.isend, send, rank, group, tag),
@@ -66,17 +71,86 @@ def _swap_planes(xs, h: int, group):
     return out
 
 
+def _swap_planes(xs, h: int, group):
+    """For each (b, c, zl, y, x) tensor of `xs`: (lo, hi), the h z-planes
+    of the rank before this one on `group` (its top planes) and of the
+    rank after it (its bottom planes), None past the mesh ends, on x's
+    device. One batch of sends and receives for all."""
+    for x in xs:
+        if x.shape[2] < h:
+            raise ValueError(f"exchange: slab of {x.shape[2]} z-planes "
+                             f"cannot give {h}")
+    got = _swap([(x[:, :, :h], x[:, :, -h:]) for x in xs], group)
+    return [[None if t is None else t.to(x.device) for t in pair]
+            for x, pair in zip(xs, got)]
+
+
+def planes_adjoint(shapes, grads, h: int, group, like):
+    """The adjoint of exchange_z_planes on slabs of `shapes`: grads[i]
+    holds the cotangents (g_lo, g_hi) of the h planes slab i received
+    from below and from above (None past the mesh ends). Each goes back to
+    the rank that owns those planes, which adds what it gets into its own
+    bottom and top h planes. One batch of sends and receives for all.
+    Returns [each slab's cotangent], of like's dtype and device."""
+    out = []
+    for shape, (down, up) in zip(shapes, _swap(grads, group)):
+        g = torch.zeros(shape, dtype=like.dtype, device=like.device)
+        if down is not None:
+            g[:, :, :h] += down.to(like.device)
+        if up is not None:
+            g[:, :, -h:] += up.to(like.device)
+        out.append(g)
+    return out
+
+
+def _filled(xs, h: int, group):
+    """[lo, hi] of each slab of `xs` (_swap_planes), zeros past the mesh
+    ends, in one flat list."""
+    out = []
+    for x, pair in zip(xs, _swap_planes(xs, h, group)):
+        shape = x.shape[:2] + (h,) + x.shape[3:]
+        out += [torch.zeros(shape, dtype=x.dtype, device=x.device)
+                if t is None else t for t in pair]
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    """exchange_z_planes under autograd. The backward posts a send and a
+    receive to each neighbour for every slab on every rank, in the
+    forward's order, whatever reached the cotangents (a cotangent that
+    autograd leaves out arrives as zeros): the ranks' lists of sends and
+    receives must pair."""
+
+    @staticmethod
+    def forward(ctx, h, group, *xs):
+        ctx.h, ctx.group = h, group
+        ctx.shapes = [x.shape for x in xs]
+        return tuple(_filled(xs, h, group))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        idx = dist.get_rank(ctx.group)
+        n = dist.get_world_size(ctx.group)
+        grads = [(gs[2 * i] if idx > 0 else None,
+                  gs[2 * i + 1] if idx < n - 1 else None)
+                 for i in range(len(ctx.shapes))]
+        return (None, None) + tuple(planes_adjoint(ctx.shapes, grads, ctx.h,
+                                                   ctx.group, gs[0]))
+
+
 def exchange_z_planes(xs, h: int, group):
     """For each (b, c, zl, y, x) tensor of `xs`: (lo, hi), the h z-planes
     just below this rank's slab (the top planes of the rank before it on
     `group`) and just above (the bottom planes of the rank after it);
-    zeros past the mesh ends. One batch of sends and receives for all."""
-    out = []
-    for x, pair in zip(xs, _swap_planes(xs, h, group)):
-        shape = x.shape[:2] + (h,) + x.shape[3:]
-        out.append(tuple(torch.zeros(shape, dtype=x.dtype, device=x.device)
-                         if t is None else t.to(x.device) for t in pair))
-    return out
+    zeros past the mesh ends. One batch of sends and receives for all.
+    Differentiable: under autograd the cotangents of (lo, hi) go back to
+    the ranks that own those planes, one batch of sends and receives in
+    the backward (every rank must then run the backward)."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        out = _Exchange.apply(h, group, *xs)
+    else:
+        out = _filled(xs, h, group)
+    return [tuple(out[2 * i:2 * i + 2]) for i in range(len(xs))]
 
 
 def exchange_ghost(xs, g: int, group):
@@ -85,11 +159,14 @@ def exchange_ghost(xs, g: int, group):
     the first and last ranks get a one-sided ghost zone, so every
     extended slab is a contiguous range of the whole grid and a
     positional border test on it falls where it falls on the whole grid.
-    One batch of sends and receives for all. Returns [the extended
-    slabs]."""
-    return [torch.cat([t.to(x.device) for t in (lo, x, hi) if t is not None],
-                      dim=2)
-            for x, (lo, hi) in zip(xs, _swap_planes(xs, g, group))]
+    One batch of sends and receives for all; differentiable as
+    exchange_z_planes (the adjoint adds the ghost planes' cotangents
+    into the neighbours' own planes; the grid's ends stay one-sided).
+    Returns [the extended slabs]."""
+    idx, n = dist.get_rank(group), dist.get_world_size(group)
+    return [torch.cat(([lo] if idx > 0 else []) + [x] +
+                      ([hi] if idx < n - 1 else []), dim=2)
+            for x, (lo, hi) in zip(xs, exchange_z_planes(xs, g, group))]
 
 
 def global_border_mask(shape, z_len_global: int, z0_global: int,

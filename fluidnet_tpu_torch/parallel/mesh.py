@@ -10,9 +10,11 @@ single-GPU (SURVEY.md §2.3); this is the scale-out layer it never had: a
 The port runs SPMD: one process per rank, each holding its own slice of a
 tensor. Where JAX's GSPMD inserts collectives from sharding annotations,
 the port spells every exchange out: the sharded functions
-(parallel/halo.py, parallel/advect_sharded.py) exchange z-planes on the
-'sp' group, and train_step(group=) averages the gradients over the
-data-parallel group (`data_parallel_group`). A sharding here is only a
+(parallel/halo.py, parallel/advect_sharded.py, parallel/simulate_sharded.py,
+parallel/train_sharded.py) exchange z-planes on the 'sp' group,
+train_step(group=) averages the gradients over the data-parallel group
+(`data_parallel_group`), and train_step(mesh=) sums them over 'sp' and
+averages them over 'dp'. A sharding here is only a
 description: which mesh dims split which tensor axis; `local_part` cuts
 this rank's slice by it.
 
@@ -166,15 +168,27 @@ def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
     return buf
 
 
-def all_reduce_mean(x: torch.Tensor, group) -> torch.Tensor:
-    """The mean of `x` over the ranks of `group` (a sum, then a division
-    by the group's size), on x's device."""
-    return _all_reduce(x, group, dist.ReduceOp.SUM) / \
-        dist.get_world_size(group)
+class _AllReduceSum(torch.autograd.Function):
+    """all_reduce_sum under autograd: the cotangent of the sum is every
+    rank's, so the backward is the sum of the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.group, dist.ReduceOp.SUM), \
+            None
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of `x` over the ranks of `group`, on x's device."""
+    """The sum of `x` over the ranks of `group`, on x's device.
+    Differentiable: under autograd the backward all_reduces the cotangent
+    (every rank must then run the backward)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllReduceSum.apply(x, group)
     return _all_reduce(x, group, dist.ReduceOp.SUM)
 
 

@@ -59,8 +59,16 @@ more than n + 1 planes from the cut after the whole step).
 Not ported here (NotImplementedError, each naming its ROADMAP item): PCG
 (its dot products and component sums need all_reduces), models with
 pooling, pixel shuffles or banks (their halos must align to the pooling
-factor), 2-D states, states without density, advection_window 0 and
-training (grad=True).
+factor), 2-D states, states without density and advection_window 0.
+
+Training: under autograd (`simulate_z_sharded(grad=True)`, the unroll of
+parallel/train_sharded.py) the same step records its graph on the slab.
+The exchanges and the input scale's all_reduces are differentiable
+(halo.exchange_ghost, mesh.all_reduce_sum): the backward sends each ghost
+plane's cotangent to the rank that owns the plane, and sums the input
+scale's cotangents over the ranks. The kernels keep their gradient rules
+on the slab (ops/replay.py for K1's fused sweeps and K2 with the grid's
+dx; K1's unfused sweeps, whose backward is K6).
 """
 
 from typing import Optional
@@ -133,9 +141,10 @@ def _check(state_l: FluidState, mconf: ModelConfig, model):
 class _Slab:
     """This rank's slab of the grid for one rollout: its place, the
     ghost zones, and the flags and BC masks extended once to the widest
-    reach a step needs (`reach` planes, one-sided at the global ends)."""
+    reach a step needs, or `reach` if wider (one-sided at the global
+    ends)."""
 
-    def __init__(self, state_l, mconf, mesh, bcs_l):
+    def __init__(self, state_l, mconf, mesh, bcs_l, reach: int = 0):
         sp = mesh["sp"]
         self.mesh, self.group = mesh, sp.get_group()
         idx, self.n = sp.get_local_rank(), sp.size()
@@ -147,7 +156,7 @@ class _Slab:
         self.polish = mconf.polish_iters + 2 \
             if mconf.sim_method == "convnet" and mconf.polish_iters > 0 \
             else 0
-        self.reach = max(self.g, self.polish)
+        self.reach = max(self.g, self.polish, reach)
         if zl < self.reach:
             raise ValueError(f"shard z-length {zl} < ghost zone "
                              f"{self.reach}: the exchange only reaches "
@@ -181,13 +190,15 @@ class _Slab:
         return torch.cat([x[:, :, :lo], part, x[:, :, lo + self.zl:]],
                          dim=2)
 
-    def input_scale(self, mconf, p_div, u_div, div):
+    def input_scale(self, mconf, p_div, u_div, div, ghost=None):
         """models.fluidnet._input_scale of the whole grid, from per-sample
-        sums over each rank's own planes, all_reduced over the ranks. The
-        std takes JAX's two passes: the grid's sum over its cell count
-        gives the mean, then the grid's sum of squared deviations over the
-        count less one."""
-        chan = self.own(input_chan(mconf, p_div, u_div, div))
+        sums over each rank's own planes of slabs extended by `ghost`
+        planes (None: G), all_reduced over the ranks. The std takes JAX's
+        two passes: the grid's sum over its cell count gives the mean,
+        then the grid's sum of squared deviations over the count less
+        one."""
+        chan = self.crop(input_chan(mconf, p_div, u_div, div),
+                         self.g if ghost is None else ghost, 0)
         flat = chan.reshape(chan.shape[0], -1)
 
         def total(t):
@@ -245,7 +256,11 @@ def step_window(mconf: ModelConfig, u_l, dt, group) -> int:
     return W
 
 
-def _sharded_step(state_l, mconf, model, slab, forces, use_kernels):
+def _sharded_step(state_l, mconf, model, slab, forces, use_kernels,
+                  output_div=False):
+    """sim.simulate._step on this rank's slab (`slab`: the flags and BC
+    masks extended once); `output_div` returns the divergent state after
+    the forces, as the unsharded step does."""
     W = step_window(mconf, state_l.u, forces.dt, slab.group)
     convnet = mconf.sim_method == "convnet"
     fields = [state_l.u, state_l.density] + ([state_l.p] if convnet else [])
@@ -260,7 +275,7 @@ def _sharded_step(state_l, mconf, model, slab, forces, use_kernels):
                      polish=slab.polish_step, solve=slab.jacobi_solve)
     out = _step(FluidState(u=ue, p=pe, flags=slab.flags, density=de), mconf,
                 model, slab.bcs, slab.consts, use_kernels, forces,
-                slab=hooks)
+                output_div, slab=hooks)
     return FluidState(u=slab.own(out.u).contiguous(),
                       p=slab.own(out.p).contiguous(), flags=state_l.flags,
                       density=slab.own(out.density).contiguous())
@@ -303,13 +318,17 @@ def simulate_z_sharded(state_l: FluidState, mconf: ModelConfig, mesh,
                        grad: bool = False) -> FluidState:
     """One sim.simulate step on this rank's slab (rollout_z_sharded with
     one step: the flags and BC masks are exchanged on every call).
-    grad=True (training) raises NotImplementedError."""
-    if grad:
-        raise NotImplementedError("training on a z-sharded state is not "
-                                  "ported (ROADMAP queue 1, item 8: "
-                                  "sp-sharded training)")
-    return rollout_z_sharded(state_l, mconf, 1, mesh, model, bcs_l,
-                             use_kernels=use_kernels)
+    grad=True records the step for autograd: a backward through its
+    result runs the exchanges' adjoints, so every rank must run it."""
+    if not grad:
+        return rollout_z_sharded(state_l, mconf, 1, mesh, model, bcs_l,
+                                 use_kernels=use_kernels)
+    _check(state_l, mconf, model)
+    forces = _resolve_forces(state_l, mconf, None, None, None, None)
+    with torch.enable_grad():
+        slab = _Slab(state_l, mconf, mesh, bcs_l)
+        return _sharded_step(state_l, mconf, model, slab, forces,
+                             use_kernels)
 
 
 def shard_state(state: FluidState, mesh, device=None) -> FluidState:

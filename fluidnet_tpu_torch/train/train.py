@@ -21,6 +21,11 @@ K1's fused sweeps replay the unfused ones (K1 unfused), whose adjoint is
 K6; K2 replays forces_block_xla / prologue_xla, K4
 vorticity_confinement_xla.
 
+Scale-out: `train_step(group=)` averages the gradients of equal batch
+shares over a data-parallel group; `train_step(mesh=)` and
+`eval_step(mesh=)` take a batch split over a ('dp', 'sp') mesh, samples
+and z (parallel/train_sharded.py).
+
 The random draws (dt, gravity direction, force switches) come from an
 explicit CPU torch.Generator, outside the checkpointed steps, and stay on
 the host: the kernels take them as launch arguments. `loss_fn` and
@@ -42,6 +47,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from fluidnet_tpu_torch.core.config import ModelConfig
@@ -53,7 +59,7 @@ from fluidnet_tpu_torch.ops.forces import (add_buoyancy, add_gravity,
                                            vorticity_confinement,
                                            vorticity_confinement_xla)
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
-from fluidnet_tpu_torch.parallel.mesh import all_reduce_mean
+from fluidnet_tpu_torch.parallel.mesh import all_reduce_sum
 from fluidnet_tpu_torch.sim.simulate import FlagConsts, simulate
 from fluidnet_tpu_torch.solvers.cg import solve_pcg
 from fluidnet_tpu_torch.solvers.components import normalize_pressure_mean
@@ -407,7 +413,7 @@ def _reject_ok(terms, grad_norm, mconf: ModelConfig):
 
 def train_step(state: TrainState, batch, gen, mconf: ModelConfig,
                n_future: int, draws: Optional[Draws] = None,
-               use_kernels: bool = True, group=None):
+               use_kernels: bool = True, group=None, mesh=None):
     """One optimization step (train.py:297-311); returns (state, terms),
     terms detached with grad_norm and rejected added. A rejected update
     keeps the params and the optimizer state (selected on the device, no
@@ -420,14 +426,27 @@ def train_step(state: TrainState, batch, gen, mconf: ModelConfig,
     optimizer: the psum GSPMD inserts in JAX (multihost.py:21-23). Every
     rank draws the same dt and forces from its generator, the model scales
     each sample by its own input, and the loss is a mean over equal
-    shards, so the mean is the step on the global batch."""
+    shards, so the mean is the step on the global batch.
+
+    Sharded over a ('dp', 'sp') `mesh` (every rank of the default group
+    on it): `batch` is this rank's part as parallel/mesh.shard_batch cuts
+    it (samples over 'dp', z over 'sp'). Each rank backpropagates its
+    share of the loss (parallel/train_sharded.loss_fn_sharded), and one
+    all_reduce over the ranks sums the gradients and terms over 'sp' and
+    averages them over 'dp'."""
+    if group is not None and mesh is not None:
+        raise ValueError("train_step: pass group= (data parallel) or "
+                         "mesh= (sharded), not both")
     params = state.params
     with torch.enable_grad():
-        total, terms = loss_fn(state.model, batch, gen, mconf, n_future,
-                               draws=draws, use_kernels=use_kernels)
+        total, terms = _loss(state.model, batch, gen, mconf, n_future,
+                             draws, use_kernels, mesh)
         grads = torch.autograd.grad(total, params)
     if group is not None:
         grads, terms = _mean_over(group, grads, terms)
+    if mesh is not None:
+        grads, terms = _mean_over(dist.group.WORLD, grads, terms,
+                                  _replicas(mesh))
     opt = make_optimizer(mconf)
     with torch.no_grad():
         updates, new_opt = opt.update(grads, state.opt_state)
@@ -447,13 +466,31 @@ def train_step(state: TrainState, batch, gen, mconf: ModelConfig,
     return state, terms
 
 
-def _mean_over(group, grads, terms):
-    """The gradients and loss terms averaged over the ranks of `group`,
-    in one all_reduce of their concatenation."""
+def _loss(model, batch, gen, mconf, n_future, draws, use_kernels, mesh):
+    """loss_fn, or with a mesh this rank's share of the sharded loss."""
+    if mesh is None:
+        return loss_fn(model, batch, gen, mconf, n_future, draws=draws,
+                       use_kernels=use_kernels)
+    from fluidnet_tpu_torch.parallel.train_sharded import loss_fn_sharded
+    return loss_fn_sharded(model, batch, gen, mconf, n_future, mesh,
+                           draws=draws, use_kernels=use_kernels)
+
+
+def _replicas(mesh) -> int:
+    """The ranks of a sharded mesh that hold other samples: the world
+    over its 'sp' size."""
+    return dist.get_world_size() // mesh["sp"].size()
+
+
+def _mean_over(group, grads, terms, n: Optional[int] = None):
+    """The gradients and loss terms summed over the ranks of `group` and
+    divided by n (None: the group's size), in one all_reduce of their
+    concatenation."""
     keys = list(terms)
     flat = torch.cat([g.detach().reshape(-1) for g in grads] +
                      [torch.stack([terms[k].detach() for k in keys])])
-    flat = all_reduce_mean(flat, group)
+    flat = all_reduce_sum(flat, group) / \
+        (dist.get_world_size(group) if n is None else n)
     out, i = [], 0
     for g in grads:
         out.append(flat[i:i + g.numel()].view_as(g))
@@ -462,11 +499,16 @@ def _mean_over(group, grads, terms):
 
 
 def eval_step(batch, model, gen, mconf: ModelConfig, n_future: int,
-              draws: Optional[Draws] = None, use_kernels: bool = True):
-    """The loss terms of one batch, without gradients."""
+              draws: Optional[Draws] = None, use_kernels: bool = True,
+              mesh=None):
+    """The loss terms of one batch, without gradients; with a `mesh`, of
+    the batch sharded over it (train_step's), reduced over the ranks."""
     with torch.no_grad():
-        _, terms = loss_fn(model, batch, gen, mconf, n_future, draws=draws,
-                           use_kernels=use_kernels)
+        _, terms = _loss(model, batch, gen, mconf, n_future, draws,
+                         use_kernels, mesh)
+        if mesh is not None:
+            _, terms = _mean_over(dist.group.WORLD, [], terms,
+                                  _replicas(mesh))
     terms["grad_norm"] = torch.zeros_like(terms["total"])
     terms["rejected"] = torch.zeros_like(terms["total"])
     return terms

@@ -4,7 +4,7 @@ started by torchrun or by chip_smoke.py's phase 20 with torchrun's
 variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
 
     torchrun --nproc_per_node N scripts/torch_parallel_rank.py \\
-        --case sharded|train|step --inputs <in.pt> --out <dir> \
+        --case sharded|train|step|train_sp --inputs <in.pt> --out <dir> \
         [--backend nccl]
 
   --case sharded: the inputs hold a global state (u, density, flags) and
@@ -30,6 +30,18 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       plain version (use_kernels=False) on the same slab, its difference
       to the first reported, then once more timed, and --reps timed
       exchanges of the step's fields.
+  --case train_sp: the inputs hold host batches, the draws, the model
+      seed, the horizon n and the runs [{name, mesh (n_dp, n_sp), mconf,
+      batch}]. On each run's mesh each rank takes its part of the batch
+      (shard_batch: samples over 'dp', z over 'sp'), deterministic cuDNN,
+      and runs the sharded loss (parallel/train_sharded.py) with its
+      gradients: once with its launches and collectives counted, once
+      with every kernel's plain version (the gradients must be the same
+      bits), once with the exchanges' adjoint dropping the ghost planes'
+      cotangents (`dropped_adjoint`, the planted fault); each reduced
+      over the mesh as train_step(mesh=) reduces them. Then two timed
+      train_step(mesh=) and --reps timed forward and adjoint exchanges of
+      a step's fields.
 
 Each rank writes rank<r>.pt (its slabs, the halo planes its first
 exchange received, or its params) and rank<r>.json (its transport,
@@ -112,6 +124,24 @@ def zeroed_ghosts(at_call, rank):
         yield
     finally:
         ss.exchange_ghost = real
+
+
+@contextlib.contextmanager
+def dropped_adjoint():
+    """Plants the fault the sharded training's checks must catch: the
+    exchanges' adjoint drops the cotangents of the ghost planes (no rank
+    sends them, so no rank's own planes get them)."""
+    from fluidnet_tpu_torch.parallel import halo
+    real = halo.planes_adjoint
+
+    def dropped(shapes, grads, h, group, like):
+        return [torch.zeros(s, dtype=like.dtype, device=like.device)
+                for s in shapes]
+    halo.planes_adjoint = dropped
+    try:
+        yield
+    finally:
+        halo.planes_adjoint = real
 
 
 class InputScale(torch.nn.Module):
@@ -299,6 +329,122 @@ def step(inp, reps, rank):
     return info, saved
 
 
+@contextlib.contextmanager
+def comm_counts():
+    """Counts this process's collectives while it is entered: forward
+    exchanges (halo._swap_planes), adjoint exchanges (halo.
+    planes_adjoint) and all_reduces (mesh._all_reduce). Yields the dict
+    of counts."""
+    from fluidnet_tpu_torch.parallel import halo, mesh
+    counts = {"exchanges": 0, "adjoint_exchanges": 0, "all_reduces": 0}
+    real = {(halo, "_swap_planes"): "exchanges",
+            (halo, "planes_adjoint"): "adjoint_exchanges",
+            (mesh, "_all_reduce"): "all_reduces"}
+    saved = {k: getattr(*k) for k in real}
+
+    def counting(key):
+        fn = saved[key]
+
+        def wrapped(*a, **kw):
+            counts[real[key]] += 1
+            return fn(*a, **kw)
+        return wrapped
+    for (mod, name) in real:
+        setattr(mod, name, counting((mod, name)))
+    try:
+        yield counts
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def train_sp(inp, reps, rank):
+    from fluidnet_tpu_torch.parallel.halo import (exchange_ghost,
+                                                  planes_adjoint)
+    from fluidnet_tpu_torch.parallel.mesh import shard_batch
+    from fluidnet_tpu_torch.parallel.simulate_sharded import ghost_planes
+    from fluidnet_tpu_torch.parallel.train_sharded import loss_fn_sharded
+    from fluidnet_tpu_torch.train import train as tr
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    n, draws, seed = inp["n"], inp["draws"], inp["model_seed"]
+    info, saved, meshes = {"rank": rank, "runs": {}}, {}, {}
+    for run in inp["runs"]:
+        shape = tuple(run["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh(*shape)
+        mesh, mconf = meshes[shape], run["mconf"]
+        dev = mesh_device(mesh)
+        group = mesh["sp"].get_group()
+        batch_l = shard_batch(inp["batches"][run["batch"]], mesh, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def local(use_kernels=True):
+            model = tr.init_train_state(seed, mconf, dev).model
+            total, terms = loss_fn_sharded(
+                model, batch_l, None, mconf, n, mesh, draws=draws,
+                use_kernels=use_kernels)
+            return torch.autograd.grad(total, list(
+                p for _, p in model.jax_named_parameters())), terms
+
+        def reduced(grads, terms):
+            g, t = tr._mean_over(dist.group.WORLD, grads, terms,
+                                 tr._replicas(mesh))
+            return [x.cpu() for x in g], {k: float(v) for k, v in t.items()}
+
+        with comm_counts() as comms:
+            (g_k, terms), launches = counted(local)
+        g_p, _ = local(use_kernels=False)
+        rec = {"launches": launches, "comms": dict(comms),
+               "slab": list(batch_l["u_div"].shape),
+               "transport": transport(batch_l["u_div"], group),
+               "plain_equal": all(torch.equal(a, b)
+                                  for a, b in zip(g_k, g_p)),
+               "plain_max_abs": max((a - b).abs().max().item()
+                                    for a, b in zip(g_k, g_p))}
+        grads, rec["terms"] = reduced(g_k, terms)
+        del g_p
+        with dropped_adjoint():
+            fault, _ = reduced(*local())
+        state = tr.init_train_state(seed, mconf, dev)
+        steps = []
+        for _ in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, t = tr.train_step(state, batch_l, None, mconf, n,
+                                     draws=draws, mesh=mesh)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            rec.setdefault("step_terms", []).append(
+                {k: float(v) for k, v in t.items()})
+        rec["step_ms"] = steps
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        G = ghost_planes(mconf)
+        fields = [batch_l["u_div"], batch_l["density"], batch_l["p_div"]]
+        shapes = [f.shape for f in fields]
+        idx, n_sp = mesh["sp"].get_local_rank(), mesh["sp"].size()
+        cots = [tuple(torch.ones(f.shape[:2] + (G,) + f.shape[3:],
+                                 device=dev) if ok else None
+                      for ok in (idx > 0, idx < n_sp - 1)) for f in fields]
+        rec["ghost"] = G
+        rec["exchange_ms"] = timed(
+            lambda: exchange_ghost(fields, G, group), reps)
+        rec["adjoint_ms"] = timed(
+            lambda: planes_adjoint(shapes, cots, G, group, fields[0]), reps)
+        rec["exchange_mib"] = sum(
+            f.shape[0] * f.shape[1] * G * f.shape[3] * f.shape[4] *
+            f.element_size() for f in fields) / 2**20
+        info["runs"][run["name"]] = rec
+        saved[run["name"]] = {
+            "grads": grads, "fault": fault,
+            "params": [p.detach().to("cpu", copy=True)
+                       for p in state.params]}
+        del batch_l, state, fields, cots
+    return info, saved
+
+
 def spawn_local(args, world, out, timeout, tag="ranks", backend="gloo"):
     """Runs `world` ranks of this script on one host (torchrun's variables
     set here) with `args` and `backend`, each rank's output in
@@ -354,7 +500,8 @@ def spawn_local(args, world, out, timeout, tag="ranks", backend="gloo"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--case", choices=("sharded", "train", "step"),
+    ap.add_argument("--case", choices=("sharded", "train", "step",
+                                       "train_sp"),
                     required=True)
     ap.add_argument("--inputs", required=True)
     ap.add_argument("--out", required=True)
@@ -372,7 +519,9 @@ def main(argv=None):
     inp = torch.load(args.inputs, weights_only=False)
     info, saved = {"sharded": lambda: sharded(inp, args.reps, rank),
                    "train": lambda: train(inp, rank),
-                   "step": lambda: step(inp, args.reps, rank)}[args.case]()
+                   "step": lambda: step(inp, args.reps, rank),
+                   "train_sp": lambda: train_sp(inp, args.reps, rank)}[
+        args.case]()
     info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     info["launches_total"] = dict(_build.launches)
     torch.save(saved, os.path.join(args.out, f"rank{rank}.pt"))

@@ -61,8 +61,7 @@ CASES = {"convnet": {}, "convnet_p2": dict(polish_iters=2),
 ADAPT = dict(adaptive_window=True, advection_window=2)
 FAULT_CALL = 2        # step 2's exchange (call 0 extends the flags)
 REFUSALS = {"pcg": dict(sim_method="pcg"), "tog": dict(model_type="tog"),
-            "window0": dict(advection_window=0), "2d": {}, "grad": {},
-            "no_density": {}}
+            "window0": dict(advection_window=0), "2d": {}, "no_density": {}}
 
 
 def _free_port():
@@ -191,8 +190,7 @@ def _worker(rank, port, inp):
         if name == "no_density":
             st = st.replace(density=None)
         res[f"err_{name}"] = error(lambda: ss.simulate_z_sharded(
-            st, m, mesh, model, None if name == "2d" else bcs_l,
-            grad=name == "grad"))
+            st, m, mesh, model, None if name == "2d" else bcs_l))
     res["err_short"] = error(lambda: ss.rollout_z_sharded(
         state_l, base.replace(advection_window=4), 1, mesh, model, bcs_l))
     return res
@@ -515,10 +513,11 @@ def test_planted_ghost_fault_fails(run):
 
 
 def test_refusals(run):
-    """PCG, a pooled model (tog), advection_window 0, a 2-D state, a state
-    without density and training raise NotImplementedError naming the
-    ROADMAP item; a slab shorter than the ghost zone (W = 4: 19 planes >
-    16) raises ValueError."""
+    """PCG, a pooled model (tog), advection_window 0, a 2-D state and a
+    state without density raise NotImplementedError naming the ROADMAP
+    item (training, grad=True, runs: tests/test_torch_sharded_train.py);
+    a slab shorter than the ghost zone (W = 4: 19 planes > 16) raises
+    ValueError."""
     _, _, _, outs = run
     for o in outs:
         for name in REFUSALS:
