@@ -33,7 +33,12 @@ and its training, in ranks that share the card), in these phases:
              tiling, and at window 2); K3
              replayed from CUDA graphs at 128^3 with 34 and 8 sweeps and at
              128^2 with 34, each beside the route
-             (solvers/cuda_jacobi.jacobi_route) it takes.
+             (solvers/cuda_jacobi.jacobi_route) it takes. K3 from a given
+             p0 (the rounds of the sharded solve) on the plume and on
+             JACOBI_SLAB, the middle rank's slab of the 128^3 plume grown
+             by 32 planes a side, at 1, 2, 3 and 32 sweeps from a random
+             p0: equal to the bit; timed from graphs at JACOBI_SLAB with
+             32 sweeps beside its bound and plain version.
   4. warp (K5) vs plain: every K5 call that one 2-D step makes, for each
              advection method at windows 1 and 2, recorded on a 128^2 serve
              plume after a few steps and on a random 2x1x1x45x61 grid with
@@ -210,9 +215,14 @@ and its training, in ranks that share the card), in these phases:
              K2, K3 at the shapes this path gives them) and must give the
              same bits. Each rank launches K1's fused forward and backward
              and K2's prologue once a step (K2's forces block in (d)), K3
-             once a step in (c). Per rank: ms a step (a rollout over its
-             steps), ms an exchange of the step's fields, beside one
-             process's ms a step. A rank that fails or runs past
+             once a step in (c) and twice in (d): jacobi-34 runs
+             halo.slab_jacobi_solve, two rounds of K3 on the slab grown by
+             32 planes. (d) is rerun on the per-sweep halo Jacobi, which
+             must give the same bits, and timed beside it in the same
+             call; the exchanges a step of both are printed (4 and 37).
+             Per rank: ms a step (a rollout over its steps), ms an
+             exchange of the step's fields, beside one process's ms a
+             step. A rank that fails or runs past
              PAR_TIMEOUT fails the phase; the ranks' launches are added to
              the kernels line.
 
@@ -224,13 +234,20 @@ and its training, in ranks that share the card), in these phases:
              process's loss_fn and train_step on the whole batch: (a) dp 1
              x sp 4 on phase 10's 6x64^3 batch, float32 convolutions; (b)
              the same in bf16, as trained; (c) dp 2 x sp 2, bf16; (d) dp 1 x
-             sp 4 on 2 samples of the 128^3 plume, bf16. Each: the loss
-             terms within rtol and every gradient and param after 2 steps
-             within the relative L2 of its limits; each rank's gradients
-             equal to the bit to its rerun with every kernel's plain
-             version; each rank's launches train_launches(4); the planted
-             fault (the exchanges' adjoint drops the ghost planes'
-             cotangents) past the gradient limit. Per rank: ms a train step,
+             sp 4 on 2 samples of the 128^3 plume, bf16; (e) (a) with
+             augment_without_targets (K4 on every slab, once a step a
+             rank; each rank's augmented u equal to the bit to the whole
+             batch's); (c-f32) and (d-f32): (c) and (d) in float32, (c-f32)
+             at (a)'s limits, (d-f32) and (e) at (a)'s terms limit and 2x
+             their gradients' sound reading (SPT_RUNS). Each: the loss
+             terms within rtol and every gradient
+             and param after 2 steps within the relative L2 of its
+             limits; each rank's gradients equal to the bit to its rerun
+             with every kernel's plain version; each rank's launches
+             train_launches(4) (and K4 once in (e)); the planted fault
+             (the exchanges' adjoint drops the ghost planes' cotangents)
+             past the gradient limit, its margin (fault over limit)
+             printed. Per rank: ms a train step,
              ms a forward and an adjoint exchange of a step's fields, its
              collectives, peak memory; one process's ms and peak beside. A
              rank that fails or runs past PAR_TIMEOUT fails the phase; the
@@ -330,6 +347,9 @@ FLOPS_PER_CELL = {"mac_sweep_fwd": 378, "mac_sweep_bwd": 378,
                   "mac_sweep_unfused_fwd": 370, "mac_sweep_unfused_bwd": 354,
                   "vorticity": 70}
 JACOBI_FLOPS_3D, JACOBI_FLOPS_2D = 7, 5
+# The slab a middle rank's sharded jacobi-34 solve runs K3 on at 128^3 over
+# 4 ranks: 32 own planes grown by 32 a side (rank 1's: planes 0-95).
+JACOBI_SLAB = (1, 1, 96, 128, 128)
 # K6 per cell and field group: 3 axes' corner and weights (9) and, for each
 # of the 8 (source, target) pairs a trilinear source reaches, 3 weight
 # products and 4 for the term and its sum.
@@ -445,7 +465,7 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
     "p8": dict(kw=dict(polish_iters=8),
                launches=dict(CONVNET_STEP, jacobi=1)),
     "jacobi34": dict(kw=dict(sim_method="jacobi", max_iter=34),
-                     launches=dict(K1_FUSED, forces_block=1)),
+                     launches=dict(K1_FUSED, forces_block=1, jacobi=2)),
     "big": dict(dtype="bfloat16", state=STEP_BIG, steps=STEP_BIG_N,
                 held="div"),
     "fault": dict(ref="f32", fault=True, held="fails_limits"),
@@ -464,26 +484,44 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
 # recipe (the reject guard off), n = SPT_N, draws with buoyancy and
 # vorticity on, against one process's train_step on the whole batch. Each
 # run: its ('dp', 'sp') mesh, conv dtype, batch (phase 10's 6x64^3, or
-# SPT_BIG_B samples of the plume at SPT_BIG^3) and limits: each loss term
-# within rtol, each gradient and each param after 2 steps within the
-# relative L2; the planted fault (the exchanges' adjoint drops the ghost
-# planes' cotangents) must fail the latter. float32: phase 20's limits.
+# SPT_BIG_B samples of the plume at SPT_BIG^3), mconf changes and limits:
+# each loss term within rtol, each gradient and each param after 2 steps
+# within the relative L2; the planted fault (the exchanges' adjoint drops
+# the ghost planes' cotangents) must fail the latter. float32: phase 20's
+# limits, in (a) and on (c)'s mesh, whose bf16 limits leave their faults
+# little margin; (d)'s batch and augmentation (e): below.
 # bf16: 8x the run's sound reading on an H100 (deterministic cuDNN: two
 # calls read the same digits), which stays under its planted fault's:
 # terms 3.323e-06 / 3.021e-07 / 4.237e-07, gradients 1.156e-03 /
 # 1.317e-03 / 2.520e-03, faults 4.863e-02 / 1.427e-02 / 2.095e-02 in (b)
-# / (c) / (d).
+# / (c) / (d). (e) and (d-f32) cannot hold float32's GRAD_TOL on the
+# gradients: their sound readings on an H100, 2.217e-04 and 1.575e-04 on
+# the worst parameter, are the sharded path rounding apart from one
+# process's (K1's slab-local positions, ROADMAP queue 1 item 11; cuDNN's
+# float32 convolutions on other shapes), carried further by the augmented
+# flow and the 128^3 plume than by (a)'s batch; each rank's augmented u
+# equals the whole batch's to the bit. Their gradient limits are 2x those
+# readings, 104x and 25x under their faults (4.671e-02, 7.938e-03); item
+# 11 is to bring them to GRAD_TOL.
 SPT_WORLD, SPT_N, SPT_SEED, SPT_GEN_SEED = 4, 4, 17, 6
 SPT_BIG, SPT_BIG_B = 128, 2
+SPT_F32 = dict(rtol=1e-5, rel_l2=GRAD_TOL)
 SPT_RUNS = {
     "a_f32_sp4": dict(mesh=(1, 4), dtype="float32", batch="train",
-                      limits=dict(rtol=1e-5, rel_l2=GRAD_TOL)),
+                      limits=SPT_F32),
     "b_bf16_sp4": dict(mesh=(1, 4), dtype="bfloat16", batch="train",
                        limits=dict(rtol=2.7e-5, rel_l2=9.3e-3)),
     "c_bf16_dp2_sp2": dict(mesh=(2, 2), dtype="bfloat16", batch="train",
                            limits=dict(rtol=2.5e-6, rel_l2=1.06e-2)),
     "d_bf16_sp4_big": dict(mesh=(1, 4), dtype="bfloat16", batch="big",
                            limits=dict(rtol=3.4e-6, rel_l2=2.02e-2)),
+    "e_f32_sp4_augment": dict(mesh=(1, 4), dtype="float32", batch="train",
+                              kw=dict(augment_without_targets=True),
+                              limits=dict(rtol=1e-5, rel_l2=4.5e-4)),
+    "c_f32_dp2_sp2": dict(mesh=(2, 2), dtype="float32", batch="train",
+                          limits=SPT_F32),
+    "d_f32_sp4_big": dict(mesh=(1, 4), dtype="float32", batch="big",
+                          limits=dict(rtol=1e-5, rel_l2=3.2e-4)),
 }
 
 
@@ -749,6 +787,24 @@ def kernels_phase(dev, mconf, model):
                 jacobi_cuda(flags, case["div"], 8),
                 jacobi_plain(flags, case["div"], 8), "K3 p (8 sweeps)"))
 
+    # K3 from a random p0 (border and obstacle cells not 0): on the plume
+    # and on the slab the sharded jacobi-34 solve's rounds run on.
+    rng = np.random.default_rng(16)
+    slab_f = plume["flags"][:, :, :JACOBI_SLAB[2]].contiguous()
+    slab_d = plume["div"][:, :, :JACOBI_SLAB[2]].contiguous()
+    for label, (f, d) in ((f"{RES}^3", (plume["flags"], plume["div"])),
+                          ("x".join(map(str, JACOBI_SLAB[2:])),
+                           (slab_f, slab_d))):
+        p0 = torch.tensor(rng.standard_normal(d.shape).astype(np.float32),
+                          device=dev)
+        for n in (1, 2, 3, 32):
+            errs["jacobi"] = max(errs["jacobi"], bit_exact(
+                jacobi_cuda(f, d, n, p0), jacobi_plain(f, d, n, p0),
+                f"K3 p from p0 at {label} ({n} sweeps)"))
+    active_s = ((~border_mask(slab_f.shape, True, 1, dev)) &
+                ~is_obstacle(slab_f)).sum().item()
+    jac_p0 = (slab_f, slab_d, 32, p0, JACOBI_FLOPS_3D * 32 * active_s)
+
     rng = np.random.default_rng(9)
     for shape2 in ((2, 1, 1, 45, 61), (1, 1, 1, RES2, RES2)):
         log(f"kernels vs plain on 2-D {'x'.join(map(str, shape2))} (K3):")
@@ -801,6 +857,17 @@ def kernels_phase(dev, mconf, model):
             f"ms; bound {b_ms:.5f} ms ({b_by})")
         if label == f"{RES}^3 34 sweeps":
             times["jacobi"] = (kg, pg, b_ms, b_by)
+    f, d, n, p0, flops = jac_p0
+    part = jacobi_route(d.shape, *limits)
+    kg = graph_ms(lambda: jacobi_cuda(f, d, n, p0), 20)
+    pg = cuda_ms(lambda: jacobi_plain(f, d, n, p0), 3)
+    b_ms, b_by = bound(nbytes(f, d, p0) + 4 * d.numel(), flops)
+    times["jacobi_p0_slab"] = (kg, pg, b_ms, b_by)
+    log(f"time jacobi from p0 at {'x'.join(map(str, d.shape[2:]))} (the "
+        f"sharded jacobi-34's round-1 slab), {n} sweeps: route "
+        f"{part.route} ({part.blocks} blocks of {part.rows_per_block} "
+        f"rows): graph {kg:.5f} ms, plain {pg:.4f} ms; bound {b_ms:.5f} ms "
+        f"({b_by})")
     return errs, times
 
 
@@ -2703,7 +2770,8 @@ def sharded_step_phase(dev, mconf, model):
         STEP_SP, "step")
     launches, out = {}, {"sp": STEP_SP, "res": RES, "steps": STEP_N,
                          "big_res": STEP_BIG, "big_steps": STEP_BIG_N,
-                         "transport": reports[0]["runs"]["f32"]["transport"],
+                         "transport": reports[0]["runs"][runs[0]["name"]][
+                             "transport"],
                          "spawn_s": secs, "runs": {}}
     for rep in reports:
         for k, v in rep["launches_total"].items():
@@ -2726,6 +2794,10 @@ def sharded_step_phase(dev, mconf, model):
                                      f"slab with the kernels differs from "
                                      f"its plain versions' by "
                                      f"{r['plain_max_abs']}")
+            if not r.get("halo_equal", True):
+                raise AssertionError(f"sharded step ({name}): rank {rank}'s "
+                                     f"slab on the per-sweep halo Jacobi "
+                                     f"differs from K3's rounds")
         flags = (states["rolled"]["flags"] if run["state"] == "rolled" else
                  rs.plume({}, run["state"])[0].flags)
         gstate = FluidState(u=got["u"].to(dev), p=got["p"].to(dev),
@@ -2737,9 +2809,14 @@ def sharded_step_phase(dev, mconf, model):
         within = all(e[0] <= STEP_MAX and e[1] <= STEP_FRAC
                      for e in errs.values())
         div_ok = div_rel <= STEP_DIV_REL
+        # A rollout's collectives: the flags' exchange at its start, then
+        # each step's.
+        per_step = {k: (v - (k == "exchanges")) / n
+                    for k, v in recs[0]["comms"].items()}
         res = {"held": held, "max_and_share": errs, "div_l2": div,
                "div_l2_one_process": ref["div"], "div_rel": div_rel,
                "launches_per_rank": recs[0]["launches"],
+               "collectives_per_step_rank0": per_step,
                "plain_equal_all_ranks": True}
         what = (f"gathered vs one process (max over the field's max, share "
                 f"past {STEP_ROUND}): " + ", ".join(
@@ -2795,6 +2872,17 @@ def sharded_step_phase(dev, mconf, model):
             "step_ms_per_rank": step_ms, "exchange_ms_per_rank": exch_ms,
             "one_process_step_ms": ref["ms"],
             "step_ratio": max(step_ms) / ref["ms"]})
+        if "halo_step_ms" in recs[0]:
+            res["halo_step_ms_per_rank"] = [r["halo_step_ms"][0]
+                                            for r in recs]
+            res["halo_collectives_per_step_rank0"] = {
+                k: (v - (k == "exchanges")) / n
+                for k, v in recs[0]["halo_comms"].items()}
+            what += (f"; on the per-sweep halo Jacobi (same bits): ms a step "
+                     f"per rank {rounded(res['halo_step_ms_per_rank'])}, "
+                     f"collectives a step "
+                     f"{res['halo_collectives_per_step_rank0']}")
+        what += f"; collectives a step {per_step}"
         out["runs"][name] = res
         log(f"sharded step ({name}, held: {held}): slab {recs[0]['slab']}, "
             f"ghost {recs[0]['ghost']} planes "
@@ -2825,8 +2913,10 @@ def sharded_train_phase(dev, mconf, model, batch):
     every rank against its rerun with the kernels' plain versions (equal
     to the bit). Returns (the ranks' summed kernel launches, the result
     line's entry)."""
-    from fluidnet_tpu_torch.train.train import (draw, init_train_state,
-                                                loss_fn, train_step)
+    from fluidnet_tpu_torch.parallel.train_sharded import model_ghost
+    from fluidnet_tpu_torch.train.train import (_data_augmentation, draw,
+                                                init_train_state, loss_fn,
+                                                train_step)
 
     shutil.rmtree(PAR_ROOT, ignore_errors=True)
     os.makedirs(PAR_ROOT)
@@ -2848,10 +2938,11 @@ def sharded_train_phase(dev, mconf, model, batch):
     refs, runs = {}, []
     try:
         for name, run in SPT_RUNS.items():
-            m = base.replace(conv_compute_dtype=run["dtype"])
+            m = base.replace(conv_compute_dtype=run["dtype"],
+                             **run.get("kw", {}))
             runs.append({"name": name, "mesh": run["mesh"], "mconf": m,
                          "batch": run["batch"]})
-            key = (run["dtype"], run["batch"])
+            key = spt_ref_key(run)
             if key in refs:
                 continue
             b = batches[run["batch"]]
@@ -2873,8 +2964,14 @@ def sharded_train_phase(dev, mconf, model, batch):
                 "terms": {k: float(v.detach()) for k, v in terms.items()},
                 "grads": [g.cpu() for g in grads],
                 "params": [p.detach().cpu() for p in st.params],
+                "names": [k for k, _ in net.jax_named_parameters()],
                 "ms": ms[-1], "peak_gib":
                     torch.cuda.max_memory_allocated() / 2**30}
+            if m.augment_without_targets:
+                with torch.no_grad():
+                    refs[key]["aug_u"] = _data_augmentation(
+                        b["u_div"], b["flags"], b["density"], m,
+                        draws).cpu()
             del net, grads, st
     finally:
         torch.backends.cudnn.deterministic = False
@@ -2897,11 +2994,13 @@ def sharded_train_phase(dev, mconf, model, batch):
     for rep in reports:
         for k, v in rep["launches_total"].items():
             launches[k] = launches.get(k, 0) + v
-    want_launches = train_launches(SPT_N)
     failed = []
     for name, run in SPT_RUNS.items():
-        ref = refs[(run["dtype"], run["batch"])]
+        ref = refs[spt_ref_key(run)]
         lim = run["limits"]
+        want_launches = dict(train_launches(SPT_N))
+        if run.get("kw", {}).get("augment_without_targets"):
+            want_launches["vorticity"] = 1
         recs = [r["runs"][name] for r in reports]
         worst = {"terms": 0.0, "grads": 0.0, "params": 0.0, "fault": 0.0}
         for rank, (r, s) in enumerate(zip(recs, saved)):
@@ -2919,17 +3018,43 @@ def sharded_train_phase(dev, mconf, model, batch):
                 worst["terms"] = max(worst["terms"], err if v else
                                      abs(r["terms"][k]))
             s = s[name]
-            for what in ("grads", "params"):
-                worst[what] = max(worst[what], max(
-                    rel_l2(a, b) for a, b in zip(s[what], ref[what])))
+            if s["aug_u"] is not None:
+                # The augmented u the first model call got: the whole
+                # batch's, on this rank's samples and grown planes.
+                n_dp, n_sp = run["mesh"]
+                B, Z = ref["aug_u"].shape[0] // n_dp, ref["aug_u"].shape[2]
+                zl, gm = Z // n_sp, model_ghost(next(
+                    x["mconf"] for x in runs if x["name"] == name))
+                z0, b0 = (rank % n_sp) * zl, (rank // n_sp) * B
+                want = ref["aug_u"][b0:b0 + B, :, max(z0 - gm, 0):
+                                    min(z0 + zl + gm, Z)]
+                if not torch.equal(s["aug_u"], want):
+                    raise AssertionError(
+                        f"sharded train ({name}): rank {rank}'s augmented "
+                        f"u differs from the whole batch's by "
+                        f"{(s['aug_u'] - want).abs().max().item()}")
+                worst["aug_u_equal"] = True
+            per = [rel_l2(a, b) for a, b in zip(s["grads"], ref["grads"])]
+            if max(per) >= worst["grads"]:
+                worst["grads_param"] = ref["names"][int(np.argmax(per))]
+                worst["grads_all_params"] = rel_l2(
+                    torch.cat([g.flatten() for g in s["grads"]]),
+                    torch.cat([g.flatten() for g in ref["grads"]]))
+            worst["grads"] = max(worst["grads"], max(per))
+            worst["params"] = max(worst["params"], max(
+                rel_l2(a, b) for a, b in zip(s["params"], ref["params"])))
             worst["fault"] = max(worst["fault"], max(
                 rel_l2(a, b) for a, b in zip(s["fault"], ref["grads"])))
         res = {"mesh": run["mesh"], "dtype": run["dtype"],
                "slab": recs[0]["slab"], "ghost": recs[0]["ghost"],
                "limits": lim, "terms_rel_max": worst["terms"],
                "grads_rel_l2_max": worst["grads"],
+               "grads_worst_param": worst["grads_param"],
+               "augmented_u_equal_all_ranks": worst.get("aug_u_equal"),
+               "grads_rel_l2_all_params": worst["grads_all_params"],
                "params_rel_l2_max": worst["params"],
                "fault_grads_rel_l2_max": worst["fault"],
+               "fault_margin": worst["fault"] / lim["rel_l2"],
                "terms": recs[0]["terms"], "one_process_terms": ref["terms"],
                "launches_per_rank": recs[0]["launches"],
                "comms_per_rank": recs[0]["comms"],
@@ -2945,14 +3070,19 @@ def sharded_train_phase(dev, mconf, model, batch):
                "peak_gib_per_rank": [r["peak_gib"] for r in recs],
                "one_process_peak_gib": ref["peak_gib"]}
         out["runs"][name] = res
+        aug_note = ("each rank's augmented u equal to the bit to the whole "
+                    "batch's; " if worst.get("aug_u_equal") else "")
         log(f"sharded train ({name}): mesh dp x sp {run['mesh']}, "
             f"{run['dtype']}, slab {res['slab']} + {res['ghost']} ghost "
             f"planes ({res['exchange_mib_each_way']:.3f} MiB each way); vs "
             f"one process: loss terms worst relative {worst['terms']:.3e} "
             f"(limit {lim['rtol']}), gradients worst relative L2 "
-            f"{worst['grads']:.3e}, params after 2 steps {worst['params']:.3e}"
+            f"{worst['grads']:.3e} ({worst['grads_param']}; all parameters "
+            f"{worst['grads_all_params']:.3e}), params after 2 steps "
+            f"{worst['params']:.3e}"
             f" (limit {lim['rel_l2']}); planted fault's gradients "
-            f"{worst['fault']:.3e} (must fail); each rank's gradients equal "
+            f"{worst['fault']:.3e} (must fail; {res['fault_margin']:.3f}x "
+            f"the limit); {aug_note}each rank's gradients equal "
             f"to the bit to its plain versions'; launches a rank "
             f"{recs[0]['launches']}; collectives a rank {recs[0]['comms']}; "
             f"ms a step per rank {rounded(res['step_ms_per_rank'])} (first "
@@ -2972,6 +3102,13 @@ def sharded_train_phase(dev, mconf, model, batch):
         raise AssertionError("sharded train: " + "; ".join(failed))
     shutil.rmtree(PAR_ROOT, ignore_errors=True)
     return launches, out
+
+
+def spt_ref_key(run):
+    """The one-process reference a phase 22 run is held against: its
+    dtype, batch and mconf changes."""
+    return (run["dtype"], run["batch"],
+            tuple(sorted(run.get("kw", {}).items())))
 
 
 def retyped_model(model, mconf, dev):
@@ -3072,6 +3209,9 @@ def main():
     model_launches, model_out = models_phase(dev, batch)
     par_launches, par_out = parallel_phase(dev, mconf, model, batch)
     shard_launches, step_out = sharded_step_phase(dev, mconf, model)
+    step_out["k3_from_p0_at_slab"] = dict(zip(
+        ("ms", "plain_ms", "bound_ms", "bound_by"), times["jacobi_p0_slab"]),
+        shape=list(JACOBI_SLAB), sweeps=32)
     spt_launches, spt_out = sharded_train_phase(dev, mconf, model, batch)
 
     shutil.rmtree(SIM3D_ROOT, ignore_errors=True)

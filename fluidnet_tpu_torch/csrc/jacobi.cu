@@ -3,7 +3,8 @@
 // Replaces the TPU kernel fluidnet_tpu/solvers/pallas_jacobi.py::_kernel, as
 // launched by jacobi_pallas for solve_jacobi(p_tol=0): the jacobi-34
 // projection, the ConvNet's Jacobi polish and the jacobi training targets.
-// From p = 0 it runs n sweeps of
+// From p = 0 (or from a given p0: the rounds of the z-sharded solve,
+// parallel/halo.py::slab_jacobi_solve) it runs n sweeps of
 //   p <- (p(x-) + p(x+) + p(y-) + p(y+) [+ p(z-) + p(z+)] + div) / (6 | 4)
 // where an obstacle neighbour contributes the centre value instead of its
 // own, and p is 0 on the 1-cell border (x/y only when Z == 1) and on
@@ -23,9 +24,9 @@
 // kernel keeps p, div and the mask in VMEM for all sweeps). The grid's
 // x-rows, flattened over (b, z, y), are cut into contiguous ranges, one per
 // block. A block builds its range's 1-byte cell codes (zero bit: border or
-// obstacle; else its six neighbours' obstacle bits) and p = 0 in shared
-// memory once. p lives there twice: sweep s reads copy s & 1 and writes
-// copy (s + 1) & 1. A thread takes groups of 4 cells of a row (1 when
+// obstacle; else its six neighbours' obstacle bits) and p = 0 (or p0) in
+// shared memory once. p lives there twice: sweep s reads copy s & 1 and
+// writes copy (s + 1) & 1. A thread takes groups of 4 cells of a row (1 when
 // X % 4 != 0) at a stride of the block's size: one vector load or store
 // serves 4 cells, and no cell needs a division to find its place. x
 // neighbours, and y / z neighbours inside the range, come from shared
@@ -61,6 +62,10 @@
 //   - Halo rows. A neighbour outside [r0, r1) is at most `halo` rows away
 //     (z: Y rows, y: 1), so it lies in the first or last `halo` rows of
 //     its owner's range: those are the rows each sweep publishes.
+//   - Sweep 0 reads the starting p: every cell of the range from shared
+//     copy 0, loaded from p0 (0 without it), border cells included, since
+//     a neighbour of the border reads them; a row of another range from
+//     p0 itself (0 without it), which nothing writes during the kernel.
 //   - Batch edges. Planes k = 0 and k = Z - 1 (3-D) and rows j = 0 and
 //     j = Y - 1 (2-D) are border cells, which write 0 and read nothing, so
 //     a range that spans two batch items never reads across them; nor does
@@ -172,8 +177,8 @@ __device__ __forceinline__ void stcg(float* p, const float (&v)[V]) {
 template <bool IS_3D, int V>
 __global__ void __launch_bounds__(kResThreads, 1)
 jacobi_sweeps(const float* __restrict__ div, const int* __restrict__ flags,
-              float* g0, float* g1, int Z, int Y, int X, int rows, int rpb,
-              int halo, int n_sweeps) {
+              const float* __restrict__ p0, float* g0, float* g1, int Z,
+              int Y, int X, int rows, int rpb, int halo, int n_sweeps) {
   extern __shared__ float smem[];
   const int cap = rpb * X;
   uint8_t* sc = reinterpret_cast<uint8_t*>(smem + 2 * cap);
@@ -207,7 +212,7 @@ jacobi_sweeps(const float* __restrict__ div, const int* __restrict__ flags,
         if (IS_3D) code |= ob(-plane) << 5 | ob(plane) << 6;
       }
       sc[rl * X + i] = static_cast<uint8_t>(code);
-      smem[rl * X + i] = 0.f;
+      smem[rl * X + i] = p0 ? __ldg(p0 + g) : 0.f;
     }
   }
   __syncthreads();
@@ -222,14 +227,16 @@ jacobi_sweeps(const float* __restrict__ div, const int* __restrict__ flags,
     float* dst = ((s & 1) ? g0 : g1) + r0 * X;
     const bool last = s + 1 == n_sweeps;
     // The V cells `d` away from the group at c (another row): shared
-    // memory inside the range, else the previous sweep's global copy (0 in
-    // sweep 0). Read only for a group with a non-zero cell, whose
+    // memory inside the range, else the previous sweep's global copy (p0,
+    // or 0, in sweep 0). Read only for a group with a non-zero cell, whose
     // neighbour rows lie in the grid.
     auto row_nb = [&](int c, int d, float (&o)[V]) {
       if (static_cast<unsigned>(c + d) < static_cast<unsigned>(ncell)) {
         lds<V>(cur + c + d, o);
       } else if (s > 0) {
         ldcg<V>(src + c + d, o);
+      } else if (p0) {
+        ldg<V>(p0 + r0 * X + c + d, o);
       } else {
 #pragma unroll
         for (int k = 0; k < V; ++k) o[k] = 0.f;
@@ -267,15 +274,15 @@ jacobi_sweeps(const float* __restrict__ div, const int* __restrict__ flags,
 #pragma unroll
         for (int k = 0; k < V; ++k) {
           if (code[k] & kZeroBit) continue;
-          const float p0 = pc[k];
+          const float ctr = pc[k];
           const float xm = k > 0 ? pc[k - 1] : xl;
           const float xp = k < V - 1 ? pc[k + 1] : xr;
-          float tot = ((code[k] & 2) ? p0 : xm) + ((code[k] & 4) ? p0 : xp);
-          tot = tot + ((code[k] & 8) ? p0 : ym[k]);
-          tot = tot + ((code[k] & 16) ? p0 : yp[k]);
+          float tot = ((code[k] & 2) ? ctr : xm) + ((code[k] & 4) ? ctr : xp);
+          tot = tot + ((code[k] & 8) ? ctr : ym[k]);
+          tot = tot + ((code[k] & 16) ? ctr : yp[k]);
           if (IS_3D) {
-            tot = tot + ((code[k] & 32) ? p0 : zm[k]);
-            tot = tot + ((code[k] & 64) ? p0 : zp[k]);
+            tot = tot + ((code[k] & 32) ? ctr : zm[k]);
+            tot = tot + ((code[k] & 64) ? ctr : zp[k]);
           }
           // A zero numerator gives 0 of its sign without the division,
           // whose IEEE form takes its slow path on a 0: a region of zero
@@ -292,9 +299,10 @@ jacobi_sweeps(const float* __restrict__ div, const int* __restrict__ flags,
 }
 
 template <bool IS_3D, int V>
-cudaError_t launch_sweeps(const float* div, const int* flags, float* g0,
-                          float* g1, int Z, int Y, int X, int rows, int rpb,
-                          int halo, int n_sweeps, int smem, cudaStream_t st) {
+cudaError_t launch_sweeps(const float* div, const int* flags, const float* p0,
+                          float* g0, float* g1, int Z, int Y, int X, int rows,
+                          int rpb, int halo, int n_sweeps, int smem,
+                          cudaStream_t st) {
   auto kern = jacobi_sweeps<IS_3D, V>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -309,18 +317,19 @@ cudaError_t launch_sweeps(const float* div, const int* flags, float* g0,
   coop.val.cooperative = 1;
   cfg.attrs = &coop;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kern, div, flags, g0, g1, Z, Y, X, rows,
-                            rpb, halo, n_sweeps);
+  return cudaLaunchKernelEx(&cfg, kern, div, flags, p0, g0, g1, Z, Y, X,
+                            rows, rpb, halo, n_sweeps);
 }
 
 template <bool IS_3D>
-cudaError_t launch_sweeps(const float* div, const int* flags, float* g0,
-                          float* g1, int Z, int Y, int X, int rows, int rpb,
-                          int halo, int n_sweeps, int smem, cudaStream_t st) {
+cudaError_t launch_sweeps(const float* div, const int* flags, const float* p0,
+                          float* g0, float* g1, int Z, int Y, int X, int rows,
+                          int rpb, int halo, int n_sweeps, int smem,
+                          cudaStream_t st) {
   if (X % 4 == 0)
-    return launch_sweeps<IS_3D, 4>(div, flags, g0, g1, Z, Y, X, rows, rpb,
-                                   halo, n_sweeps, smem, st);
-  return launch_sweeps<IS_3D, 1>(div, flags, g0, g1, Z, Y, X, rows, rpb,
+    return launch_sweeps<IS_3D, 4>(div, flags, p0, g0, g1, Z, Y, X, rows,
+                                   rpb, halo, n_sweeps, smem, st);
+  return launch_sweeps<IS_3D, 1>(div, flags, p0, g0, g1, Z, Y, X, rows, rpb,
                                  halo, n_sweeps, smem, st);
 }
 
@@ -351,15 +360,16 @@ extern "C" int fluidnet_jacobi_limits(int* resident, int* smem_limit) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// div (B,1,Z,Y,X) f32, flags (B,1,Z,Y,X) int32; out (B,1,Z,Y,X) f32 gets p
-// after n_sweeps sweeps from p = 0. scratch: a second (B,1,Z,Y,X) f32
-// buffer. route, rpb, halo, smem: the partition
-// solvers/cuda_jacobi.py::jacobi_route chose. Returns cudaGetLastError()
+// div (B,1,Z,Y,X) f32, flags (B,1,Z,Y,X) int32; p0 (B,1,Z,Y,X) f32 or
+// null; out (B,1,Z,Y,X) f32 gets p after n_sweeps sweeps from p0 (null: p
+// = 0). scratch: a second (B,1,Z,Y,X) f32 buffer. route, rpb, halo, smem:
+// the partition solvers/cuda_jacobi.py::jacobi_route chose. Returns cudaGetLastError()
 // after the last launch (or the first that failed).
-extern "C" int fluidnet_jacobi(const float* div, const int* flags, float* out,
-                               float* scratch, int B, int Z, int Y, int X,
-                               int n_sweeps, int route, int rpb, int halo,
-                               int smem, void* stream) {
+extern "C" int fluidnet_jacobi(const float* div, const int* flags,
+                               const float* p0, float* out, float* scratch,
+                               int B, int Z, int Y, int X, int n_sweeps,
+                               int route, int rpb, int halo, int smem,
+                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_sweeps <= 0) return static_cast<int>(cudaGetLastError());
   const bool is_3d = Z > 1;
@@ -370,7 +380,9 @@ extern "C" int fluidnet_jacobi(const float* div, const int* flags, float* out,
   bufs[(n_sweeps + 1) & 1] = scratch;
   cudaError_t err;
   if (route == kSweep) {
-    err = cudaMemsetAsync(bufs[0], 0, sizeof(float) * total, st);
+    err = p0 ? cudaMemcpyAsync(bufs[0], p0, sizeof(float) * total,
+                               cudaMemcpyDeviceToDevice, st)
+             : cudaMemsetAsync(bufs[0], 0, sizeof(float) * total, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((total + kThreads - 1) / kThreads);
     const float denom = is_3d ? 6.f : 4.f;
@@ -391,11 +403,11 @@ extern "C" int fluidnet_jacobi(const float* div, const int* flags, float* out,
   if (route != kPersistent) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = B * Z * Y;
   if (is_3d)
-    err = launch_sweeps<true>(div, flags, bufs[0], bufs[1], Z, Y, X, rows,
-                              rpb, halo, n_sweeps, smem, st);
+    err = launch_sweeps<true>(div, flags, p0, bufs[0], bufs[1], Z, Y, X,
+                              rows, rpb, halo, n_sweeps, smem, st);
   else
-    err = launch_sweeps<false>(div, flags, bufs[0], bufs[1], Z, Y, X, rows,
-                               rpb, halo, n_sweeps, smem, st);
+    err = launch_sweeps<false>(div, flags, p0, bufs[0], bufs[1], Z, Y, X,
+                               rows, rpb, halo, n_sweeps, smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

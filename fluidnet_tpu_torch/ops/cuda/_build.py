@@ -59,9 +59,9 @@ _SIGNATURES = {
     "fluidnet_prologue": [_P] * 6 + [_I] * 6 + [_F] * 7 + [_I] * 2 + [_P],
     # u, flags, out, B, Z, Y, X, amp, tile height, planes a block, stream
     "fluidnet_vorticity": [_P] * 3 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
-    # div, flags, out, scratch, B, Z, Y, X, n_sweeps, route, rows per
-    # block, halo rows, shared-memory bytes, stream
-    "fluidnet_jacobi": [_P] * 4 + [_I] * 9 + [_P],
+    # div, flags, p0 (null: p = 0), out, scratch, B, Z, Y, X, n_sweeps,
+    # route, rows per block, halo rows, shared-memory bytes, stream
+    "fluidnet_jacobi": [_P] * 5 + [_I] * 9 + [_P],
     # resident blocks (out), shared-memory limit (out)
     "fluidnet_jacobi_limits": [_P] * 2,
     # srcs[], fs[], n_src, px, py, pz, out, B, G, Z, Y, X, window, nearest,

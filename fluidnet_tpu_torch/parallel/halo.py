@@ -19,6 +19,14 @@ slab, the zero mask from the global z index (`global_border_mask`). So a
 sharded solve adds the same numbers in the same order as jacobi_plain on
 the whole grid, and equals it to the bit.
 
+`slab_jacobi_solve` is the same solve on K3, in rounds of ghost zones: the
+slab grown by h = min(n, zl) planes of each neighbour (one-sided at the
+global ends), K3 for at most h sweeps on it from the p the rounds before
+reached, the own planes kept. K3 zeroes the grown slab's end planes as
+border; what that spoils moves one plane a sweep, so after h sweeps it
+has not reached the own planes, which equal jacobi_plain on the whole grid
+to the bit. Exchanges a solve: 1 + (rounds - 1), against n + 1 here.
+
 `exchange_ghost` is the one-sided form the whole sharded step uses
 (parallel/simulate_sharded.py): a slab grows by g planes from each
 neighbour and by nothing past the domain ends, so every extended slab is
@@ -39,7 +47,9 @@ import torch.distributed as dist
 from fluidnet_tpu_torch.core.celltype import is_obstacle
 from fluidnet_tpu_torch.ops import stencil as st
 from fluidnet_tpu_torch.parallel.mesh import host_staged
-from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_update
+from fluidnet_tpu_torch.solvers.cuda_jacobi import (jacobi_cuda,
+                                                    jacobi_plain,
+                                                    jacobi_update)
 
 
 def _swap(sends, group):
@@ -217,4 +227,51 @@ def halo_jacobi_solve(flags_l, div_l, mesh, n_iter: int = 100):
                    torch.cat([lo, p[:, :, :-1]], dim=2),
                    torch.cat([p[:, :, 1:], hi], dim=2)]
         p = jacobi_update(p, div_l, shifted, masks)
+    return p
+
+
+def slab_jacobi_solve(flags_l, div_l, mesh, n_iter: int,
+                      use_kernels: bool = True, flags_ext=None):
+    """The Jacobi solve of halo_jacobi_solve (n_iter sweeps from p = 0 on
+    this rank's z-slab of a grid z-sharded over the mesh's 'sp' dim) in
+    rounds on K3: one exchange grows div (and the flags, unless
+    `flags_ext` holds them grown so) by h = min(n_iter, zl) planes of
+    each neighbour, one-sided at the global z ends; then each round runs
+    K3 for min(h, the sweeps left) sweeps on the grown slab from the p so
+    far (0 in round 1, then this rank's p grown by one exchange of h
+    planes) and keeps the own planes. Every sweep a round runs moves the
+    grown slab's fake border one plane further in, and h planes lie
+    between it and the own planes: they equal jacobi_plain on the whole
+    grid to the bit. `use_kernels=False` runs jacobi_plain in each round,
+    with the same bits. Returns this rank's slab of p."""
+    sp = mesh["sp"]
+    group, n, idx = sp.get_group(), sp.size(), sp.get_local_rank()
+    zl = div_l.shape[2]
+    if div_l.dim() != 5 or zl * n <= 1:
+        raise ValueError("slab_jacobi_solve is for 3-D grids (b, 1, z, y, "
+                         "x) with z > 1")
+    if flags_l.shape != div_l.shape:
+        raise ValueError(f"slab_jacobi_solve: flags {tuple(flags_l.shape)} "
+                         f"do not match div {tuple(div_l.shape)}")
+    if n_iter <= 0:
+        return torch.zeros_like(div_l)
+    h = min(n_iter, zl)
+    lo = h * (idx > 0)
+    grown = zl + h * ((idx > 0) + (idx < n - 1))
+    if flags_ext is None:
+        de, fe = exchange_ghost([div_l, flags_l], h, group)
+    else:
+        if flags_ext.shape[2] != grown:
+            raise ValueError(f"slab_jacobi_solve: flags_ext has "
+                             f"{flags_ext.shape[2]} z-planes, expected "
+                             f"{grown} (the slab grown by {h})")
+        de, = exchange_ghost([div_l], h, group)
+        fe = flags_ext.contiguous()
+    solve = jacobi_cuda if use_kernels else jacobi_plain
+    p, left = None, n_iter
+    while left:
+        p0 = None if p is None else exchange_ghost([p], h, group)[0]
+        sweeps = min(h, left)
+        p = solve(fe, de, sweeps, p0)[:, :, lo:lo + zl].contiguous()
+        left -= sweeps
     return p

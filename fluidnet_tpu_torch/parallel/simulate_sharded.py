@@ -17,13 +17,14 @@ Each rank holds a slab of zl = Z / n_sp planes of every field (batch over
      per-sample partial sums), and the solves that reach past G: the
      polish (an exchange of u by n + 2 planes, then divergence, n Jacobi
      sweeps on K3, the velocity update, on that extension) and jacobi-n
-     (the divergence, `halo.halo_jacobi_solve` with one exchange a sweep,
-     plain PyTorch and not K3, an exchange of p by one plane, the
-     velocity update);
+     (the divergence, `halo.slab_jacobi_solve`: K3 in rounds of at most
+     h = min(n, zl) sweeps on the slab grown by h planes, then an
+     exchange of p by one plane, the velocity update);
   4. the extended slab is cropped back to the rank's own planes.
 
 The flags and the BC masks do not change within a rollout: one exchange
-extends them at its start, to the widest reach a step needs.
+extends them at its start, to the widest reach a step needs (h for
+jacobi-n).
 
 Why one-sided. An extended slab is then a contiguous range of the whole
 grid, so every positional border test on the path falls where it falls on
@@ -44,8 +45,10 @@ for jacobi-n.
 
 Exchanges a step: the ConvNet 1 (u, p, density: 5 channels x G planes
 each way), plus 1 with the polish (u: 3 channels x (n + 2) planes);
-jacobi-n 1 (u, density: 4 x G), n in the halo Jacobi (p: 1 x 1) and 1
-for the velocity update (p: 1 x 1). All reductions (the input scale, the
+jacobi-n 1 (u, density: 4 x G), 1 + (ceil(n / h) - 1) in the solve (div
+by h, then p by h before each round after the first: 1 x h) and 1 for
+the velocity update (p: 1 x 1): 4 for jacobi-34 at 128^3 over 4 ranks
+(h = 32, two rounds). All reductions (the input scale, the
 window) run over each rank's own planes, never the ghost planes.
 
 A slab does not equal the whole grid to the bit: positions are absolute
@@ -54,7 +57,9 @@ slab starts at a plane other than 0, K1's weights round at the slab's
 index magnitude (parallel/advect_sharded.py), and the input scale's sums
 run in another order. Rank 0's own planes after one step equal the whole
 grid's to the bit through the advection and K2 (and, for jacobi-n, those
-more than n + 1 planes from the cut after the whole step).
+more than n + 1 planes from the cut after the whole step). The jacobi-n
+solve itself adds nothing: each rank's p equals K3 on the whole grid's
+divergence to the bit.
 
 Not ported here (NotImplementedError, each naming its ROADMAP item): PCG
 (its dot products and component sums need all_reduces), models with
@@ -84,7 +89,7 @@ from fluidnet_tpu_torch.ops.cuda.forces_kernel import HALO as K2_HALO
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
 from fluidnet_tpu_torch.parallel.halo import (exchange_ghost,
-                                              halo_jacobi_solve)
+                                              slab_jacobi_solve)
 from fluidnet_tpu_torch.parallel.mesh import (all_reduce_max,
                                               all_reduce_sum, batch_sharding,
                                               host_staged, local_part,
@@ -141,8 +146,8 @@ def _check(state_l: FluidState, mconf: ModelConfig, model):
 class _Slab:
     """This rank's slab of the grid for one rollout: its place, the
     ghost zones, and the flags and BC masks extended once to the widest
-    reach a step needs, or `reach` if wider (one-sided at the global
-    ends)."""
+    reach a step needs (G, the polish's n + 2, jacobi-n's h), or `reach`
+    if wider (one-sided at the global ends)."""
 
     def __init__(self, state_l, mconf, mesh, bcs_l, reach: int = 0):
         sp = mesh["sp"]
@@ -156,7 +161,9 @@ class _Slab:
         self.polish = mconf.polish_iters + 2 \
             if mconf.sim_method == "convnet" and mconf.polish_iters > 0 \
             else 0
-        self.reach = max(self.g, self.polish, reach)
+        self.solve_h = min(mconf.max_iter, zl) \
+            if mconf.sim_method == "jacobi" else 0
+        self.reach = max(self.g, self.polish, self.solve_h, reach)
         if zl < self.reach:
             raise ValueError(f"shard z-length {zl} < ghost zone "
                              f"{self.reach}: the exchange only reaches "
@@ -230,14 +237,16 @@ class _Slab:
 
     def jacobi_solve(self, state, mconf, consts, use_kernels):
         """sim.simulate._solver_projection for jacobi-n on the slab: the
-        divergence of the own planes, the halo Jacobi (plain PyTorch, one
-        exchange a sweep, equal to the bit to K3 on the whole grid; K3
-        itself does not run here: ROADMAP queue 1, item 12), then p
-        extended by one plane and the velocity update."""
+        divergence of the own planes, halo.slab_jacobi_solve (K3 in
+        rounds on the slab grown by h, with the flags grown once at the
+        rollout's start; equal to the bit to K3 on the whole grid), then
+        p extended by one plane and the velocity update."""
         flags, u = state.flags, state.u
         div = velocity_divergence(u, flags)
-        p = halo_jacobi_solve(self.own(flags), self.own(div), self.mesh,
-                              mconf.max_iter)
+        p = slab_jacobi_solve(
+            self.own(flags), self.own(div), self.mesh, mconf.max_iter,
+            use_kernels, self.crop(self.flags_reach, self.reach,
+                                   self.solve_h))
         pe, = exchange_ghost([p], 1, self.group)
         u1 = velocity_update(self.crop(u, self.g, 1),
                              self.crop(flags, self.g, 1), pe)

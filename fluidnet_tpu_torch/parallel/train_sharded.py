@@ -26,6 +26,17 @@ over 'dp' in one all_reduce.
      and divergence of its input (2), the trunk's conv radii (3 for the
      default 8-8-8-8-1 stack), its velocity update and setWallBcs (2) and
      the loss's divergence of u_pred (1): 8 planes for the default model.
+     With augment_without_targets, the first call's exchange grows p_div,
+     u_div and density by `model_ghost(mconf) + AUGMENT_REACH` planes
+     instead: train/train._data_augmentation (buoyancy, gravity, K4's
+     vorticity confinement) runs there without gradients (JAX's
+     stop_gradient), with the grid's dx, and its result is cropped to the
+     model's ghost zone and to the own planes (the unroll's start).
+     AUGMENT_REACH is 4: K4 reads u 3 planes away (the centred velocity,
+     the curl, the gradient of its norm, the face average of the force)
+     and buoyancy and gravity the density and flags of the face below,
+     the reach of K2's forces block, which composes the same three. So
+     augmentation adds no exchange and one K4 launch a step.
   3. The unroll is n_future sharded steps (simulate_sharded._sharded_step,
      one ghost exchange each), each but the last under a non-reentrant
      checkpoint in 'full' mode, as train/train.loss_fn. The recompute in
@@ -40,9 +51,8 @@ for the whole batch): they come from equal generator seeds, and
 Not ported (NotImplementedError, each naming its ROADMAP item): solver
 targets with the p/u losses on and loss_p_lambda > 0 (normalize_pressure_
 mean sums per connected component, which needs components labelled across
-slabs: item 9), augment_without_targets (item 13), and what the sharded
-step refuses (pooled or banked models: item 10; 2-D, no density, window
-0: item 6).
+slabs: item 9), and what the sharded step refuses (pooled or banked
+models: item 10; 2-D, no density, window 0: item 6).
 """
 
 import functools
@@ -54,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 from fluidnet_tpu_torch.core.config import ModelConfig
 from fluidnet_tpu_torch.core.grids import FluidState
 from fluidnet_tpu_torch.models.fluidnet import layer_spec
+from fluidnet_tpu_torch.ops.cuda.forces_kernel import HALO as K2_HALO
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
 from fluidnet_tpu_torch.parallel.halo import exchange_ghost
 from fluidnet_tpu_torch.parallel.mesh import all_reduce_max
@@ -61,7 +72,11 @@ from fluidnet_tpu_torch.parallel.simulate_sharded import (_check, _Slab,
                                                           _sharded_step)
 from fluidnet_tpu_torch.sim.simulate import _resolve_forces
 from fluidnet_tpu_torch.train.loss import border_loss_weights
-from fluidnet_tpu_torch.train.train import draw
+from fluidnet_tpu_torch.train.train import _data_augmentation, draw
+
+# The planes augment_without_targets reads beyond a cell (the module's
+# note, step 2): K2's forces block composes the same three forces.
+AUGMENT_REACH = K2_HALO
 
 
 def model_ghost(mconf: ModelConfig) -> int:
@@ -84,10 +99,6 @@ def _refuse(mconf: ModelConfig):
             "loss_p_lambda > 0 on a z-sharded batch is not ported: the "
             "target pressure's per-component mean needs components "
             "labelled across slabs (ROADMAP queue 1, item 9: sharded PCG)")
-    if mconf.augment_without_targets:
-        raise NotImplementedError(
-            "augment_without_targets on a z-sharded batch is not ported "
-            "(ROADMAP queue 1, item 13: augmentation on slabs)")
 
 
 def check_same(n_future: int, draws, group, device):
@@ -147,8 +158,9 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
     check_same(n_future, draws, dist.group.WORLD, flags.device)
     grad = torch.is_grad_enabled()
     gm = model_ghost(mconf)
+    ga = gm + AUGMENT_REACH if mconf.augment_without_targets else gm
     slab = _Slab(state_l, mconf, mesh, None,
-                 max(gm, mconf.loss_func_border_width))
+                 max(ga, mconf.loss_func_border_width))
     flags_m = slab.crop(slab.flags_reach, slab.reach, gm)
 
     def crop(x):
@@ -172,14 +184,29 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
                 mconf.loss_func_border_width), slab.reach, 0)
     scale = functools.partial(slab.input_scale, ghost=gm)
 
-    def model_loss(p, u, p_tgt, u_tgt, **lambdas):
-        pe, ue = exchange_ghost([p, u], gm, slab.group)
+    def model_loss(p, u, p_tgt, u_tgt, grown=None, **lambdas):
+        pe, ue = exchange_ghost([p, u], gm, slab.group) if grown is None \
+            else grown
         p_pred, u_pred = model(pe, ue, flags_m, input_scale=scale)
         return _slab_terms(mconf, crop, count, p_pred, u_pred, p_tgt, u_tgt,
                            flags_m, weights, **lambdas)
 
+    grown = None
+    if mconf.augment_without_targets:
+        if mconf.loss_p_lambda != 0 or mconf.loss_u_lambda != 0:
+            raise ValueError("augment_without_targets requires the p/u "
+                             "losses off")
+        with torch.no_grad():
+            pa, ua, da = exchange_ghost(
+                [batch_l["p_div"], u_div, state_l.density], ga, slab.group)
+            ua = _data_augmentation(
+                ua, slab.crop(slab.flags_reach, slab.reach, ga).contiguous(),
+                da, mconf, draws, use_kernels, dx=slab.dx)
+            grown = (slab.crop(pa, ga, gm), slab.crop(ua, ga, gm))
+            u_div = slab.crop(ua, ga, 0).contiguous()
+
     total, terms = model_loss(
-        batch_l["p_div"], u_div, p_target, u_target,
+        batch_l["p_div"], u_div, p_target, u_target, grown,
         p_lambda=mconf.loss_p_lambda, u_lambda=mconf.loss_u_lambda,
         div_lambda=mconf.loss_div_lambda)
 

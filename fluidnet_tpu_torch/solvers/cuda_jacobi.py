@@ -2,10 +2,13 @@
 
 Replaces fluidnet_tpu/solvers/pallas_jacobi.py::_kernel (jacobi_pallas):
 n sweeps from p = 0 with obstacle neighbours reflecting the centre value
-and p forced to 0 on the 1-cell border and on obstacles. The CUDA kernel
-is csrc/jacobi.cu; its source note gives the bound, the design and the
-rules it rests on. In short: one launch per solve with p kept in shared
-memory between sweeps. Each block owns a contiguous range of x-rows
+and p forced to 0 on the 1-cell border and on obstacles. Both versions
+also start from a given p0 (`p0=`): n sweeps from p0 then equal n more
+sweeps of a solve that reached p0, to the bit, which is what the rounds
+of the z-sharded solve rest on (parallel/halo.py::slab_jacobi_solve). The
+CUDA kernel is csrc/jacobi.cu; its source note gives the bound, the design
+and the rules it rests on. In short: one launch per solve with p kept in
+shared memory between sweeps. Each block owns a contiguous range of x-rows
 (flattened over b, z, y) and holds its p (twice: the sweep's input and
 output) and cell codes. A neighbour row outside the range is read, through
 L2 only (never the non-coherent read-only path: the copy is written during
@@ -74,13 +77,13 @@ def jacobi_update(p, div, shifted, masks):
     return torch.where(zero, 0.0, (tot + div) / denom)
 
 
-def jacobi_plain(flags, div, n_sweeps: int):
+def jacobi_plain(flags, div, n_sweeps: int, p0=None):
     """Plain PyTorch version of K3 (runs on any device): `n_sweeps`
-    sweeps from p = 0. flags (b,1,z,y,x) int32, div (b,1,z,y,x) f32;
-    3-D when z > 1. Returns p (b,1,z,y,x)."""
+    sweeps from p0 (None: p = 0). flags (b,1,z,y,x) int32, div and p0
+    (b,1,z,y,x) f32; 3-D when z > 1. Returns p (b,1,z,y,x)."""
     is_3d = div.shape[2] > 1
     masks = jacobi_masks(flags, is_3d)
-    p = torch.zeros_like(div)
+    p = torch.zeros_like(div) if p0 is None else p0
     for _ in range(n_sweeps):
         p = jacobi_sweep(p, div, masks, is_3d)
     return p
@@ -133,27 +136,30 @@ def device_limits(index: int):
     return resident.value, limit.value
 
 
-def _jacobi_launch(flags, div, n_sweeps):
+def _jacobi_launch(flags, div, n_sweeps, p0):
     if div.dim() != 5 or div.shape[1] != 1:
         raise ValueError(f"jacobi: div must be (b, 1, z, y, x), got "
                          f"{tuple(div.shape)}")
-    if flags.shape != div.shape:
-        raise ValueError(f"jacobi: flags {tuple(flags.shape)} do not match "
-                         f"div {tuple(div.shape)}")
-    dev = _build.require_cuda("jacobi", div, flags,
-                              dtypes=[torch.float32, torch.int32])
+    for name, t in (("flags", flags), ("p0", p0)):
+        if t is not None and t.shape != div.shape:
+            raise ValueError(f"jacobi: {name} {tuple(t.shape)} do not "
+                             f"match div {tuple(div.shape)}")
+    dev = _build.require_cuda(
+        "jacobi", div, flags, *([] if p0 is None else [p0]),
+        dtypes=[torch.float32, torch.int32, torch.float32])
     B, _, Z, Y, X = div.shape
     if B * Z * Y * X >= 2 ** 31:
         raise ValueError(f"jacobi: unsupported shape {tuple(div.shape)}")
     if n_sweeps == 0:
-        return torch.zeros_like(div)
+        return torch.zeros_like(div) if p0 is None else p0.clone()
     out = torch.empty_like(div)
     part = jacobi_route(div.shape, *device_limits(dev.index))
     scratch = torch.empty_like(div)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.fluidnet_jacobi(
-            div.data_ptr(), flags.data_ptr(), out.data_ptr(),
+            div.data_ptr(), flags.data_ptr(),
+            None if p0 is None else p0.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), B, Z, Y, X, int(n_sweeps),
             ROUTES.index(part.route), part.rows_per_block, part.halo,
             part.smem, torch.cuda.current_stream(dev).cuda_stream)
@@ -162,13 +168,13 @@ def _jacobi_launch(flags, div, n_sweeps):
     return out
 
 
-def jacobi_cuda(flags, div, n_sweeps: int):
+def jacobi_cuda(flags, div, n_sweeps: int, p0=None):
     """Fixed-sweep Jacobi solve: the same arguments and result as
     jacobi_plain. CPU tensors run jacobi_plain; CUDA tensors launch K3
     (counted once per solve in _build.launches["jacobi"]; 0 sweeps launch
-    nothing and return zeros)."""
+    nothing and return zeros, or a copy of p0)."""
     if n_sweeps < 0:
         raise ValueError(f"jacobi: n_sweeps must be >= 0, got {n_sweeps}")
     if div.device.type == "cpu":
-        return jacobi_plain(flags, div, n_sweeps)
-    return _jacobi_launch(flags, div, n_sweeps)
+        return jacobi_plain(flags, div, n_sweeps, p0)
+    return _jacobi_launch(flags, div, n_sweeps, p0)

@@ -241,20 +241,22 @@ def draw(gen, mconf: ModelConfig) -> Draws:
 
 
 def _data_augmentation(u_div, flags, density, mconf: ModelConfig, draws,
-                       use_kernels=True):
+                       use_kernels=True, dx=None):
     """tfluids.dataAugmentation (simulate.lua:374-414): extra buoyancy,
     gravity and vorticity-confinement divergence on UDiv. As the JAX port
     (train.py:128-143), it keeps the reference's quirks: addBuoyancy gets
     the RAW cardinal gravity vector, addGravity the dx-scaled one. The 3-D
-    confinement is K4."""
-    dx = get_dx(flags)
+    confinement is K4. `dx`: the grid's cell size (None: get_dx(flags));
+    a slab of a z-sharded grid passes the grid's, which its own shape
+    need not give."""
+    dx = get_dx(flags) if dx is None else dx
     if density is not None:
         g_buoy = draws.gravity * torch.where(draws.b_scale > 0, 1.0, 0.0)
         u_div = add_buoyancy(u_div, flags, density[:, 0:1], g_buoy,
-                             mconf.dt)
+                             mconf.dt, dx)
     u_div = add_gravity(u_div, flags,
                         draws.gravity * (-(dx / 4.0) * draws.g_scale),
-                        mconf.dt)
+                        mconf.dt, dx)
     vc = vorticity_confinement if use_kernels else vorticity_confinement_xla
     return vc(u_div, flags, dx * draws.v_amp)
 

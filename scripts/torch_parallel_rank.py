@@ -4,8 +4,8 @@ started by torchrun or by chip_smoke.py's phase 20 with torchrun's
 variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
 
     torchrun --nproc_per_node N scripts/torch_parallel_rank.py \\
-        --case sharded|train|step|train_sp --inputs <in.pt> --out <dir> \
-        [--backend nccl]
+        --case sharded|train|step|train_sp|jacobi --inputs <in.pt> \
+        --out <dir> [--backend nccl]
 
   --case sharded: the inputs hold a global state (u, density, flags) and
       the advection cases [(window, dt)]. On a 1 x WORLD_SIZE ('dp', 'sp')
@@ -25,11 +25,13 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       model in place of the slab's). On a 1 x WORLD_SIZE mesh each rank
       takes its slab of the state and its plume BC masks (shard_state,
       shard_bcs) and runs rollout_z_sharded with the bundled model
-      (mconf's conv dtype; none for jacobi) once with its launches counted
-      (`fault`: with zeroed_ghosts planted), once with every kernel's
-      plain version (use_kernels=False) on the same slab, its difference
-      to the first reported, then once more timed, and --reps timed
-      exchanges of the step's fields.
+      (mconf's conv dtype; none for jacobi) once with its launches and
+      collectives counted (`fault`: with zeroed_ghosts planted), once with
+      every kernel's plain version (use_kernels=False) on the same slab,
+      its difference to the first reported, then once more timed, and
+      --reps timed exchanges of the step's fields. A jacobi-n run is also
+      rerun and timed on the per-sweep halo Jacobi (`halo_solve`), which
+      must give the same bits.
   --case train_sp: the inputs hold host batches, the draws, the model
       seed, the horizon n and the runs [{name, mesh (n_dp, n_sp), mconf,
       batch}]. On each run's mesh each rank takes its part of the batch
@@ -41,7 +43,13 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       cotangents (`dropped_adjoint`, the planted fault); each reduced
       over the mesh as train_step(mesh=) reduces them. Then two timed
       train_step(mesh=) and --reps timed forward and adjoint exchanges of
-      a step's fields.
+      a step's fields. With augment_without_targets, the u the first
+      model call gets (the augmented slab grown by model_ghost) is kept.
+  --case jacobi: the inputs hold a global flags and div and the sweep
+      counts n_iters. On a 1 x WORLD_SIZE mesh each rank takes its slabs
+      and runs slab_jacobi_solve for each n with its launches and
+      exchanges counted, then with K3's plain version (use_kernels=False),
+      then --reps timed solves of it and of halo_jacobi_solve.
 
 Each rank writes rank<r>.pt (its slabs, the halo planes its first
 exchange received, or its params) and rank<r>.json (its transport,
@@ -127,6 +135,24 @@ def zeroed_ghosts(at_call, rank):
 
 
 @contextlib.contextmanager
+def halo_solve():
+    """Runs the sharded jacobi-n step on the per-sweep halo Jacobi (plain
+    PyTorch, one exchange a sweep) in place of slab_jacobi_solve's rounds
+    on K3, so that one call can time both steps."""
+    from fluidnet_tpu_torch.parallel import simulate_sharded as ss
+    from fluidnet_tpu_torch.parallel.halo import halo_jacobi_solve
+    real = ss.slab_jacobi_solve
+
+    def old(flags_l, div_l, mesh, n_iter, use_kernels=True, flags_ext=None):
+        return halo_jacobi_solve(flags_l, div_l, mesh, n_iter)
+    ss.slab_jacobi_solve = old
+    try:
+        yield
+    finally:
+        ss.slab_jacobi_solve = real
+
+
+@contextlib.contextmanager
 def dropped_adjoint():
     """Plants the fault the sharded training's checks must catch: the
     exchanges' adjoint drops the cotangents of the ghost planes (no rank
@@ -142,6 +168,19 @@ def dropped_adjoint():
         yield
     finally:
         halo.planes_adjoint = real
+
+
+class FirstInput(torch.nn.Module):
+    """`model`, keeping in `seen` the u it is given at its first call."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model, self.seen = model, None
+
+    def forward(self, p, u, flags, **kw):
+        if self.seen is None:
+            self.seen = u.detach().clone()
+        return self.model(p, u, flags, **kw)
 
 
 class InputScale(torch.nn.Module):
@@ -295,10 +334,12 @@ def step(inp, reps, rank):
                     else contextlib.nullcontext():
                 return ss.rollout_z_sharded(state_l, mconf, n, mesh, model,
                                             bcs_l, use_kernels=use_kernels)
-        out, launches = counted(roll)
+        with comm_counts() as comms:
+            out, launches = counted(roll)
         keys = ("u", "p", "density")
         saved[run["name"]] = {k: getattr(out, k).cpu() for k in keys}
-        rec = {"launches": launches, "slab": list(state_l.u.shape),
+        rec = {"launches": launches, "comms": dict(comms),
+               "slab": list(state_l.u.shape),
                "ghost": ss.ghost_planes(mconf),
                "transport": transport(state_l.u, group)}
         if model is not None:
@@ -313,6 +354,16 @@ def step(inp, reps, rank):
                                              getattr(plain, k))
                                  for k in keys)
         del plain
+        if mconf.sim_method == "jacobi":
+            with halo_solve():
+                with comm_counts() as comms:
+                    old = roll()
+                rec["halo_comms"] = dict(comms)
+                rec["halo_equal"] = all(torch.equal(getattr(out, k),
+                                                    getattr(old, k))
+                                        for k in keys)
+                del old
+                rec["halo_step_ms"] = [t / n for t in timed(roll, 1)]
         if not run["fault"]:
             rec["step_ms"] = [t / n for t in timed(roll, 1)]
             G = rec["ghost"]
@@ -407,6 +458,14 @@ def train_sp(inp, reps, rank):
         del g_p
         with dropped_adjoint():
             fault, _ = reduced(*local())
+        aug_u = None
+        if mconf.augment_without_targets:
+            rec_u = FirstInput(tr.init_train_state(seed, mconf, dev).model)
+            with torch.no_grad():
+                loss_fn_sharded(rec_u, batch_l, None, mconf, n, mesh,
+                                draws=draws)
+            aug_u = rec_u.seen.cpu()
+            del rec_u
         state = tr.init_train_state(seed, mconf, dev)
         steps = []
         for _ in range(2):
@@ -438,10 +497,35 @@ def train_sp(inp, reps, rank):
             f.element_size() for f in fields) / 2**20
         info["runs"][run["name"]] = rec
         saved[run["name"]] = {
-            "grads": grads, "fault": fault,
+            "grads": grads, "fault": fault, "aug_u": aug_u,
             "params": [p.detach().to("cpu", copy=True)
                        for p in state.params]}
         del batch_l, state, fields, cots
+    return info, saved
+
+
+def jacobi(inp, reps, rank):
+    from fluidnet_tpu_torch.parallel.halo import (halo_jacobi_solve,
+                                                  slab_jacobi_solve)
+    mesh = make_mesh(n_dp=1, n_sp=dist.get_world_size())
+    dev = mesh_device(mesh)
+    sp = spatial_sharding(mesh)
+    f, d = (local_part(inp[k], sp).to(dev).contiguous()
+            for k in ("flags", "div"))
+    info = {"rank": rank, "device": str(dev), "slab": list(d.shape),
+            "transport": transport(d, mesh["sp"].get_group()), "runs": {}}
+    saved = {}
+    for n in inp["n_iters"]:
+        with comm_counts() as comms:
+            p, launches = counted(lambda: slab_jacobi_solve(f, d, mesh, n))
+        plain = slab_jacobi_solve(f, d, mesh, n, use_kernels=False)
+        info["runs"][n] = {
+            "launches": launches, "comms": dict(comms),
+            "plain_equal": torch.equal(p, plain),
+            "ms": timed(lambda: slab_jacobi_solve(f, d, mesh, n), reps),
+            "halo_ms": timed(lambda: halo_jacobi_solve(f, d, mesh, n),
+                             reps)}
+        saved[n] = p.cpu()
     return info, saved
 
 
@@ -501,7 +585,7 @@ def spawn_local(args, world, out, timeout, tag="ranks", backend="gloo"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--case", choices=("sharded", "train", "step",
-                                       "train_sp"),
+                                       "train_sp", "jacobi"),
                     required=True)
     ap.add_argument("--inputs", required=True)
     ap.add_argument("--out", required=True)
@@ -520,7 +604,8 @@ def main(argv=None):
     info, saved = {"sharded": lambda: sharded(inp, args.reps, rank),
                    "train": lambda: train(inp, rank),
                    "step": lambda: step(inp, args.reps, rank),
-                   "train_sp": lambda: train_sp(inp, args.reps, rank)}[
+                   "train_sp": lambda: train_sp(inp, args.reps, rank),
+                   "jacobi": lambda: jacobi(inp, args.reps, rank)}[
         args.case]()
     info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     info["launches_total"] = dict(_build.launches)

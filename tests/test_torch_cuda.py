@@ -11,7 +11,8 @@ Both sides run the same float32 operations (the kernels are built with
 are held to a max abs error of 0, K1, K2 and K4 on shapes that cut their
 xy tiles and z-ranges raggedly and on both routes of K1 (windows 1, 2
 tiled, 3 global), K6 on shapes that cut its 32 x 8 tiles raggedly, K3 on
-every route it takes; rollouts to 1e-5 of each field's largest value.
+every route it takes, from p = 0 and from a given p0; rollouts to 1e-5 of
+each field's largest value.
 Batch 2 and odd extents exercise the kernels' indexing.
 """
 
@@ -275,6 +276,67 @@ def test_jacobi_graph_replay_matches_eager(dev, shape):
     assert torch.equal(out, jacobi_plain(flags, div, 34))
 
 
+# K3 from a given p0 on each route: the persistent route at the plume,
+# the training targets' batch, a slab of the 128^3 plume grown by 32 planes
+# each side (the sharded jacobi-34 solve's round) and 2-D; the sweep route
+# at 256^3.
+JACOBI_P0_ROUTES = {(1, 1, 128, 128, 128): "persistent",
+                    (6, 1, 64, 64, 64): "persistent",
+                    (1, 1, 96, 128, 128): "persistent",
+                    (1, 1, 1, 128, 128): "persistent",
+                    (1, 1, 256, 256, 256): "sweep"}
+
+
+@pytest.mark.parametrize("shape", list(JACOBI_P0_ROUTES))
+def test_jacobi_from_p0_matches_plain(dev, shape):
+    """K3 from a random p0 (border and obstacle cells not 0, which sweep 0
+    reads as the plain version does) at 1, 2, 3 and 34 sweeps: equal to
+    the bit to jacobi_plain from p0 (n = 1, 2, 3 catch a stale or zero
+    halo row in another block's range); 0 sweeps give p0 back; p0 is not
+    written."""
+    flags, div = _jacobi_case(dev, shape, 14)
+    assert jacobi_route(shape, *device_limits(dev.index)).route == \
+        JACOBI_P0_ROUTES[shape]
+    p0 = torch.randn(shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(3))
+    keep = p0.clone()
+    for n in (1, 2, 3, 34):
+        out, ref = jacobi_cuda(flags, div, n, p0), \
+            jacobi_plain(flags, div, n, p0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), \
+            f"{shape} {n} sweeps from p0: max abs err " \
+            f"{(out - ref).abs().max()}"
+    assert torch.equal(jacobi_cuda(flags, div, 0, p0), p0)
+    assert torch.equal(p0, keep)
+
+
+def test_jacobi_from_p0_graph_replay(dev):
+    """A CUDA graph of a 34-sweep solve from p0 at 128^3 replays to the
+    eager call's bits, and to the plain version's for a new p0 and div
+    written in place."""
+    shape = (1, 1, 128, 128, 128)
+    flags, div = _jacobi_case(dev, shape, 15)
+    p0 = jacobi_plain(flags, div, 5)
+    eager = jacobi_cuda(flags, div, 34, p0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        jacobi_cuda(flags, div, 34, p0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = jacobi_cuda(flags, div, 34, p0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    p0.mul_(-2.0)
+    div.mul_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, jacobi_plain(flags, div, 34, p0))
+
+
 def test_wrappers_reject_bad_arguments(dev):
     c = _case(dev)
     m = is_fluid(c["flags"]).to(torch.float32)
@@ -290,6 +352,8 @@ def test_wrappers_reject_bad_arguments(dev):
                                         [0.0] * 3, [0.0] * 3, 0.0, 0.1)
     with pytest.raises(ValueError):
         jacobi_cuda(c["flags"].float(), c["s"], 3)
+    with pytest.raises(ValueError):
+        jacobi_cuda(c["flags"], c["s"], 3, c["s"][:, :, 1:])
 
 
 # Launches per step of each projection: K1 twice, then K2's prologue
@@ -753,6 +817,35 @@ def test_sharded_paths_on_two_ranks(dev, tmp_path, backend):
     p = torch.cat([s["jacobi"] for s in saved], 2)
     assert torch.equal(p, jacobi_cuda(f_c, div.to(dev), 8).cpu())
     assert torch.equal(p, jacobi_plain(flags, div, 8))
+
+
+def test_slab_jacobi_on_two_ranks(dev, tmp_path):
+    """slab_jacobi_solve on 2 gloo ranks sharing the card (scripts/
+    torch_parallel_rank.py --case jacobi): a 2x24x20x28 grid with 15%
+    obstacles cut at z 12, 5, 12, 30 and 34 sweeps (one to three rounds on
+    slabs grown by up to 12 planes): each rank's p equal to the bit to K3
+    on the whole grid and to its plain versions'; K3 launched once a
+    round, and one exchange a round."""
+    rng = np.random.default_rng(33)
+    shape = (2, 1, 24, 20, 28)
+    flags = torch.tensor(_flags(rng, shape).astype(np.int32))
+    div = torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+    n_iters = [5, 12, 30, 34]
+    torch.save({"flags": flags, "div": div, "n_iters": n_iters},
+               tmp_path / "in.pt")
+    reports, saved, _ = _rank_script().spawn_local(
+        ["--case", "jacobi", "--inputs", str(tmp_path / "in.pt"), "--reps",
+         "1"], 2, str(tmp_path), 300, "test")
+    f_c, d_c = flags.to(dev), div.to(dev)
+    for n in n_iters:
+        rounds = -(-n // min(n, 12))
+        p = torch.cat([s[n] for s in saved], 2)
+        assert torch.equal(p, jacobi_cuda(f_c, d_c, n).cpu()), n
+        for rep in reports:
+            r = rep["runs"][str(n)]
+            assert r["launches"] == {"jacobi": rounds}, (n, r["launches"])
+            assert r["comms"]["exchanges"] == rounds, (n, r["comms"])
+            assert r["plain_equal"], n
 
 
 def test_sharded_train_step_on_two_ranks(dev, tmp_path):

@@ -20,7 +20,9 @@ Held (tolerances stated per test): the loss terms, every parameter's
 gradient, the params after 2 Adam steps and eval_step's terms against
 JAX and against the port's one-process loss_fn / train_step / eval_step;
 one simulate_z_sharded(grad=True) step's gradients against simulate(grad=
-True); the exchange's and all_reduce_sum's adjoints by the dot-product
+True); the loss with augment_without_targets (gravity drawn on too) against
+the port's one-process loss_fn with it, with no more exchanges than
+without; the exchange's and all_reduce_sum's adjoints by the dot-product
 identity; a planted fault (the exchanges' adjoint drops the ghost
 planes' cotangents) that must fail the gradient limits; the refusals.
 """
@@ -59,11 +61,11 @@ JAX_RTOL, PORT_RTOL, GRAD_REL = 1e-4, 1e-5, 1e-4
 REFUSALS = {"solver_targets": dict(train_target_source="jacobi",
                                    loss_u_lambda=1.0),
             "p_loss": dict(loss_p_lambda=1.0),
-            "augment": dict(augment_without_targets=True),
             "tog": dict(model_type="tog"),
             "window0": dict(advection_window=0)}
 ITEMS = {"solver_targets": "item 9", "p_loss": "item 9",
-         "augment": "item 13", "tog": "item 10", "window0": "item 6"}
+         "tog": "item 10", "window0": "item 6"}
+AUGMENT = dict(augment_without_targets=True)
 
 
 def _free_port():
@@ -85,6 +87,12 @@ def _mconf():
 def _draws(inp):
     from fluidnet_tpu_torch.train.train import Draws
     return Draws(*(torch.tensor(inp[f"draw_{k}"]) for k in DRAWS))
+
+
+def _aug_draws(inp):
+    """The draws with gravity on as well: the augmentation adds all three
+    forces."""
+    return _draws(inp)._replace(g_scale=torch.tensor(2.0))
 
 
 def _batch(inp):
@@ -110,6 +118,12 @@ def _step_objective(out, inp, z0, zl):
     on planes z0 .. z0 + zl of the grid."""
     return sum((getattr(out, k) * torch.from_numpy(
         inp[f"cot_{k}"][:, :, z0:z0 + zl])).sum() for k in ("u", "p"))
+
+
+def _grown(x, z0, zl, g):
+    """Planes z0 - g .. z0 + zl + g of the whole-grid x, cut at the grid's
+    ends (a one-sided ghost zone)."""
+    return x[:, :, max(z0 - g, 0):min(z0 + zl + g, x.shape[2])]
 
 
 # --- the worker (run as a script; imports no JAX) ---------------------------
@@ -194,6 +208,26 @@ def _worker(rank, world, n_dp, n_sp, port, inp):
         res["sim_du"], res["sim_dp"] = got[0], got[1]
         res.update({f"sim_grad_{k}": g for k, g in
                     zip(_named(model), got[2:])})
+
+        # augment_without_targets on the slabs, its exchanges counted
+        # beside the loss's without it.
+        for name, m, dr in (("plain", tm, draws),
+                            ("aug", tm.replace(**AUGMENT), _aug_draws(inp))):
+            model = _model(inp, m)
+            rec = _rank_script().FirstInput(model)
+            with _rank_script().comm_counts() as comms:
+                total, terms = loss_fn_sharded(rec, batch_l, None, m,
+                                               N_FUTURE, mesh, draws=dr)
+                grads = torch.autograd.grad(total, [
+                    q for _, q in model.jax_named_parameters()])
+            grads, terms = tr._mean_over(dist.group.WORLD, grads, terms,
+                                         tr._replicas(mesh))
+            res[f"{name}_comms"] = np.array([comms[k] for k in sorted(comms)])
+            if name == "aug":
+                res["aug_model_u"] = rec.seen
+                res.update({f"aug_grad_{k}": g for k, g in
+                            zip(_named(model), grads)})
+                res.update({f"aug_term_{k}": v for k, v in terms.items()})
 
         def error(fn):
             try:
@@ -376,6 +410,20 @@ def _port_ref(inp):
                                             model.jax_named_parameters()])
         out["sim"] = {"du": got[0], "dp": got[1],
                       "grads": dict(zip(_named(model), got[2:]))}
+        m = tm.replace(**AUGMENT)
+        model = _model(inp, m)
+        total, terms = tr.loss_fn(model, batch, None, m, N_FUTURE,
+                                  draws=_aug_draws(inp))
+        with torch.no_grad():
+            aug_u = tr._data_augmentation(
+                batch["u_div"], batch["flags"], batch["density"], m,
+                _aug_draws(inp))
+        out["aug"] = {"u": aug_u.numpy(),
+                      "terms": {k: float(v.detach())
+                                for k, v in terms.items()},
+                      "grads": dict(zip(_named(model), torch.autograd.grad(
+                          total, [q for _, q in
+                                  model.jax_named_parameters()])))}
         return out
     finally:
         torch.set_num_threads(threads)
@@ -537,10 +585,41 @@ def test_simulate_z_sharded_grad(run):
         assert _rel(got, pref["sim"]["grads"][k].numpy()) <= GRAD_REL, k
 
 
+def test_augmentation_on_slabs(run):
+    """augment_without_targets on dp 1 x sp 2 (buoyancy, gravity and
+    vorticity confinement on each slab grown by the model's ghost zone and
+    AUGMENT_REACH, the grid's dx): the reduced terms within PORT_RTOL (atol
+    1e-7) of the port's one-process loss_fn with it, which
+    tests/test_torch_train.py holds against JAX's, and every gradient
+    within GRAD_REL relative L2, on every rank; the augmentation moves the
+    loss, and the first model call's exchange carries it (as many
+    exchanges, adjoint exchanges and all_reduces as without it). The u
+    the first model call gets, each rank's slab grown by model_ghost
+    planes, equals the whole grid's augmented u_div on those planes to
+    the bit: the augmentation's ghost zone reaches far enough."""
+    from fluidnet_tpu_torch.parallel.train_sharded import model_ghost
+    _, pref, outs = run
+    want = pref["aug"]
+    zl, gm = SHAPE[2] // 2, model_ghost(_mconf())
+    for rank, o in enumerate(outs["dp1_sp2"]):
+        np.testing.assert_array_equal(
+            o["aug_model_u"], _grown(want["u"], rank * zl, zl, gm))
+        for k in TERMS:
+            np.testing.assert_allclose(o[f"aug_term_{k}"], want["terms"][k],
+                                       rtol=PORT_RTOL, atol=1e-7, err_msg=k)
+        w = _worst_grad(o, "aug_grad_", lambda k: want["grads"][k].numpy())
+        print(f"augmentation: gradients' worst relative L2 vs the port "
+              f"{w:.3e}")
+        assert w <= GRAD_REL, w
+        np.testing.assert_array_equal(o["aug_comms"], o["plain_comms"])
+    assert abs(want["terms"]["div"] - pref["terms"]["div"]) > \
+        1e-3 * pref["terms"]["div"]
+
+
 def test_refusals(run):
-    """Solver targets with the p/u losses on, loss_p_lambda > 0,
-    augment_without_targets, a pooled model (tog) and advection_window 0
-    raise NotImplementedError naming their ROADMAP item."""
+    """Solver targets with the p/u losses on, loss_p_lambda > 0, a pooled
+    model (tog) and advection_window 0 raise NotImplementedError naming
+    their ROADMAP item."""
     _, _, outs = run
     for o in outs["dp1_sp2"]:
         for name, item in ITEMS.items():

@@ -172,6 +172,35 @@ def test_loss_fn_terms_and_grads_match_jax(batch, setup, dtype):
             assert_close(g, ref, 1e-4, 1e-4 * scale, name)
 
 
+def test_loss_fn_with_augmentation_matches_jax(batch, setup):
+    """augment_without_targets (buoyancy, gravity and vorticity
+    confinement added to u_div without gradients before the model and the
+    unroll), with gravity drawn on as well (train_gravity_prob 1), float32
+    convs: terms rtol 1e-5, gradients rtol 1e-4, atol 1e-4 of the
+    parameter's largest, as test_loss_fn_terms_and_grads_match_jax; the
+    augmentation moves the first divergence term."""
+    s = setup["float32"]
+    jm, tm = _mconfs("float32", augment_without_targets=True,
+                     train_gravity_prob=1.0)
+    key = _key_with_forces(jm)
+    draws = _draws(key, jm)
+    assert float(draws.g_scale) > 0
+    (_, jterms), jgrads = s["vg"](s["params"], _jbatch(batch), key, jm,
+                                  N_FUTURE)
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, s["params"]),
+                            tm, device=DEV)
+    terms, grads = _grads(model, batch, tm, draws, N_FUTURE)
+    for k in TERMS:
+        assert_close(terms[k].detach(), jterms[k], 1e-5, 1e-7, k)
+    scale = _largest(jgrads)
+    for name, g in grads.items():
+        assert_close(g, _named(jgrads, name), 1e-4, 1e-4 * scale, name)
+    plain, _ = _grads(model, batch, tm.replace(augment_without_targets=False),
+                      draws, N_FUTURE)
+    moved = float(plain["div"].detach()) - float(terms["div"].detach())
+    assert abs(moved) > 1e-3 * float(terms["div"].detach())
+
+
 def test_three_adam_steps_with_binding_clip(batch, setup):
     """Three train_steps (clip at 1e-3, so it binds every step) against the
     JAX step's ops: value_and_grad, make_optimizer's chain, apply_updates,
