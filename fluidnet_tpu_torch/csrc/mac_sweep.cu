@@ -13,7 +13,10 @@
 //      (getAtMAC, zero-filled at the domain edge) and of the cell-centered
 //      scalar (getCentered, zero on the 1-cell border): d = dcoef * vel,
 //      scaled into the Chebyshev free space for the 'Ours' methods, clipped
-//      to +-(W - 1e-3), p = cell_index + d;
+//      to +-(W - 1e-3), p = cell_index + d. The z index is global: the
+//      array's first plane is z0 (a slab of a z-sharded grid; 0 for a
+//      whole grid), so a weight p - floor(p) rounds as the whole grid's,
+//      and a corner's plane in the array is floor(p) - z0;
 //   2. warps u (forward) or fwd_u (backward), and the scalar with its
 //      mask-renormalized num/den, trilinearly with BUILD_INDEX border
 //      clamps; tracks min/max over the 2x2x2 corner support (of u on both
@@ -67,8 +70,9 @@
 //     ~60 registers leave 32 warps an SM.
 //   - Global (W >= 3: the configurations set windows 1 and 2, and each
 //     window the tiled route instantiates is 20 kernels more to build;
-//     and an extent above 2^15, where the float32 i + (W - 1e-3) rounds
-//     to i + W and a corner falls outside the tile): one thread per
+//     and a global index above 2^15 (z0 + Z in z), where the float32
+//     i + (W - 1e-3) rounds to i + W and a corner falls outside the
+//     tile): one thread per
 //     output cell, every read a gather through the read-only path left to
 //     L1/L2.
 
@@ -90,6 +94,7 @@ enum Chan { kU = 0, kFU = 3, kWS = 6, kM = 7 };
 
 struct Grid {
   int Z, Y, X;
+  int z0;   // global index of plane 0
   __device__ __forceinline__ int at(int k, int j, int i) const {
     return (k * Y + j) * X + i;
   }
@@ -104,15 +109,18 @@ struct Axis {
 };
 
 // BUILD_INDEX (warp.py:_corner_weights, mac_sweep.py:142-152): p is an
-// index-offset position. p < 0 -> corner 0 with weight 1; a base corner at
-// or past n-1 -> corners {n-2, n-1} with weights {0, 1}. Without branches:
-// p clamped to [0, n - 1] and its floor to n - 2 give the same corner and
-// the same weights to the bit (w1 = 0 - 0 and (n - 1) - (n - 2) are exact,
-// and inside the range nothing moves).
-__device__ __forceinline__ Axis build_index(float p, int n) {
-  const float pc = fminf(fmaxf(p, 0.f), static_cast<float>(n - 1));
-  const float fi = fminf(floorf(pc), static_cast<float>(n - 2));
-  Axis a{static_cast<int>(fi), 0.f, pc - fi};
+// index-offset position along an axis of n cells whose first is global
+// index lo. p < lo -> corner lo with weight 1; a base corner at or past
+// lo + n - 1 -> corners {lo + n - 2, lo + n - 1} with weights {0, 1}.
+// Without branches: p clamped to [lo, lo + n - 1] and its floor to
+// lo + n - 2 give the same corner and the same weights to the bit (w1 =
+// lo - lo and (lo + n - 1) - (lo + n - 2) are exact, and inside the range
+// nothing moves). Returns the corner's index into the array (less lo).
+__device__ __forceinline__ Axis build_index(float p, int lo, int n) {
+  const float pc = fminf(fmaxf(p, static_cast<float>(lo)),
+                         static_cast<float>(lo + n - 1));
+  const float fi = fminf(floorf(pc), static_cast<float>(lo + n - 2));
+  Axis a{static_cast<int>(fi) - lo, 0.f, pc - fi};
   a.w0 = 1.f - a.w1;
   return a;
 }
@@ -182,8 +190,8 @@ struct GlobalSrc {
   __device__ __forceinline__ float s_at() const { return __ldg(S + c0); }
   __device__ __forceinline__ float free_at() const { return __ldg(fr + c0); }
   __device__ __forceinline__ Taps taps(const Pos& p) const {
-    const Axis ax = build_index(p.x, g.X), ay = build_index(p.y, g.Y),
-               az = build_index(p.z, g.Z);
+    const Axis ax = build_index(p.x, 0, g.X), ay = build_index(p.y, 0, g.Y),
+               az = build_index(p.z, g.z0, g.Z);
     Taps t;
     weights(ax, ay, az, t.w);
 #pragma unroll
@@ -219,11 +227,11 @@ struct TileSrc {
   using T = Ring<W, TY, IS_BWD, SCALAR>;
   const float* sm;   // the ring
   int base[2 * W + 1];   // offset of planes k - W .. k + W in the ring
-  int kw, oy, ox;    // global indices of the tile's first plane, row, column
+  int kw, oy, ox;    // array indices of the tile's first plane, row, column
   int cc;            // the thread's cell in a plane
   const float* S;    // s at the cell (backward sweep), global
   const float* fr;   // free space at the cell, global
-  int Z, Y, X;
+  int Z, Y, X, z0;
   struct Taps {
     int b0, b1;      // the corners' lower-z and upper-z (0, 0, 0) addresses
     float w[8];
@@ -242,8 +250,8 @@ struct TileSrc {
   __device__ __forceinline__ float s_at() const { return __ldg(S); }
   __device__ __forceinline__ float free_at() const { return __ldg(fr); }
   __device__ __forceinline__ Taps taps(const Pos& p) const {
-    const Axis ax = build_index(p.x, X), ay = build_index(p.y, Y),
-               az = build_index(p.z, Z);
+    const Axis ax = build_index(p.x, 0, X), ay = build_index(p.y, 0, Y),
+               az = build_index(p.z, z0, Z);
     Taps t;
     weights(ax, ay, az, t.w);
     const int e = az.i - kw;   // in [0, 2W - 1]: the window's guarantee
@@ -294,6 +302,7 @@ __device__ __forceinline__ void sweep_cell(const Src& src, float* out,
 
   const float allowed =
       OURS ? fmaxf(src.free_at() - 0.5f - kEps, 0.f) : 0.f;
+  const int kg = k + g.z0;   // the plane's global index
   const bool fl = SCALAR ? src.at(kM) > 0.5f : true;
 
   // Warped velocity: u forward, fwd_u backward; bounds always from u.
@@ -302,7 +311,7 @@ __device__ __forceinline__ void sweep_cell(const Src& src, float* out,
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const Pos p = backtrace<OURS>(vel[c][0], vel[c][1], vel[c][2], dcoef,
-                                  allowed, lim, k, j, i);
+                                  allowed, lim, kg, j, i);
     const auto cr = src.taps(p);
     // Each sum and bound starts from the first corner, as the plain
     // version's.
@@ -333,10 +342,10 @@ __device__ __forceinline__ void sweep_cell(const Src& src, float* out,
 
   // Scalar group. Forward 'Ours': non-fluid cells warp their own centers.
   Pos ps = backtrace<OURS>(vel[3][0], vel[3][1], vel[3][2], dcoef, allowed,
-                           lim, k, j, i);
+                           lim, kg, j, i);
   if (!IS_BWD && OURS && !fl) {
     ps = Pos{static_cast<float>(i), static_cast<float>(j),
-             static_cast<float>(k)};
+             static_cast<float>(kg)};
   }
   const auto cs = src.taps(ps);
   float plain = 0.f, num = 0.f, den = 0.f, smn = 0.f, smx = 0.f;
@@ -535,7 +544,7 @@ mac_sweep_tiled(Args a) {
       const int idx = (k * g.Y + j) * g.X + i;
       TileSrc<W, TY, IS_BWD, SCALAR> ts{
           sm, {}, k - W, oy, ox, cell, a.s + b * n + idx,
-          a.fr + b * n + idx, g.Z, g.Y, g.X};
+          a.fr + b * n + idx, g.Z, g.Y, g.X, g.z0};
 #pragma unroll
       for (int e = 0; e <= 2 * W; ++e) {
         const int q = s0 + e;
@@ -621,7 +630,9 @@ cudaError_t dispatch(int is_bwd, int ours, int renorm, int scalar, int fuse,
 // fuse == 0: the raw channels of mac_sweep.py:545-558, (B, 9, ...) without
 // the scalar (s, m, fwd_s unread, may be null), else (B, 9 + (renorm ? 3 :
 // 1) + (is_bwd ? 0 : 2), ...); s is read forward only. fwd_u/fwd_s are
-// null on the forward sweep, free_space is null unless `ours`. tile_y 0:
+// null on the forward sweep, free_space is null unless `ours`. z0: the
+// global index of plane 0 (positions and BUILD_INDEX's z clamps are
+// global; 0 for a whole grid). tile_y 0:
 // the global route; 8 or 16: the tiled route (window 1 or 2) with `planes`
 // output planes a block (ops/cuda/mac_sweep.py's sweep_tiling). Returns
 // cudaGetLastError().
@@ -629,11 +640,12 @@ extern "C" int fluidnet_mac_sweep(const float* u, const float* s,
                                   const float* m, const float* fwd_u,
                                   const float* fwd_s, const float* free_space,
                                   float* out, int B, int Z, int Y, int X,
-                                  float dcoef, float strength, float lim,
+                                  int z0, float dcoef, float strength,
+                                  float lim,
                                   int is_bwd, int ours, int renorm,
                                   int scalar, int fuse, int window,
                                   int tile_y, int planes, void* stream) {
-  const Args a{u, s, m, fwd_u, fwd_s, free_space, out, B, Grid{Z, Y, X},
+  const Args a{u, s, m, fwd_u, fwd_s, free_space, out, B, Grid{Z, Y, X, z0},
                dcoef, strength, lim, planes};
   return static_cast<int>(dispatch(is_bwd, ours, renorm, scalar, fuse, a,
                                    window, tile_y, nullptr,

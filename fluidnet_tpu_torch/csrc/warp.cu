@@ -12,7 +12,11 @@
 //      corner 0 with weight 1; i >= n - 1 gives corners {n-2, n-1} with
 //      weights {0, 1}. Nearest mode (gather_cells) takes the one cell
 //      clip(floor(p), 0, n - 1) with weight 1. Z == 1 is the 2-D case: only
-//      the zero z-offset, weight 1;
+//      the zero z-offset, weight 1. In z the positions are global: the
+//      array's first plane is z0 (a slab of a z-sharded grid; 0 for a
+//      whole grid), the clamps sit at z0 and z0 + Z - 1, the window test
+//      below compares with the global cell z0 + k, and a corner's plane in
+//      the array is its global index less z0;
 //   2. drops a corner more than W cells from the output cell on any axis,
 //      and the upper corner i + 1 whenever the base corner i is dropped
 //      (the TPU kernel's (2W+1)^d tap window, warp.py:95-101; the callers'
@@ -85,24 +89,28 @@ __device__ __forceinline__ bool in_window(int c, int o, int W, int n) {
          static_cast<unsigned>(c) < static_cast<unsigned>(n);
 }
 
-// BUILD_INDEX corners of one axis (warp.py:_corner_weights).
-__device__ __forceinline__ Axis linear_axis(float pos, int n, int o, int W) {
+// BUILD_INDEX corners of one axis (warp.py:_corner_weights) of n cells
+// whose first is global index lo; o is the output cell's index in the
+// array, the corners' too.
+__device__ __forceinline__ Axis linear_axis(float pos, int lo, int n, int o,
+                                            int W) {
   const float p = pos - 0.5f;
   const float fi = floorf(p);
   Axis a;
   int i = static_cast<int>(fi);
   float w1 = p - fi;
   float w0 = 1.f - w1;
-  if (p < 0.f) {
-    i = 0;
+  if (p < static_cast<float>(lo)) {
+    i = lo;
     w0 = 1.f;
     w1 = 0.f;
   }
-  if (i >= n - 1) {
-    i = n - 2;
+  if (i >= lo + n - 1) {
+    i = lo + n - 2;
     w0 = 0.f;
     w1 = 1.f;
   }
+  i -= lo;
   a.c[0] = i;
   a.c[1] = i + 1;
   a.w[0] = w0;
@@ -116,10 +124,11 @@ __device__ __forceinline__ Axis linear_axis(float pos, int n, int o, int W) {
 }
 
 // The one cell of nearest mode (warp.py:_nearest_weights).
-__device__ __forceinline__ Axis nearest_axis(float pos, int n, int o, int W) {
+__device__ __forceinline__ Axis nearest_axis(float pos, int lo, int n, int o,
+                                             int W) {
   Axis a;
   int i = static_cast<int>(floorf(pos - 0.5f));
-  i = min(max(i, 0), n - 1);
+  i = min(max(i, lo), lo + n - 1) - lo;
   a.c[0] = a.c[1] = i;
   a.w[0] = a.w[1] = 1.f;
   a.ok[0] = in_window(i, o, W, n);
@@ -128,8 +137,10 @@ __device__ __forceinline__ Axis nearest_axis(float pos, int n, int o, int W) {
 }
 
 template <bool NEAREST>
-__device__ __forceinline__ Axis axis(float pos, int n, int o, int W) {
-  return NEAREST ? nearest_axis(pos, n, o, W) : linear_axis(pos, n, o, W);
+__device__ __forceinline__ Axis axis(float pos, int lo, int n, int o,
+                                     int W) {
+  return NEAREST ? nearest_axis(pos, lo, n, o, W)
+                 : linear_axis(pos, lo, n, o, W);
 }
 
 __device__ __forceinline__ Axis flat_axis() {
@@ -243,8 +254,8 @@ template <bool NEAREST, bool IS_3D, int MM>
 __global__ void __launch_bounds__(kThreads)
 warp_direct(Chans ch, const float* __restrict__ px,
             const float* __restrict__ py, const float* __restrict__ pz,
-            float* __restrict__ out, int total, int Z, int Y, int X, int W,
-            int F, unsigned skip, int cmin, int cmax) {
+            float* __restrict__ out, int total, int Z, int Y, int X, int z0,
+            int W, int F, unsigned skip, int cmin, int cmax) {
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= total) return;
   const int nsp = Z * Y * X;
@@ -253,10 +264,10 @@ warp_direct(Chans ch, const float* __restrict__ px,
   const int i = c0 % X;
   const int j = (c0 / X) % Y;
   const int k = c0 / (X * Y);
-  const Axis ax = axis<NEAREST>(__ldg(px + gid), X, i, W);
-  const Axis ay = axis<NEAREST>(__ldg(py + gid), Y, j, W);
+  const Axis ax = axis<NEAREST>(__ldg(px + gid), 0, X, i, W);
+  const Axis ay = axis<NEAREST>(__ldg(py + gid), 0, Y, j, W);
   const Axis az =
-      IS_3D ? axis<NEAREST>(__ldg(pz + gid), Z, k, W) : flat_axis();
+      IS_3D ? axis<NEAREST>(__ldg(pz + gid), z0, Z, k, W) : flat_axis();
   const Corners<NEAREST, IS_3D> cs(az, ay, ax, Y, X);
   const int Fo = F + (MM != kNone ? 2 : 0);
   float* o = out + (long long)bg * Fo * nsp + c0;
@@ -276,7 +287,7 @@ struct Args {
   Chans ch;
   const float *px, *py, *pz;
   float* out;
-  int B, G, Z, Y, X, W, F;
+  int B, G, Z, Y, X, z0, W, F;
   unsigned skip;
   int cmin, cmax;
 };
@@ -286,8 +297,8 @@ void launch(const Args& a, cudaStream_t st) {
   const int total = a.B * a.G * a.Z * a.Y * a.X;
   warp_direct<NEAREST, IS_3D, MM>
       <<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-          a.ch, a.px, a.py, a.pz, a.out, total, a.Z, a.Y, a.X, a.W, a.F,
-          a.skip, a.cmin, a.cmax);
+          a.ch, a.px, a.py, a.pz, a.out, total, a.Z, a.Y, a.X, a.z0, a.W,
+          a.F, a.skip, a.cmin, a.cmax);
 }
 
 template <bool IS_3D>
@@ -307,13 +318,15 @@ void launch_mode(bool nearest, int mm, const Args& a, cudaStream_t st) {
 // srcs: host array of n_src device pointers, source s of shape
 // (B, G, fs[s], Z, Y, X); the channels concatenate in source order (at most
 // 8 in all). px/py/pz (B, G, Z, Y, X); pz is read only when Z > 1. out
-// (B, G, F [+2], Z, Y, X). minmax: 0 none, 1 min of channel cmin and max of
+// (B, G, F [+2], Z, Y, X). z0: the global index of plane 0 (pz is global;
+// 0 for a whole grid). minmax: 0 none, 1 min of channel cmin and max of
 // channel cmax (skip_pair: those two channels are bound sources, not
 // accumulated). Nearest mode takes no min/max. Returns cudaGetLastError().
 extern "C" int fluidnet_warp(const float* const* srcs, const int* fs,
                              int n_src, const float* px, const float* py,
                              const float* pz, float* out, int B, int G, int Z,
-                             int Y, int X, int window, int nearest, int minmax,
+                             int Y, int X, int z0, int window, int nearest,
+                             int minmax,
                              int cmin, int cmax, int skip_pair,
                              void* stream) {
   const long long nsp = (long long)Z * Y * X;
@@ -347,6 +360,7 @@ extern "C" int fluidnet_warp(const float* const* srcs, const int* fs,
   a.Z = Z;
   a.Y = Y;
   a.X = X;
+  a.z0 = z0;
   a.W = window;
   a.F = F;
   a.skip = (minmax && skip_pair) ? ((1u << cmin) | (1u << cmax)) : 0u;

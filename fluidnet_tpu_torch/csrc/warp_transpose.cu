@@ -25,7 +25,11 @@
 //     window), while along z it counts for every o in [-W, W]; the callers'
 //     displacement clamp to +-(W - 1e-3) makes both rules unreachable;
 //   - nearest (gather_cells): the one cell clip(floor(p), 0, n - 1), w = 1;
-//   - 2-D (Z == 1): only the zero z-offset, no z weight.
+//   - 2-D (Z == 1): only the zero z-offset, no z weight;
+//   - in z the positions are global: the array's first plane is z0 (a slab
+//     of a z-sharded grid; 0 for a whole grid), so the clamps sit at z0
+//     and z0 + Z - 1 and the offset is taken from the source's global
+//     plane z0 + k.
 // A term of zero weight is not added (adding it would not change the sum).
 // The sum is deterministic, and with -fmad=false it matches the plain
 // PyTorch version (ops/cuda/warp_transpose.py) to the last bit.
@@ -67,32 +71,33 @@ constexpr int kAhead = 2;            // source slices in flight
 constexpr int kTargetBlocks = 1024;
 constexpr int kMinChunk = 8;         // z slices a block marches through
 
-// The BUILD_INDEX decomposition of one source along one axis: the base
-// corner i relative to the source index s, clamped into [-W - 2, W + 1]
-// (outside that range neither corner reaches an offset in [-W, W]), and w1.
+// The BUILD_INDEX decomposition of one source along one axis of n cells
+// whose first is global index lo: the base corner i relative to the
+// source's index s in the array, clamped into [-W - 2, W + 1] (outside
+// that range neither corner reaches an offset in [-W, W]), and w1.
 template <bool NEAREST>
-__device__ __forceinline__ int decompose(float pos, int n, int s, int W,
-                                         float* w1_out) {
+__device__ __forceinline__ int decompose(float pos, int lo, int n, int s,
+                                         int W, float* w1_out) {
   const float p = pos - 0.5f;
   const float fi = floorf(p);
   int i;
   float w1 = 0.f;
   if (NEAREST) {
-    i = min(max(static_cast<int>(fi), 0), n - 1);
+    i = min(max(static_cast<int>(fi), lo), lo + n - 1);
   } else {
     i = static_cast<int>(fi);
     w1 = p - fi;
-    if (p < 0.f) {
-      i = 0;
+    if (p < static_cast<float>(lo)) {
+      i = lo;
       w1 = 0.f;
     }
-    if (i >= n - 1) {
-      i = n - 2;
+    if (i >= lo + n - 1) {
+      i = lo + n - 2;
       w1 = 1.f;
     }
   }
   *w1_out = w1;
-  return min(max(i - s, -W - 2), W + 1);
+  return min(max(i - lo - s, -W - 2), W + 1);
 }
 
 // Weight that a source with base-corner offset d0 and upper weight w1
@@ -117,7 +122,8 @@ warp_transpose_tiled(const float* __restrict__ g,
                      const float* __restrict__ px,
                      const float* __restrict__ py,
                      const float* __restrict__ pz, float* __restrict__ out,
-                     int Z, int Y, int X, int F, int tiles_x, int zchunk) {
+                     int Z, int Y, int X, int z0, int F, int tiles_x,
+                     int zchunk) {
   extern __shared__ float smem[];
   constexpr int WZ = IS_3D ? W : 0;
   constexpr int NO = 2 * W + 1, NZ = 2 * WZ + 1, NE = NEAREST ? 1 : 2;
@@ -133,10 +139,10 @@ warp_transpose_tiled(const float* __restrict__ g,
 
   const int tx0 = (blockIdx.x % tiles_x) * kTX;
   const int ty0 = (blockIdx.x / tiles_x) * kTY;
-  const int z0 = blockIdx.y * zchunk, z1 = min(z0 + zchunk, Z);
+  const int zs = blockIdx.y * zchunk, ze = min(zs + zchunk, Z);
   const long long nsp = (long long)Z * Y * X;
   const long long bg = blockIdx.z;
-  const int k_hi = z1 - 1 + WZ, k_lo = z0 - WZ;
+  const int k_hi = ze - 1 + WZ, k_lo = zs - WZ;
   auto slot = [&](int k) { return raw + (k_hi - k) % RAW * slot_words; };
 
   // Starts the copies of source slice k (the tile and its halo, cells in
@@ -197,10 +203,10 @@ warp_transpose_tiled(const float* __restrict__ g,
       const int x = tx0 - W + r % SX, y = ty0 - W + r / SX;
       in[q] = have && r < S && x >= 0 && x < X && y >= 0 && y < Y;
       if (!in[q]) continue;
-      t[q][0].d0 = decompose<NEAREST>(base[r], X, x, W, &t[q][0].w1);
-      t[q][1].d0 = decompose<NEAREST>(base[S + r], Y, y, W, &t[q][1].w1);
+      t[q][0].d0 = decompose<NEAREST>(base[r], 0, X, x, W, &t[q][0].w1);
+      t[q][1].d0 = decompose<NEAREST>(base[S + r], 0, Y, y, W, &t[q][1].w1);
       if (IS_3D)
-        t[q][2].d0 = decompose<NEAREST>(base[2 * S + r], Z, k, W,
+        t[q][2].d0 = decompose<NEAREST>(base[2 * S + r], z0, Z, k, W,
                                         &t[q][2].w1);
     }
 #pragma unroll
@@ -259,7 +265,7 @@ warp_transpose_tiled(const float* __restrict__ g,
     }
     // Target slice k + W has all its offsets: store it, and open k - W - 1.
     const int tz = k + WZ;
-    if (tz >= z0 && tz < z1 && tx < X && ty < Y) {
+    if (tz >= zs && tz < ze && tx < X && ty < Y) {
       float* o = out + bg * F * nsp + ((long long)tz * Y + ty) * X + tx;
 #pragma unroll
       for (int f = 0; f < kMaxF; ++f)
@@ -276,9 +282,10 @@ warp_transpose_tiled(const float* __restrict__ g,
 
 // Weight of one axis recomputed from the position (the direct kernel).
 template <bool NEAREST, bool KEEP_LOW>
-__device__ __forceinline__ float tap(float pos, int n, int s, int o, int W) {
+__device__ __forceinline__ float tap(float pos, int lo, int n, int s, int o,
+                                     int W) {
   float w1;
-  const int d0 = decompose<NEAREST>(pos, n, s, W, &w1);
+  const int d0 = decompose<NEAREST>(pos, lo, n, s, W, &w1);
   return weight<NEAREST, KEEP_LOW>(d0, w1, o, W);
 }
 
@@ -288,7 +295,7 @@ warp_transpose_direct(const float* __restrict__ g,
                       const float* __restrict__ px,
                       const float* __restrict__ py,
                       const float* __restrict__ pz, float* __restrict__ out,
-                      int total, int Z, int Y, int X, int W, int F) {
+                      int total, int Z, int Y, int X, int z0, int W, int F) {
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= total) return;
   const int nsp = Z * Y * X;
@@ -318,12 +325,14 @@ warp_transpose_direct(const float* __restrict__ g,
         const int s = (sz * Y + sy) * X + sx;
         float wz = 1.f;
         if (IS_3D) {
-          wz = tap<NEAREST, true>(__ldg(P[2] + s), Z, sz, oz, W);
+          wz = tap<NEAREST, true>(__ldg(P[2] + s), z0, Z, sz, oz, W);
           if (wz == 0.f) continue;
         }
-        const float wy = tap<NEAREST, false>(__ldg(P[1] + s), Y, sy, oy, W);
+        const float wy =
+            tap<NEAREST, false>(__ldg(P[1] + s), 0, Y, sy, oy, W);
         if (wy == 0.f) continue;
-        const float wx = tap<NEAREST, false>(__ldg(P[0] + s), X, sx, ox, W);
+        const float wx =
+            tap<NEAREST, false>(__ldg(P[0] + s), 0, X, sx, ox, W);
         if (wx == 0.f) continue;
 #pragma unroll
         for (int f = 0; f < kMaxF; ++f) {
@@ -344,7 +353,7 @@ warp_transpose_direct(const float* __restrict__ g,
 struct Args {
   const float *g, *px, *py, *pz;
   float* out;
-  int B, G, F, Z, Y, X, W;
+  int B, G, F, Z, Y, X, z0, W;
 };
 
 template <int W, bool NEAREST, bool IS_3D>
@@ -371,7 +380,8 @@ cudaError_t launch_tiled(const Args& a, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   const dim3 grid(tiles, chunks, a.B * a.G);
   warp_transpose_tiled<W, NEAREST, IS_3D><<<grid, kThreads, smem, st>>>(
-      a.g, a.px, a.py, a.pz, a.out, a.Z, a.Y, a.X, a.F, tiles_x, zchunk);
+      a.g, a.px, a.py, a.pz, a.out, a.Z, a.Y, a.X, a.z0, a.F, tiles_x,
+      zchunk);
   return cudaGetLastError();
 }
 
@@ -384,22 +394,24 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   const int total = a.B * a.G * a.Z * a.Y * a.X;
   warp_transpose_direct<NEAREST, IS_3D>
       <<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-          a.g, a.px, a.py, a.pz, a.out, total, a.Z, a.Y, a.X, a.W, a.F);
+          a.g, a.px, a.py, a.pz, a.out, total, a.Z, a.Y, a.X, a.z0, a.W,
+          a.F);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // g, out (B, G, F, Z, Y, X); px/py/pz (B, G, Z, Y, X), pz read only when
-// Z > 1. F in [1, 8]. Returns the first CUDA error of the launch, or 0.
+// Z > 1, global from plane z0 (0 for a whole grid). F in [1, 8]. Returns
+// the first CUDA error of the launch, or 0.
 extern "C" int fluidnet_warp_transpose(const float* g, const float* px,
                                        const float* py, const float* pz,
                                        float* out, int B, int G, int F, int Z,
-                                       int Y, int X, int window, int nearest,
-                                       void* stream) {
+                                       int Y, int X, int z0, int window,
+                                       int nearest, void* stream) {
   if (F < 1 || F > kMaxF || window < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{g, px, py, pz, out, B, G, F, Z, Y, X, window};
+  const Args a{g, px, py, pz, out, B, G, F, Z, Y, X, z0, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (nearest)

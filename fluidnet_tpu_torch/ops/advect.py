@@ -47,21 +47,32 @@ def _check(method):
         raise ValueError(f"bad advection method {method!r}")
 
 
+def _exact_origin(z0):
+    """The exact path runs on whole grids: its line trace's domain tests
+    are the array's."""
+    if z0:
+        raise ValueError(f"advect: the exact path (window 0) takes no z "
+                         f"origin, got {z0}")
+
+
 def advect_scalar(dt, s, u, flags, method="maccormackOurs",
                   sample_outside_fluid=False, maccormack_strength=0.75,
                   boundary_width=1, max_trace_steps=8, window=None,
-                  free_space=None, plain=False):
+                  free_space=None, plain=False, z0=0):
     """Advects the scalar field s (b, 1, z, y, x) by the MAC velocity u.
     `window` W >= 1 runs the windowed fast path, None or 0 the exact path
     (`max_trace_steps`: the line trace's fixed step count). `plain=True`
     runs K5's plain version on any device (the exact path has no kernel).
+    `z0`: the global index of the first z plane of a slab (the windowed
+    path's z origin, ops/advect_fast.py; the exact path takes 0 only).
     `boundary_width` is 1 at every reference call site."""
     del boundary_width
     _check(method)
     if window:
         return advect_scalar_fast(dt, s, u, flags, method,
                                   sample_outside_fluid, maccormack_strength,
-                                  window, free=free_space, plain=plain)
+                                  window, free=free_space, plain=plain, z0=z0)
+    _exact_origin(z0)
     return _advect_scalar_exact(dt, s, u, flags, method,
                                 sample_outside_fluid, maccormack_strength,
                                 max_trace_steps)
@@ -69,15 +80,16 @@ def advect_scalar(dt, s, u, flags, method="maccormackOurs",
 
 def advect_vel(dt, u, flags, method="maccormackOurs",
                maccormack_strength=0.75, boundary_width=1, max_trace_steps=8,
-               window=None, free_space=None, plain=False):
-    """Self-advects the MAC velocity u; `window` and `plain` as in
-    advect_scalar (the windowed path is 2-D only; 3-D runs the combined
-    advect_fast.advect_vel_scalar_fast)."""
+               window=None, free_space=None, plain=False, z0=0):
+    """Self-advects the MAC velocity u; `window`, `plain` and `z0` as in
+    advect_scalar (3-D with one density channel runs the combined
+    advect_fast.advect_vel_scalar_fast instead)."""
     del boundary_width
     _check(method)
     if window:
         return advect_vel_fast(dt, u, flags, method, maccormack_strength,
-                               window, free=free_space, plain=plain)
+                               window, free=free_space, plain=plain, z0=z0)
+    _exact_origin(z0)
     return _advect_vel_exact(dt, u, flags, method, maccormack_strength,
                              max_trace_steps)
 

@@ -19,6 +19,12 @@ deviations from the exact reference as the JAX fast path: displacements
 clamped to +-(window - 1e-3) cells, the 'Ours' trace clamped at the
 Chebyshev free-space radius, and mask-renormalized fluid-aware
 interpolation. `plain=True` runs K5's plain version on any device.
+
+The advections take a z origin `z0` (default 0), the global index of the
+arrays' first z plane: on a slab of a z-sharded grid every position, clamp
+and window test is then the whole grid's (ops/warp.py,
+ops/cuda/mac_sweep.py), and so is each cell's result away from the slab's
+ends, to the bit.
 """
 
 import torch
@@ -63,10 +69,11 @@ def chebyshev_free_space(flags, max_d: int):
     return d
 
 
-def _positions(shape, b, dtype, device):
-    """Cell-centre positions (px, py, pz), each (b, z, y, x)."""
+def _positions(shape, b, dtype, device, z0=0):
+    """Cell-centre positions (px, py, pz), each (b, z, y, x); pz global
+    from the z origin z0."""
     return tuple(p.expand(b, -1, -1, -1)
-                 for p in cell_center_positions(shape, dtype, device))
+                 for p in cell_center_positions(shape, dtype, device, z0))
 
 
 def _trace_clamp(flags, dx, dy, dz, window, free=None):
@@ -82,21 +89,21 @@ def _trace_clamp(flags, dx, dy, dz, window, free=None):
 
 # --- scalar advection --------------------------------------------------------
 
-def _euler_pos_scalar(s, u, flags, dt, is_3d, W, ours, free=None):
+def _euler_pos_scalar(s, u, flags, dt, is_3d, W, ours, free=None, z0=0):
     cent = get_centered(u, is_3d)
     dx, dy, dz = -dt * cent[:, 0], -dt * cent[:, 1], -dt * cent[:, 2]
     if ours:
         dx, dy, dz = _trace_clamp(flags, dx, dy, dz, W, free)
     dx, dy, dz = clamp_displacement(dx, dy, dz, W)
-    px, py, pz = _positions(s.shape, s.shape[0], s.dtype, s.device)
+    px, py, pz = _positions(s.shape, s.shape[0], s.dtype, s.device, z0)
     return px + dx, py + dy, pz + dz
 
 
 def _sample_scalar_fast(s, flags, px, py, pz, sample_outside_fluid, W,
-                        plain):
+                        plain, z0=0):
     if sample_outside_fluid:
-        return warp_trilinear_shared(s, px, py, pz, W, plain=plain)
-    return warp_fluid(s, flags, px, py, pz, W, plain=plain)
+        return warp_trilinear_shared(s, px, py, pz, W, plain=plain, z0=z0)
+    return warp_fluid(s, flags, px, py, pz, W, plain=plain, z0=z0)
 
 
 def _corner_minmax_fields(src, is_3d):
@@ -120,31 +127,33 @@ def _iota(n, axis, dtype, device):
     return torch.arange(n, dtype=dtype, device=device).view(shape)
 
 
-def _clamp_lookup_cells(vel_x, vel_y, vel_z, sign, shape, is_3d, W):
+def _clamp_lookup_cells(vel_x, vel_y, vel_z, sign, shape, is_3d, W, z0=0):
     """Integer base-corner cells of the clamp lookups: clamp(trunc(i +
-    sign * vel), 0, n - 2), additionally window-limited."""
+    sign * vel), 0, n - 2), additionally window-limited; in z global from
+    the z origin z0 (clamped to [z0, z0 + n - 2])."""
     Z, Y, X = shape[2:]
     dev = vel_x.device
 
-    def one(n, axis, v):
-        iidx = _iota(n, axis, torch.int32, dev)
+    def one(n, axis, v, lo=0):
+        iidx = _iota(n, axis, torch.int32, dev) + lo
         c = torch.trunc(iidx.to(v.dtype) + sign * v).to(torch.int32)
         c = torch.minimum(torch.maximum(c, iidx - W), iidx + W)
-        return c.clamp(0, n - 2)
+        return c.clamp(lo, lo + n - 2)
     cx = one(X, 3, vel_x)
     cy = one(Y, 2, vel_y)
-    cz = one(Z, 1, vel_z) if is_3d else torch.zeros_like(cx)
+    cz = one(Z, 1, vel_z, z0) if is_3d else torch.zeros_like(cx)
     return cx, cy, cz
 
 
-def _lookup_bad(vel_x, vel_y, vel_z, flags, is_3d, W, plain):
+def _lookup_bad(vel_x, vel_y, vel_z, flags, is_3d, W, plain, z0=0):
     """Out-of-grid / into-obstacle test of the Manta clamp reverts
-    (tfluids.cc:304-322), both lookup directions."""
+    (tfluids.cc:304-322), both lookup directions; in z the grid is the
+    array's planes z0 .. z0 + Z - 1, global."""
     Z, Y, X = flags.shape[2:]
     dev = flags.device
     f32 = torch.float32
     ii, jj, kk = (_iota(X, 3, f32, dev), _iota(Y, 2, f32, dev),
-                  _iota(Z, 1, f32, dev))
+                  _iota(Z, 1, f32, dev) + z0)
     ob = is_obstacle(flags).to(f32)
     bad = None
     for sign in (-1.0, 1.0):
@@ -153,15 +162,17 @@ def _lookup_bad(vel_x, vel_y, vel_z, flags, is_3d, W, plain):
         pz = torch.trunc(kk + 0.5 + sign * vel_z).to(torch.int32)
         oob = (px < 0) | (py < 0) | (px > X - 1) | (py > Y - 1)
         if is_3d:
-            oob = oob | (pz < 0) | (pz > Z - 1)
+            oob = oob | (pz < z0) | (pz > z0 + Z - 1)
 
         def win(p, iota):
             i = iota.to(torch.int32)
             return torch.minimum(torch.maximum(p, i - W), i + W)
         cx = win(px, ii).clamp(0, X - 1)
         cy = win(py, jj).clamp(0, Y - 1)
-        cz = win(pz, kk).clamp(0, Z - 1) if is_3d else torch.zeros_like(cx)
-        obs = gather_cells(ob, cx, cy, cz, W, plain=plain)[:, 0] > 0.5
+        cz = win(pz, kk).clamp(z0, z0 + Z - 1) if is_3d \
+            else torch.zeros_like(cx)
+        obs = gather_cells(ob, cx, cy, cz, W, plain=plain,
+                           z0=z0)[:, 0] > 0.5
         this = oob | (~oob & obs)
         bad = this if bad is None else (bad | this)
     return bad
@@ -169,10 +180,10 @@ def _lookup_bad(vel_x, vel_y, vel_z, flags, is_3d, W, plain):
 
 def advect_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
                        maccormack_strength, window, free=None, border=None,
-                       plain=False):
+                       plain=False, z0=0):
     """Windowed scalar advection (advect_fast.py:176-278): s (b, 1, z, y,
-    x) by the MAC velocity u; every interpolation through K5. Returns the
-    advected s."""
+    x) by the MAC velocity u; every interpolation through K5, at the z
+    origin z0. Returns the advected s."""
     is_3d = check_shapes(u, flags, s)
     W = int(window)
     if W < 1:
@@ -192,29 +203,32 @@ def advect_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
 
     if method in ("euler", "eulerOurs", "rk2Ours", "rk3Ours"):
         # rk2/rk3 reduce to the clamped Euler backtrace (advect_fast.py:192).
-        px, py, pz = _euler_pos_scalar(s, u, flags, dt, is_3d, W, ours, free)
+        px, py, pz = _euler_pos_scalar(s, u, flags, dt, is_3d, W, ours, free,
+                                       z0)
         val = _sample_scalar_fast(s, flags, px, py, pz,
-                                  sample_outside_fluid or not ours, W, plain)
+                                  sample_outside_fluid or not ours, W, plain,
+                                  z0)
         if ours:
             val = torch.where(fl, val, s)
         return apply_border(val)
     if method not in ("maccormack", "maccormackOurs"):
         raise ValueError(f"bad advection method {method!r}")
 
-    px, py, pz = _euler_pos_scalar(s, u, flags, dt, is_3d, W, ours, free)
+    px, py, pz = _euler_pos_scalar(s, u, flags, dt, is_3d, W, ours, free, z0)
     if ours:
         # Fused forward sweep: the clamp bounds ride the interpolation as
         # support min/max; non-fluid cells warp their own centres
         # (tfluids.cc:157-160), so one position set serves values and
         # bounds.
-        cpx, cpy, cpz = _positions(s.shape, s.shape[0], s.dtype, dev)
+        cpx, cpy, cpz = _positions(s.shape, s.shape[0], s.dtype, dev, z0)
         flm = fl[:, 0]
         px = torch.where(flm, px, cpx)
         py = torch.where(flm, py, cpy)
         pz = torch.where(flm, pz, cpz)
         if sample_outside_fluid:
             o1 = warp_group(s[:, None], px[:, None], py[:, None],
-                            pz[:, None], W, minmax=True, plain=plain)[:, 0]
+                            pz[:, None], W, minmax=True, plain=plain,
+                            z0=z0)[:, 0]
             fwd_full, mn, mx = o1[:, 0:1], o1[:, 1:2], o1[:, 2:3]
             have = None
         else:
@@ -223,7 +237,7 @@ def advect_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
             bmax = torch.where(fl, s, -_BIG)
             srcs = tuple(a[:, None] for a in (bmin, bmax, s, s * m, m))
             o1 = warp_group(srcs, px[:, None], py[:, None], pz[:, None], W,
-                            minmax=(0, 1), plain=plain)[:, 0]
+                            minmax=(0, 1), plain=plain, z0=z0)[:, 0]
             plain_v, num, den = o1[:, 2:3], o1[:, 3:4], o1[:, 4:5]
             safe = den > 1e-6
             fwd_full = torch.where(safe, num / torch.where(safe, den, 1.0),
@@ -232,11 +246,14 @@ def advect_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
             have = mn < _BIG * 0.5
         fwd_full = torch.where(fl, fwd_full, s)
     else:
-        fwd_full = _sample_scalar_fast(s, flags, px, py, pz, True, W, plain)
+        fwd_full = _sample_scalar_fast(s, flags, px, py, pz, True, W, plain,
+                                       z0)
     fwd = apply_border(fwd_full)
-    bx, by, bz = _euler_pos_scalar(fwd, u, flags, -dt, is_3d, W, ours, free)
+    bx, by, bz = _euler_pos_scalar(fwd, u, flags, -dt, is_3d, W, ours, free,
+                                   z0)
     bwd_full = _sample_scalar_fast(fwd, flags, bx, by, bz,
-                                   sample_outside_fluid or not ours, W, plain)
+                                   sample_outside_fluid or not ours, W, plain,
+                                   z0)
     if ours:
         bwd_full = torch.where(fl, bwd_full, fwd)
     bwd = apply_border(bwd_full)
@@ -251,12 +268,12 @@ def advect_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
         mn = mx = None
         for sign in (-1.0, 1.0):
             cx, cy, cz = _clamp_lookup_cells(vx, vy, vz, sign, flags.shape,
-                                             is_3d, W)
-            g = gather_cells(packed, cx, cy, cz, W, plain=plain)
+                                             is_3d, W, z0)
+            g = gather_cells(packed, cx, cy, cz, W, plain=plain, z0=z0)
             mn = g[:, 0:1] if mn is None else torch.minimum(mn, g[:, 0:1])
             mx = g[:, 1:2] if mx is None else torch.maximum(mx, g[:, 1:2])
         clamped = torch.minimum(torch.maximum(dst, mn), mx)
-        bad = _lookup_bad(vx, vy, vz, flags, is_3d, W, plain)[:, None]
+        bad = _lookup_bad(vx, vy, vz, flags, is_3d, W, plain, z0)[:, None]
         clamped = torch.where(bad, fwd, clamped)
         return torch.where(border, dst, clamped)
 
@@ -271,8 +288,9 @@ def advect_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
 # --- MAC velocity self-advection ---------------------------------------------
 
 def _mac_positions(u, flags, dt, is_3d, W, ours, free=None):
-    """Per-component backtrace positions, each (b, c, z, y, x) (2-D; the
-    3-D sweep computes its positions in-kernel)."""
+    """Per-component backtrace positions, each (b, c, z, y, x) (2-D, where
+    no z origin applies; the 3-D sweep computes its positions
+    in-kernel)."""
     macs = [get_at_mac_x(u, is_3d), get_at_mac_y(u, is_3d)]
     px, py, pz = _positions(u.shape, u.shape[0], u.dtype, u.device)
     pxs, pys, pzs = [], [], []
@@ -288,12 +306,12 @@ def _mac_positions(u, flags, dt, is_3d, W, ours, free=None):
 
 
 def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
-                    free=None, border=None, plain=False):
+                    free=None, border=None, plain=False, z0=0):
     """Windowed MAC velocity self-advection (advect_fast.py:304-391). 3-D
     runs K1's unfused velocity sweep (mac_vel_sweep), one launch per sweep
-    with the positions in-kernel; 2-D one K5 launch per sweep with
-    per-component positions (G = 2). MacCormack sweeps carry the clamp
-    bounds of u as support min/max. Returns the advected u."""
+    with the positions in-kernel at the z origin z0; 2-D one K5 launch per
+    sweep with per-component positions (G = 2). MacCormack sweeps carry
+    the clamp bounds of u as support min/max. Returns the advected u."""
     from fluidnet_tpu_torch.ops.advect import _maccormack_correct_mac
     from fluidnet_tpu_torch.ops.cuda.mac_sweep import mac_vel_sweep
 
@@ -323,7 +341,7 @@ def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
     if method in ("euler", "eulerOurs"):
         if is_3d:
             out = mac_vel_sweep(u, None, free_in, -dt, W, ours,
-                                plain=plain)[0]
+                                plain=plain, z0=z0)[0]
         else:
             out = warp_trilinear(u, *positions(dt), W, plain=plain)
         if ours:
@@ -335,7 +353,7 @@ def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
     # emits min/max of u over its corner support.
     if is_3d:
         w1, mn_f, mx_f = mac_vel_sweep(u, None, free_in, -dt, W, ours,
-                                       plain=plain)
+                                       plain=plain, z0=z0)
     else:
         o1 = warp_group(u[:, :, None], *positions(dt), W, minmax=True,
                         plain=plain)
@@ -344,7 +362,7 @@ def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
     fwd = apply_border(fwd)
     if is_3d:
         w2, mn_b, mx_b = mac_vel_sweep(u, fwd.contiguous(), free_in, dt, W,
-                                       ours, plain=plain)
+                                       ours, plain=plain, z0=z0)
     else:
         # Channel 0 stays u (the bounds' source), channel 1 is the forward
         # field; two sources, no stacked copy.
@@ -364,20 +382,20 @@ def advect_vel_fast(dt, u, flags, method, maccormack_strength, window,
 
 
 def _fused_impl(dt, s, u, flags, free, method, maccormack_strength, W,
-                ours, renorm, plain):
+                ours, renorm, plain, z0):
     """The fused-epilogue primal (advect_fast.py:406-444): one K1 launch
     per sweep, the final two-direction clamp in PyTorch."""
     sweep = sweep_fused_ep_plain if plain or u.device.type == "cpu" \
         else advect_sweep_fused_ep
     m = is_fluid(flags).to(s.dtype)
     o1 = sweep(u, s, m, None, None, free if ours else None, -dt,
-               maccormack_strength, W, ours, renorm)
+               maccormack_strength, W, ours, renorm, z0)
     fwd_u, fwd_s = o1["u_w"], o1["s_val"]
     if method != "maccormackOurs":
         return fwd_s, fwd_u
 
     o2 = sweep(u, s, m, fwd_u.contiguous(), fwd_s.contiguous(), free, dt,
-               maccormack_strength, W, ours, renorm)
+               maccormack_strength, W, ours, renorm, z0)
     dst_u, dst_s = o2["u_w"], o2["s_val"]
     border = border_mask(flags.shape, True, 1, u.device)
     mn = torch.minimum(o1["u_mn"], o2["u_mn"])
@@ -394,7 +412,7 @@ def _fused_impl(dt, s, u, flags, free, method, maccormack_strength, W,
 
 
 def _unfused_impl(dt, s, u, flags, free, method, maccormack_strength, W,
-                  ours, renorm, plain):
+                  ours, renorm, plain, z0):
     """The unfused composition (advect_fast.py:506-583) on K1's unfused
     sweeps: the raw channels, with the masks, the renorm combine and the
     MacCormack correction in PyTorch. Every clamp is
@@ -425,7 +443,7 @@ def _unfused_impl(dt, s, u, flags, free, method, maccormack_strength, W,
         return torch.minimum(torch.maximum(x, lo), hi)
 
     o1 = advect_sweep(u, s, m, None, None, free_in, -dt, W, ours, True,
-                      renorm, plain=plain)
+                      renorm, plain=plain, z0=z0)
     fwd_u = torch.where(fl, o1["u_w"], u) if ours else o1["u_w"]
     fwd_u = apply_border(fwd_u)
     fwd_s_full = s_value(o1)
@@ -437,7 +455,7 @@ def _unfused_impl(dt, s, u, flags, free, method, maccormack_strength, W,
 
     o2 = advect_sweep(u, None, m if scal_mac else None, fwd_u,
                       fwd_s if scal_mac else None, free_in, dt, W, ours,
-                      scal_mac, renorm, plain=plain)
+                      scal_mac, renorm, plain=plain, z0=z0)
     bwd_u = torch.where(fl, o2["u_w"], fwd_u) if ours else o2["u_w"]
     bwd_u = apply_border(bwd_u)
     dst_u = _maccormack_correct_mac(u, fwd_u, bwd_u, flags,
@@ -461,7 +479,7 @@ def _unfused_impl(dt, s, u, flags, free, method, maccormack_strength, W,
 
 def advect_vel_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
                            maccormack_strength, window, free=None,
-                           fused_epilogue=True, plain=False):
+                           fused_epilogue=True, plain=False, z0=0):
     """Combined scalar + MAC-velocity advection (3-D), JAX
     advect_fast.py:483-583. With `fused_epilogue` (the JAX default) the
     methods maccormackOurs, euler and eulerOurs run one fused K1 launch
@@ -471,7 +489,9 @@ def advect_vel_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
     composition runs on K1's unfused sweeps, whose gradient is K6. `free`:
     the Chebyshev free space for 'Ours' methods (computed here if None;
     constant while the flags are). `plain=True` runs the plain versions of
-    the kernels on any device. Returns (s_new, u_new)."""
+    the kernels on any device. z0: the z origin of a slab (the module's
+    note), which the gradient's replay and K6 take too. Returns (s_new,
+    u_new)."""
     from fluidnet_tpu_torch.ops.replay import replay
 
     if not check_shapes(u, flags, s):
@@ -494,7 +514,7 @@ def advect_vel_scalar_fast(dt, s, u, flags, method, sample_outside_fluid,
     renorm = ours and not sample_outside_fluid
     s, u = s.contiguous(), u.contiguous()
     args = (flags, free, method, maccormack_strength, W, ours, renorm,
-            plain)
+            plain, int(z0))
 
     def unfused(s_, u_):
         return _unfused_impl(dt, s_, u_, *args)

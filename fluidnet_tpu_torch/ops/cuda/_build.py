@@ -47,10 +47,10 @@ launches = collections.Counter()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (argtypes) of the entry points in csrc/.
 _SIGNATURES = {
-    # u, s, m, fwd_u, fwd_s, free, out, B, Z, Y, X, dcoef, strength, lim,
-    # is_bwd, ours, renorm, scalar, fuse, window, tile height (0: the
+    # u, s, m, fwd_u, fwd_s, free, out, B, Z, Y, X, z0, dcoef, strength,
+    # lim, is_bwd, ours, renorm, scalar, fuse, window, tile height (0: the
     # global route), planes a block, stream
-    "fluidnet_mac_sweep": [_P] * 7 + [_I] * 4 + [_F] * 3 + [_I] * 8 + [_P],
+    "fluidnet_mac_sweep": [_P] * 7 + [_I] * 5 + [_F] * 3 + [_I] * 8 + [_P],
     # is_bwd, ours, renorm, scalar, fuse, window, tile height, resident
     # blocks an SM (out)
     "fluidnet_mac_sweep_occupancy": [_I] * 7 + [_P],
@@ -64,11 +64,11 @@ _SIGNATURES = {
     "fluidnet_jacobi": [_P] * 5 + [_I] * 9 + [_P],
     # resident blocks (out), shared-memory limit (out)
     "fluidnet_jacobi_limits": [_P] * 2,
-    # srcs[], fs[], n_src, px, py, pz, out, B, G, Z, Y, X, window, nearest,
-    # minmax, cmin, cmax, skip_pair, stream
-    "fluidnet_warp": [_P, _P, _I] + [_P] * 4 + [_I] * 11 + [_P],
-    # g, px, py, pz, out, B, G, F, Z, Y, X, window, nearest, stream
-    "fluidnet_warp_transpose": [_P] * 5 + [_I] * 8 + [_P],
+    # srcs[], fs[], n_src, px, py, pz, out, B, G, Z, Y, X, z0, window,
+    # nearest, minmax, cmin, cmax, skip_pair, stream
+    "fluidnet_warp": [_P, _P, _I] + [_P] * 4 + [_I] * 12 + [_P],
+    # g, px, py, pz, out, B, G, F, Z, Y, X, z0, window, nearest, stream
+    "fluidnet_warp_transpose": [_P] * 5 + [_I] * 9 + [_P],
     # src, idx, out, R, C, axis, idx64, stream
     "fluidnet_dyngather": [_P] * 3 + [_I] * 4 + [_P],
 }

@@ -23,6 +23,12 @@ thread a cell gathering from global memory, counted in
 CPU tensors take the plain PyTorch versions below (sweep_fused_ep_plain,
 sweep_plain), CUDA tensors launch the kernel; the unfused forms also take
 plain=True. Positions are index-offset: a cell center is its integer index.
+
+Every form takes a z origin `z0` (default 0): the global index of the
+array's first z plane, for a slab of a z-sharded grid. Positions are then
+global, (z0 + k) + clip(d) in z, so a weight p - floor(p) rounds as the
+whole grid's does; a corner's index into the array is floor(p) - z0, and
+BUILD_INDEX clamps at the array's ends, z0 and z0 + Z - 1.
 """
 
 import ctypes
@@ -45,32 +51,35 @@ _EPS = 1e-3
 _BIG = 1e30
 
 
-def _build_index(p, n):
-    """BUILD_INDEX corner + weights along one axis (warp.py:84-94):
-    p < 0 -> corner 0, weight 1; base corner >= n-1 -> corners {n-2, n-1}
-    with weights {0, 1}."""
+def _build_index(p, n, lo=0):
+    """BUILD_INDEX corner + weights along one axis (warp.py:84-94) of an
+    array whose first cell is global index `lo`: p < lo -> corner lo,
+    weight 1; base corner >= lo + n - 1 -> corners {lo + n - 2, lo + n - 1}
+    with weights {0, 1}. Returns the base corner's index into the array
+    (the global one less lo)."""
     i = torch.floor(p)
     w1 = p - i
     w0 = 1.0 - w1
-    neg = p < 0.0
-    i = torch.where(neg, 0.0, i)
+    neg = p < lo
+    i = torch.where(neg, float(lo), i)
     w0 = torch.where(neg, 1.0, w0)
     w1 = torch.where(neg, 0.0, w1)
-    hi = i >= n - 1
-    i = torch.where(hi, float(n - 2), i)
+    hi = i >= lo + n - 1
+    i = torch.where(hi, float(lo + n - 2), i)
     w0 = torch.where(hi, 0.0, w0)
     w1 = torch.where(hi, 1.0, w1)
-    return i.long(), w0, w1
+    return (i - lo).long(), w0, w1
 
 
-def _corners(px, py, pz, Z, Y, X):
+def _corners(px, py, pz, Z, Y, X, z0=0):
     """The 8 support corners of each position as (flat index (b, N),
     weight), in the order the kernels accumulate (z, then y, then x
-    corner, each ascending); weight = (wz * wy) * wx."""
+    corner, each ascending); weight = (wz * wy) * wx. pz is global, the
+    array's first plane z0."""
     b = px.shape[0]
     ix, wx0, wx1 = _build_index(px, X)
     iy, wy0, wy1 = _build_index(py, Y)
-    iz, wz0, wz1 = _build_index(pz, Z)
+    iz, wz0, wz1 = _build_index(pz, Z, z0)
     out = []
     for dz, wz in ((0, wz0), (1, wz1)):
         for dy, wy in ((0, wy0), (1, wy1)):
@@ -114,23 +123,23 @@ def _backtrace(vel, base, dcoef, window, allowed, own=None):
 
 
 def _sweep_raw(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
-               with_scalar, renorm):
+               with_scalar, renorm, z0=0):
     """The raw channels of the sweep (mac_sweep.py:545-558): u_w, u_mn,
     u_mx and, with the scalar, s_plain [, s_num, s_den] and on the forward
-    sweep s_mn, s_mx; each (b, c, Z, Y, X)."""
+    sweep s_mn, s_mx; each (b, c, Z, Y, X). z0: the z origin."""
     is_bwd = fwd_u is not None
     b, _, Z, Y, X = u.shape
     dev, f32 = u.device, torch.float32
     base = (torch.arange(X, device=dev, dtype=f32).view(1, 1, 1, X),
             torch.arange(Y, device=dev, dtype=f32).view(1, 1, Y, 1),
-            torch.arange(Z, device=dev, dtype=f32).view(1, Z, 1, 1))
+            torch.arange(z0, z0 + Z, device=dev, dtype=f32).view(1, Z, 1, 1))
     allowed = _allowed(free, ours)
 
     def positions(vel, own_center_off_fluid):
         # Non-fluid cells warp their own centers (tfluids.cc:157-160).
         own = m[:, 0] > 0.5 if own_center_off_fluid else None
         return _corners(*_backtrace(vel, base, dcoef, window, allowed, own),
-                        Z, Y, X)
+                        Z, Y, X, z0)
 
     wu = fwd_u if is_bwd else u
     u_w, u_mn, u_mx = [], [], []
@@ -180,12 +189,12 @@ def _sweep_raw(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
 
 
 def sweep_plain(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
-                with_scalar, renorm):
+                with_scalar, renorm, z0=0):
     """Plain PyTorch version of K1's unfused forms (runs on any device):
     the arguments of advect_sweep, the raw channels as one (b, C, Z, Y, X)
     tensor in the kernel's layout (RAW_KEYS)."""
     res = _sweep_raw(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
-                     with_scalar, renorm)
+                     with_scalar, renorm, z0)
     keys = raw_keys(fwd_u is not None, with_scalar, renorm)
     return torch.cat([res[k] for k in keys], dim=1)
 
@@ -211,12 +220,12 @@ def _split_raw(out, keys):
 
 
 def sweep_fused_ep_plain(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
-                         window, ours, renorm):
+                         window, ours, renorm, z0=0):
     """Plain PyTorch version of K1 (runs on any device). Same arguments
     and result as advect_sweep_fused_ep."""
     is_bwd = fwd_u is not None
     raw = _sweep_raw(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
-                     True, renorm)
+                     True, renorm, z0)
     u_w = [raw["u_w"][:, c] for c in range(3)]
     fl = m[:, 0] > 0.5
     if renorm:
@@ -274,15 +283,16 @@ L1_SMEM = 200704          # H100: above 196 KB shared memory an SM, 28 KB L1
 MAX_TILED_EXTENT = 2 ** 15
 
 
-def sweep_route(window, shape):
+def sweep_route(window, shape, z0=0):
     """"tiled" for the windows the tiled route instantiates
-    (TILED_WINDOWS) on u of `shape` (b, 3, z, y, x) with no extent above
-    MAX_TILED_EXTENT, else "global". The tile holds the corners in
-    [i - W, i + W] only while the float32 position i + (W - 1e-3) rounds
-    below i + W: from 2^15 up its ulp is 2^-8, the sum rounds to i + W
-    and the upper corner to i + W + 1."""
+    (TILED_WINDOWS) on u of `shape` (b, 3, z, y, x) at z origin z0 with no
+    global index above MAX_TILED_EXTENT (z0 + z, y, x), else "global". The
+    tile holds the corners in [i - W, i + W] only while the float32
+    position i + (W - 1e-3) rounds below i + W: from 2^15 up its ulp is
+    2^-8, the sum rounds to i + W and the upper corner to i + W + 1."""
+    z, y, x = (int(n) for n in shape[-3:])
     tiled = int(window) in TILED_WINDOWS and \
-        max(int(n) for n in shape[-3:]) <= MAX_TILED_EXTENT
+        max(int(z0) + z, y, x) <= MAX_TILED_EXTENT
     return "tiled" if tiled else "global"
 
 
@@ -376,7 +386,7 @@ def _device_tiling(index, shape, window, form, tile_y):
 
 
 def _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window, ours,
-            renorm, with_scalar, fuse, c_out, tile_y):
+            renorm, with_scalar, fuse, c_out, tile_y, z0):
     """Launches K1 on its route; returns (out, the route's launch key
     suffix: "" tiled, "global")."""
     is_bwd = fwd_u is not None
@@ -397,11 +407,13 @@ def _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window, ours,
         if t is not None and tuple(t.shape) != (B, c, Z, Y, X):
             raise ValueError(f"mac_sweep: {name} has shape "
                              f"{tuple(t.shape)}, expected {(B, c, Z, Y, X)}")
-    if min(Z, Y, X) < 2 or B * c_out * Z * Y * X >= 2 ** 31:
-        raise ValueError(f"mac_sweep: unsupported shape {tuple(u.shape)}")
+    if min(Z, Y, X) < 2 or B * c_out * Z * Y * X >= 2 ** 31 or \
+            not 0 <= z0 < 2 ** 24 - Z:
+        raise ValueError(f"mac_sweep: unsupported shape {tuple(u.shape)} "
+                         f"or z origin {z0}")
     out = torch.empty((B, c_out, Z, Y, X), device=dev, dtype=f32)
     form = (int(is_bwd), int(ours), int(renorm), int(with_scalar), int(fuse))
-    if sweep_route(window, u.shape) == "tiled":
+    if sweep_route(window, u.shape, z0) == "tiled":
         tiling = launch_tiling(u, window, form, tile_y)
         ty, zc = tiling.tile_y, tiling.planes
     elif tile_y is not None:
@@ -418,7 +430,8 @@ def _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window, ours,
         err = lib.fluidnet_mac_sweep(
             ptr(u), ptr(s_in), ptr(m_in), ptr(fwd_u), ptr(fs_in),
             ptr(free) if ours else None, out.data_ptr(),
-            B, Z, Y, X, float(dcoef), float(strength), float(window) - _EPS,
+            B, Z, Y, X, int(z0), float(dcoef), float(strength),
+            float(window) - _EPS,
             *form, int(window), ty, zc,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fluidnet_mac_sweep")
@@ -426,11 +439,11 @@ def _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window, ours,
 
 
 def _sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window,
-                ours, renorm, tile_y=None):
+                ours, renorm, tile_y=None, z0=0):
     is_bwd = fwd_u is not None
     out, route = _launch(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
                          window, ours, renorm, True, True,
-                         10 if is_bwd else 12, tile_y)
+                         10 if is_bwd else 12, tile_y, z0)
     _build.launches[f"mac_sweep_{route or ('bwd' if is_bwd else 'fwd')}"] \
         += 1
     res = {"u_w": out[:, 0:3], "u_mn": out[:, 3:6], "u_mx": out[:, 6:9],
@@ -442,7 +455,7 @@ def _sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, strength, window,
 
 
 def sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
-               with_scalar, renorm, tile_y=None):
+               with_scalar, renorm, z0=0, tile_y=None):
     """Launches K1's unfused form: same arguments and result as
     sweep_plain (the raw channels as one tensor); tile_y forces the tiled
     route's tile height (sweep_tiling)."""
@@ -451,19 +464,20 @@ def sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
     c_out = sum(3 if k.startswith("u_") else 1
                 for k in raw_keys(is_bwd, with_scalar, renorm))
     out, route = _launch(u, s, m, fwd_u, fwd_s, free, dcoef, 0.0, window,
-                         ours, renorm, with_scalar, False, c_out, tile_y)
+                         ours, renorm, with_scalar, False, c_out, tile_y, z0)
     _build.launches["mac_sweep_" + (
         route or "unfused_" + ("bwd" if is_bwd else "fwd"))] += 1
     return out
 
 
 def advect_sweep_fused_ep(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
-                          window, ours, renorm, tile_y=None):
+                          window, ours, renorm, z0=0, tile_y=None):
     """Fused-epilogue sweep. u (b,3,Z,Y,X); s, m (fluid mask), free
     (Chebyshev free space, read when `ours`) (b,1,Z,Y,X); fwd_u=None =>
     forward sweep: returns masked {u_w, s_val, u_mn/mx, s_mn/mx}. Else
     backward sweep (fwd_u, fwd_s from the forward sweep): returns the
-    MacCormack-corrected {u_w, s_val} (unclamped) and {u_mn/mx}.
+    MacCormack-corrected {u_w, s_val} (unclamped) and {u_mn/mx}. z0: the
+    global index of the first z plane (the module's note).
 
     CPU tensors run the plain version; CUDA tensors launch K1 (tile_y
     forces the tiled route's tile height, sweep_tiling)."""
@@ -471,21 +485,22 @@ def advect_sweep_fused_ep(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
         raise ValueError(f"mac_sweep: window must be >= 1, got {window}")
     if u.device.type == "cpu":
         return sweep_fused_ep_plain(u, s, m, fwd_u, fwd_s, free, dcoef,
-                                    strength, window, ours, renorm)
+                                    strength, window, ours, renorm, z0)
     return _sweep_cuda(u, s, m, fwd_u, fwd_s, free, dcoef, strength,
-                       window, ours, renorm, tile_y)
+                       window, ours, renorm, tile_y, z0)
 
 
 # --- the unfused forms and their gradient ----------------------------------
 
 
-def positions_for_vjp(u, free, dcoef, window, ours, center=False, m=None):
+def positions_for_vjp(u, free, dcoef, window, ours, center=False, m=None,
+                      z0=0):
     """The backtrace positions of the sweep as the JAX VJP recomputes them
-    (mac_sweep.py:575-614, cell centres at i + 0.5): the three MAC
-    components (b, 3, Z, Y, X) each, or with `center` the scalar's
-    (b, 1, Z, Y, X), where `m` (if given) keeps non-fluid cells at their
-    own centres."""
-    base = cell_center_positions(u.shape, u.dtype, u.device)
+    (mac_sweep.py:575-614, cell centres at i + 0.5, global in z from the
+    origin z0): the three MAC components (b, 3, Z, Y, X) each, or with
+    `center` the scalar's (b, 1, Z, Y, X), where `m` (if given) keeps
+    non-fluid cells at their own centres."""
+    base = cell_center_positions(u.shape, u.dtype, u.device, z0)
     allowed = _allowed(free, ours)
     vels = [get_centered(u, True)] if center else \
         [get_at_mac_x(u, True), get_at_mac_y(u, True), get_at_mac_z(u, True)]
@@ -495,10 +510,10 @@ def positions_for_vjp(u, free, dcoef, window, ours, center=False, m=None):
 
 
 def _sweep_forward(opts, u, s, m, fwd_u, fwd_s, free):
-    dcoef, window, ours, with_scalar, renorm, plain = opts
+    dcoef, window, ours, with_scalar, renorm, plain, z0 = opts
     fn = sweep_plain if plain or u.device.type == "cpu" else sweep_cuda
     return fn(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours, with_scalar,
-              renorm)
+              renorm, z0)
 
 
 class _Sweep(torch.autograd.Function):
@@ -518,38 +533,39 @@ class _Sweep(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        dcoef, window, ours, with_scalar, renorm, plain = ctx.opts
+        dcoef, window, ours, with_scalar, renorm, plain, z0 = ctx.opts
         u, m, free = ctx.saved_tensors
         is_bwd = ctx.is_bwd
         keys = raw_keys(is_bwd, with_scalar, renorm)
         cots = _split_raw(g, keys)
         u_c = u.detach()
-        px, py, pz = positions_for_vjp(u_c, free, dcoef, window, ours)
+        px, py, pz = positions_for_vjp(u_c, free, dcoef, window, ours, z0=z0)
         grad_uw = warp_transpose(cots["u_w"][:, :, None].contiguous(), px,
-                                 py, pz, window, False, plain=plain)[:, :, 0]
+                                 py, pz, window, False, plain=plain,
+                                 z0=z0)[:, :, 0]
         grad_sval = None
         if with_scalar:
             mask = m if (not is_bwd and ours) else None
             cpx, cpy, cpz = positions_for_vjp(u_c, free, dcoef, window, ours,
-                                              center=True, m=mask)
+                                              center=True, m=mask, z0=z0)
             if renorm:
                 g_sc = torch.stack([cots["s_plain"], cots["s_num"]], 1)
                 gt = warp_transpose(g_sc.contiguous(), cpx.repeat(1, 2, 1, 1, 1),
                                     cpy.repeat(1, 2, 1, 1, 1),
                                     cpz.repeat(1, 2, 1, 1, 1), window, False,
-                                    plain=plain)
+                                    plain=plain, z0=z0)
                 grad_sval = gt[:, 0] + m * gt[:, 1]
             else:
                 grad_sval = warp_transpose(
                     cots["s_plain"][:, :, None].contiguous(), cpx, cpy, cpz,
-                    window, False, plain=plain)[:, :, 0]
+                    window, False, plain=plain, z0=z0)[:, :, 0]
         if is_bwd:
             return None, None, None, None, grad_uw, grad_sval, None
         return None, grad_uw, grad_sval, None, None, None, None
 
 
 def advect_sweep(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
-                 with_scalar, renorm, *, plain=False):
+                 with_scalar, renorm, *, plain=False, z0=0):
     """K1's unfused sweep (JAX mac_sweep.advect_sweep). fwd_u=None =>
     forward sweep (warps u [and s]), else backward sweep (warps fwd_u [and
     fwd_s], bounds from u). u (b,3,Z,Y,X); s, m (fluid mask), fwd_s, free
@@ -558,12 +574,12 @@ def advect_sweep(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
 
     CUDA tensors launch K1 (unfused form), CPU tensors or plain=True run
     sweep_plain; either way the gradient is the JAX VJP on K6 (or its
-    plain version)."""
+    plain version), at the same z origin z0."""
     if int(window) < 1:
         raise ValueError(f"mac_sweep: window must be >= 1, got {window}")
     renorm = bool(renorm and with_scalar)
     opts = (dcoef, int(window), bool(ours), bool(with_scalar), renorm,
-            bool(plain))
+            bool(plain), int(z0))
     cont = [t.contiguous() if t is not None else None
             for t in (u, s, m, fwd_u, fwd_s, free)]
     if needs_grad(*cont):
@@ -573,8 +589,8 @@ def advect_sweep(u, s, m, fwd_u, fwd_s, free, dcoef, window, ours,
     return _split_raw(out, raw_keys(fwd_u is not None, with_scalar, renorm))
 
 
-def mac_vel_sweep(u, fwd, free, dcoef, window, ours, *, plain=False):
+def mac_vel_sweep(u, fwd, free, dcoef, window, ours, *, plain=False, z0=0):
     """Velocity-only unfused sweep: returns (warped, mn, mx)."""
     out = advect_sweep(u, None, None, fwd, None, free, dcoef, window, ours,
-                       False, False, plain=plain)
+                       False, False, plain=plain, z0=z0)
     return out["u_w"], out["u_mn"], out["u_mx"]

@@ -21,12 +21,14 @@ from fluidnet_tpu_torch.ops.cuda import _build
 MAX_CHANNELS = 8   # csrc/warp.cu kMaxF
 
 
-def warp_group_cuda(fields, px, py, pz, window, nearest=False, minmax=False):
+def warp_group_cuda(fields, px, py, pz, window, nearest=False, minmax=False,
+                    z0=0):
     """Launches K5. fields: (b, G, F, Z, Y, X) or a tuple of such sources
     sharing (b, G, Z, Y, X), whose channels concatenate (at most 8 in all);
-    positions (b, G, Z, Y, X), pz read only when Z > 1. minmax: False,
-    True (min/max of channel 0) or a (cmin, cmax) pair of bound sources.
-    Returns (b, G, F [+2], Z, Y, X) float32."""
+    positions (b, G, Z, Y, X), pz read only when Z > 1 and global from the
+    z origin z0 (ops/warp.py). minmax: False, True (min/max of channel 0)
+    or a (cmin, cmax) pair of bound sources. Returns (b, G, F [+2], Z, Y,
+    X) float32."""
     fs = list(fields) if isinstance(fields, tuple) else [fields]
     if not fs or fs[0].dim() != 6:
         raise ValueError("warp: fields must be (b, G, F, Z, Y, X)")
@@ -57,9 +59,10 @@ def warp_group_cuda(fields, px, py, pz, window, nearest=False, minmax=False):
         raise ValueError(f"warp: min/max channels {minmax} out of range")
     W = int(window)
     Fo = F + (2 if minmax else 0)
-    if W < 1 or min(Y, X) < 2 or b * G * Fo * Z * Y * X >= 2 ** 31:
-        raise ValueError(f"warp: unsupported window {W} or shape "
-                         f"{tuple(fs[0].shape)}")
+    if W < 1 or min(Y, X) < 2 or b * G * Fo * Z * Y * X >= 2 ** 31 or \
+            not 0 <= z0 < 2 ** 24 - Z:
+        raise ValueError(f"warp: unsupported window {W}, shape "
+                         f"{tuple(fs[0].shape)} or z origin {z0}")
     out = torch.empty((b, G, Fo, Z, Y, X), device=dev, dtype=f32)
     srcs = (ctypes.c_void_p * len(fs))(*[f.data_ptr() for f in fs])
     counts = (ctypes.c_int * len(fs))(*Fs)
@@ -67,7 +70,8 @@ def warp_group_cuda(fields, px, py, pz, window, nearest=False, minmax=False):
     with torch.cuda.device(dev):
         err = lib.fluidnet_warp(
             srcs, counts, len(fs), px.data_ptr(), py.data_ptr(),
-            pz.data_ptr(), out.data_ptr(), b, G, Z, Y, X, W, int(nearest),
+            pz.data_ptr(), out.data_ptr(), b, G, Z, Y, X, int(z0), W,
+            int(nearest),
             int(bool(minmax)), cmin, cmax, int(pair),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fluidnet_warp")

@@ -192,19 +192,21 @@ def get_at_mac_z(u, is_3d):
     return torch.stack([vx, vy, vz], dim=1)
 
 
-def cell_center_positions(shape, dtype=torch.float32, device=None):
+def cell_center_positions(shape, dtype=torch.float32, device=None, z0=0):
     """(px, py, pz) tensors of cell-center coordinates, each (1, z, y, x),
-    on resolve_device(device); built once per shape, dtype and device (they
-    are read-only expanded views)."""
+    on resolve_device(device); built once per shape, dtype, device and z
+    origin (they are read-only expanded views). z0 is the global index of
+    the first z plane (a slab of a z-sharded grid): pz = z0 + k + 0.5."""
     _, _, Z, Y, X = shape
     return _cell_centers(int(Z), int(Y), int(X), dtype,
-                         resolve_device(device))
+                         resolve_device(device), int(z0))
 
 
 @functools.lru_cache(maxsize=64)
-def _cell_centers(Z, Y, X, dtype, device):
+def _cell_centers(Z, Y, X, dtype, device, z0):
     px = torch.arange(X, dtype=dtype, device=device).view(1, 1, 1, X) + 0.5
     py = torch.arange(Y, dtype=dtype, device=device).view(1, 1, Y, 1) + 0.5
-    pz = torch.arange(Z, dtype=dtype, device=device).view(1, Z, 1, 1) + 0.5
+    pz = torch.arange(z0, z0 + Z, dtype=dtype,
+                      device=device).view(1, Z, 1, 1) + 0.5
     return (px.expand(1, Z, Y, X), py.expand(1, Z, Y, X),
             pz.expand(1, Z, Y, X))

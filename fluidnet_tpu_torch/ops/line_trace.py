@@ -106,10 +106,12 @@ def _border_intersection(ox, oy, oz, nx, ny, nz, Z, Y, X):
 
 
 def _clamp_to_domain(px, py, pz, Z, Y, X):
-    """ClampToDomainReal (calc_line_trace.cc:72-81)."""
-    return (px.clamp(HIT_MARGIN, X - HIT_MARGIN),
-            py.clamp(HIT_MARGIN, Y - HIT_MARGIN),
-            pz.clamp(HIT_MARGIN, Z - HIT_MARGIN))
+    """ClampToDomainReal (calc_line_trace.cc:72-81), as jnp.clip: min(max(.))
+    splits the gradient at ties, where torch.clamp passes it whole."""
+    def clip(p, n):
+        return torch.minimum(torch.maximum(p, p.new_tensor(HIT_MARGIN)),
+                             p.new_tensor(n - HIT_MARGIN))
+    return clip(px, X), clip(py, Y), clip(pz, Z)
 
 
 def _step(state, ux, uy, uz, length, blocked, branches=None):

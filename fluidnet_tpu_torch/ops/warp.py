@@ -19,6 +19,12 @@ TPU kernel's tap window). Nearest mode reads the one cell clip(floor(p), 0,
 n - 1). 2-D grids (z == 1) ignore pz. Channels accumulate over the corners
 z, y, x ascending as acc + v * ((wz * wy) * wx); min/max run over the
 support corners, zero-weight ones included.
+
+Every entry takes a z origin `z0` (default 0), the global index of the
+array's first z plane (a slab of a z-sharded grid): pz is then global, the
+clamps sit at z0 and z0 + z - 1, the window test compares with the global
+cell z0 + k, and a corner's plane in the array is its global index less
+z0, so a slab warps its planes as the whole grid does, to the bit.
 """
 
 import torch
@@ -31,36 +37,37 @@ from fluidnet_tpu_torch.ops.replay import needs_grad
 DEFAULT_WINDOW = 2
 
 
-def _axis_corners(pos, n, iota, W, nearest):
-    """[(flat index along the axis, weight, in window)] for the 1
-    (nearest) or 2 corners of one axis."""
+def _axis_corners(pos, n, iota, W, nearest, lo=0):
+    """[(index along the axis, weight, in window)] for the 1 (nearest) or
+    2 corners of one axis of n cells whose first is global index lo (pos
+    and iota, the output cells, global)."""
     p = pos - 0.5
     i = torch.floor(p)
     if nearest:
-        i = i.clamp(0, n - 1)
+        i = i.clamp(lo, lo + n - 1)
         cands = [(i, None)]
     else:
         w1 = p - i
         w0 = 1.0 - w1
-        neg = p < 0.0
-        i = torch.where(neg, 0.0, i)
+        neg = p < lo
+        i = torch.where(neg, float(lo), i)
         w0 = torch.where(neg, 1.0, w0)
         w1 = torch.where(neg, 0.0, w1)
-        hi = i >= n - 1
-        i = torch.where(hi, float(n - 2), i)
+        hi = i >= lo + n - 1
+        i = torch.where(hi, float(lo + n - 2), i)
         w0 = torch.where(hi, 0.0, w0)
         w1 = torch.where(hi, 1.0, w1)
         cands = [(i, w0), (i + 1.0, w1)]
     out, ok = [], True
     for c, w in cands:
         # The upper corner counts only while the base corner does.
-        ok = ok & ((c - iota).abs() <= W) & (c >= 0) & (c <= n - 1)
-        out.append((torch.where(ok, c, 0.0).long(), w, ok))
+        ok = ok & ((c - iota).abs() <= W) & (c >= lo) & (c <= lo + n - 1)
+        out.append((torch.where(ok, c - lo, 0.0).long(), w, ok))
     return out
 
 
 def warp_group_plain(fields, px, py, pz, window, nearest=False,
-                     minmax=False):
+                     minmax=False, z0=0):
     """Plain PyTorch version of K5 (runs on any device): the arguments and
     result of warp_group."""
     fs = list(fields) if isinstance(fields, tuple) else [fields]
@@ -73,11 +80,11 @@ def warp_group_plain(fields, px, py, pz, window, nearest=False,
     dev, f32 = src.device, torch.float32
     ii = torch.arange(X, device=dev, dtype=f32).view(1, 1, 1, 1, X)
     jj = torch.arange(Y, device=dev, dtype=f32).view(1, 1, 1, Y, 1)
-    kk = torch.arange(Z, device=dev, dtype=f32).view(1, 1, Z, 1, 1)
+    kk = torch.arange(z0, z0 + Z, device=dev, dtype=f32).view(1, 1, Z, 1, 1)
     xs = _axis_corners(px, X, ii, W, nearest)
     ys = _axis_corners(py, Y, jj, W, nearest)
     if Z > 1:
-        zs = _axis_corners(pz, Z, kk, W, nearest)
+        zs = _axis_corners(pz, Z, kk, W, nearest, z0)
     else:
         zs = [(torch.zeros((), dtype=torch.long, device=dev), None,
                torch.ones((), dtype=torch.bool, device=dev))]
@@ -111,11 +118,12 @@ def warp_group_plain(fields, px, py, pz, window, nearest=False,
     return acc
 
 
-def _warp_forward(fs, px, py, pz, window, nearest, minmax, plain):
+def _warp_forward(fs, px, py, pz, window, nearest, minmax, plain, z0):
     fields = tuple(fs) if len(fs) > 1 else fs[0]
     if plain or fs[0].device.type == "cpu":
-        return warp_group_plain(fields, px, py, pz, window, nearest, minmax)
-    return warp_group_cuda(fields, px, py, pz, window, nearest, minmax)
+        return warp_group_plain(fields, px, py, pz, window, nearest, minmax,
+                                z0)
+    return warp_group_cuda(fields, px, py, pz, window, nearest, minmax, z0)
 
 
 class _WarpGroup(torch.autograd.Function):
@@ -132,15 +140,16 @@ class _WarpGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        window, nearest, _, plain = ctx.opts
+        window, nearest, _, plain, z0 = ctx.opts
         px, py, pz = ctx.saved_tensors
         grad = warp_transpose(g[:, :, :sum(ctx.Fs)].contiguous(), px, py, pz,
-                              window, nearest, plain=plain)
+                              window, nearest, plain=plain, z0=z0)
         return (None, None, None, None) + tuple(torch.split(grad, ctx.Fs, 2))
 
 
 def warp_group(fields, px, py, pz, window: int = DEFAULT_WINDOW,
-               nearest: bool = False, minmax=False, *, plain: bool = False):
+               nearest: bool = False, minmax=False, *, plain: bool = False,
+               z0: int = 0):
     """Raw grouped interface: fields (b, G, F, z, y, x), or a tuple of such
     sources whose channels concatenate; positions (b, G, z, y, x) shared by
     the channels of a group. minmax=True appends min and max of channel 0
@@ -149,53 +158,55 @@ def warp_group(fields, px, py, pz, window: int = DEFAULT_WINDOW,
     sentinels), not accumulated and returned as zeros. Returns
     (b, G, F [+2], z, y, x). CUDA tensors launch K5, CPU tensors (or
     plain=True) run warp_group_plain; the gradient with respect to the
-    fields is the transposed warp (K6 or its plain version)."""
+    fields is the transposed warp (K6 or its plain version). z0: the z
+    origin (the module's note)."""
     fs = tuple(fields) if isinstance(fields, tuple) else (fields,)
-    opts = (int(window), bool(nearest), minmax, plain)
+    opts = (int(window), bool(nearest), minmax, plain, int(z0))
     if needs_grad(*fs):
         return _WarpGroup.apply(opts, px, py, pz, *fs)
     return _warp_forward(fs, px, py, pz, *opts)
 
 
 def warp_trilinear(fields, px, py, pz, window: int = DEFAULT_WINDOW, *,
-                   plain: bool = False):
+                   plain: bool = False, z0: int = 0):
     """Per-channel positions: fields (b, c, z, y, x), px/py/pz
     (b, c, z, y, x). Returns (b, c, z, y, x)."""
     return warp_group(fields[:, :, None], px, py, pz, window,
-                      plain=plain)[:, :, 0]
+                      plain=plain, z0=z0)[:, :, 0]
 
 
 def warp_trilinear_shared(fields, px, py, pz, window: int = DEFAULT_WINDOW,
-                          *, plain: bool = False):
+                          *, plain: bool = False, z0: int = 0):
     """Shared positions for every channel: px/py/pz are (b, z, y, x)."""
     return warp_group(fields[:, None], px[:, None], py[:, None],
-                      pz[:, None], window, plain=plain)[:, 0]
+                      pz[:, None], window, plain=plain, z0=z0)[:, 0]
 
 
 def warp_fluid(src, flags, px, py, pz, window: int = DEFAULT_WINDOW, *,
-               plain: bool = False):
+               plain: bool = False, z0: int = 0):
     """Fluid-aware interpolation, mask-renormalized (warp.py:695-717):
     sum(w m v) / sum(w m) where the fluid weight exceeds 1e-6, else plain
     trilinear. src (b, 1, z, y, x). The three sources go to one launch."""
     m = is_fluid(flags).to(src.dtype)
     out = warp_group((src[:, None], (src * m)[:, None], m[:, None]),
                      px[:, None], py[:, None], pz[:, None], window,
-                     plain=plain)[:, 0]
+                     plain=plain, z0=z0)[:, 0]
     plain_v, num, den = out[:, 0:1], out[:, 1:2], out[:, 2:3]
     safe = den > 1e-6
     return torch.where(safe, num / torch.where(safe, den, 1.0), plain_v)
 
 
 def gather_cells(fields, xi, yi, zi, window: int = DEFAULT_WINDOW, *,
-                 plain: bool = False):
-    """Windowed integer-cell gather fields[..., zi, yi, xi] (nearest mode);
-    a cell more than `window` from the output cell reads 0. fields
-    (b, c, z, y, x); xi/yi/zi (b, z, y, x) integers."""
+                 plain: bool = False, z0: int = 0):
+    """Windowed integer-cell gather fields[..., zi - z0, yi, xi] (nearest
+    mode; zi global from the z origin z0); a cell more than `window` from
+    the output cell reads 0. fields (b, c, z, y, x); xi/yi/zi (b, z, y, x)
+    integers."""
     px = xi.to(torch.float32) + 0.5
     py = yi.to(torch.float32) + 0.5
     pz = zi.to(torch.float32) + 0.5
     return warp_group(fields[:, None], px[:, None], py[:, None],
-                      pz[:, None], window, True, plain=plain)[:, 0]
+                      pz[:, None], window, True, plain=plain, z0=z0)[:, 0]
 
 
 def clamp_displacement(dx, dy, dz, window: int, margin: float = 1e-3):

@@ -28,7 +28,9 @@ computes what it computes):
     bounds: shards agree with the unsharded result to that rounding, not
     to the bit (2e-6 of the field's largest value on a random 16^3 grid,
     7.5e-5 on chip_smoke.py's 256^3 plume). A slab equals the same
-    halo-extended slab advected in one process to the bit;
+    halo-extended slab advected in one process to the bit. (The whole
+    sharded step, parallel/simulate_sharded.py, passes each slab's z
+    origin to the advection and equals the whole grid to the bit.)
   - at the global z ends the halo holds zeros where the unsharded warp
     clamps its corner: a method without the 'Ours' free-space clamp
     (maccormack, euler) at W >= 2 reaches them from non-border cells and

@@ -12,7 +12,8 @@ Each rank holds a slab of zl = Z / n_sp planes of every field (batch over
      ConvNet, p by the ghost zone of G planes from each neighbour, and by
      nothing past the global z ends;
   3. sim.simulate's own `_step` runs on the extended slab with a
-     `SlabStep`: the grid's dx, that window, the ConvNet's input scale
+     `SlabStep`: the grid's dx, the extended slab's z origin (the global
+     index of its first plane), that window, the ConvNet's input scale
      from the grid's sums over each rank's own planes (all_reduces of
      per-sample partial sums), and the solves that reach past G: the
      polish (an exchange of u by n + 2 planes, then divergence, n Jacobi
@@ -51,15 +52,17 @@ the velocity update (p: 1 x 1): 4 for jacobi-34 at 128^3 over 4 ranks
 (h = 32, two rounds). All reductions (the input scale, the
 window) run over each rank's own planes, never the ghost planes.
 
-A slab does not equal the whole grid to the bit: positions are absolute
-(cell index + displacement), so on a rank past the first, whose extended
-slab starts at a plane other than 0, K1's weights round at the slab's
-index magnitude (parallel/advect_sharded.py), and the input scale's sums
-run in another order. Rank 0's own planes after one step equal the whole
-grid's to the bit through the advection and K2 (and, for jacobi-n, those
-more than n + 1 planes from the cut after the whole step). The jacobi-n
-solve itself adds nothing: each rank's p equals K3 on the whole grid's
-divergence to the bit.
+Every rank's own planes after one step equal the whole grid's to the bit
+through the advection and K2, and for jacobi-n through the whole step.
+The advection takes the z origin: its positions are global, (z0 + k) +
+clip(d) in z, so K1's and K5's weights round as the whole grid's, and
+their clamps and window tests sit at the slab's ends expressed globally
+(ops/cuda/mac_sweep.py, ops/warp.py); the slab's ends lie in the ghost
+zone. The jacobi-n solve adds nothing: each rank's p equals K3 on the
+whole grid's divergence to the bit. What stays apart on the ConvNet: the
+input scale sums in another order, and cuDNN rounds the trunk's
+convolutions differently on another shape; so the whole ConvNet step
+agrees with the whole grid's to that rounding, not to the bit.
 
 Not ported here (NotImplementedError, each naming its ROADMAP item): PCG
 (its dot products and component sums need all_reduces), models with
@@ -158,6 +161,8 @@ class _Slab:
         Y, X = state_l.u.shape[3:]
         self.dx = get_dx((zl * self.n, Y, X))
         self.g = ghost_planes(mconf)
+        # The global index of the G-extended slab's first plane.
+        self.z0 = idx * zl - self.g * self.below
         self.polish = mconf.polish_iters + 2 \
             if mconf.sim_method == "convnet" and mconf.polish_iters > 0 \
             else 0
@@ -280,7 +285,8 @@ def _sharded_step(state_l, mconf, model, slab, forces, use_kernels,
         # jacobi-n overwrites p: its ghost planes need no exchange.
         ue, de = ext
         pe = slab.embed(torch.zeros_like(ue[:, :1]), state_l.p)
-    hooks = SlabStep(dx=slab.dx, window=W, input_scale=slab.input_scale,
+    hooks = SlabStep(dx=slab.dx, z0=slab.z0, window=W,
+                     input_scale=slab.input_scale,
                      polish=slab.polish_step, solve=slab.jacobi_solve)
     out = _step(FluidState(u=ue, p=pe, flags=slab.flags, density=de), mconf,
                 model, slab.bcs, slab.consts, use_kernels, forces,

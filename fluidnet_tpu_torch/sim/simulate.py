@@ -43,13 +43,16 @@ PyTorch (no kernel; K1 is not launched).
 
 A slab of a grid z-sharded over ranks (parallel/simulate_sharded.py) runs
 this same step on its ghost-extended planes with a `SlabStep`: the grid's
-dx, the window from the grid's max|u|, the ConvNet's input scale from the
-grid's sums, and the Jacobi solves that reach past the ghost zone (the
-polish, jacobi-n) replaced by their sharded forms.
+dx, the slab's z origin (the global index of its first plane: the
+advection's positions are the whole grid's), the window from the grid's
+max|u|, the ConvNet's input scale from the grid's sums, and the Jacobi
+solves that reach past the ghost zone (the polish, jacobi-n) replaced by
+their sharded forms.
 
 simulate(grad=True) records the step for autograd: every kernel on the way
-has the gradient rule of its JAX custom VJP (not with advection_window 0,
-which raises). rollout() and the default simulate() run under
+has the gradient rule of its JAX custom VJP, and the exact advection
+(advection_window 0) is plain PyTorch that autograd differentiates, as XLA
+differentiates JAX's. rollout() and the default simulate() run under
 torch.no_grad.
 """
 
@@ -205,12 +208,14 @@ def _resolve_forces(state, mconf, dt, buoyancy_scale, gravity_scale,
 class SlabStep:
     """What a step on one ghost-extended slab of a z-sharded grid takes
     from the whole grid (parallel/simulate_sharded.py): `dx`, the grid's
-    cell size; `window`, the advection window chosen from the grid's
-    max|u|; `input_scale`, the ConvNet's (models.fluidnet.FluidNet.
+    cell size; `z0`, the global index of the slab's first plane (the
+    advection's z origin); `window`, the advection window chosen from the
+    grid's max|u|; `input_scale`, the ConvNet's (models.fluidnet.FluidNet.
     forward's); `polish` (state, mconf, p, u, use_kernels) -> state and
     `solve` (state, mconf, consts, use_kernels) -> state, the forms of
     _polish and _solver_projection whose reach exceeds the ghost zone."""
     dx: float
+    z0: int
     window: int
     input_scale: Callable
     polish: Callable
@@ -252,11 +257,6 @@ def simulate(state: FluidState, mconf: ModelConfig, model=None,
     forces = _resolve_forces(state, mconf, dt, buoyancy_scale,
                              gravity_scale, vorticity_amp, gravity)
     _check_slice(state, mconf, model)
-    if grad and not mconf.advection_window:
-        raise NotImplementedError("the gradient of the exact advection "
-                                  "(advection_window 0) is not ported "
-                                  "(ROADMAP queue 1, item 5: the exact "
-                                  "path's training gradient)")
     with torch.set_grad_enabled(grad):
         return _step(state, mconf, model, bcs,
                      FlagConsts() if consts is None else consts,
@@ -324,16 +324,16 @@ def _window(mconf, u, dt):
     return W
 
 
-def _advect(state, mconf, consts, dt, plain, window=None):
+def _advect(state, mconf, consts, dt, plain, window=None, z0=0):
     """Advection of the density channels and the velocity (the velocity
-    last, simulate.lua:183-199) at `window` (None: _window's). 3-D with
-    one density channel and a method other than Manta's maccormack runs
-    the fused combined path (K1, two launches); otherwise each density
-    channel, then the velocity (K5 for every interpolation in 2-D and for
-    the 3-D density, K1's unfused velocity sweep in 3-D).
-    advection_window 0 takes the exact gather path (ops/advect.py, plain
-    PyTorch) for each density channel, then the velocity, in 2-D and 3-D
-    (simulate.py:115-166)."""
+    last, simulate.lua:183-199) at `window` (None: _window's) and the z
+    origin z0 (a slab's first global plane). 3-D with one density channel
+    and a method other than Manta's maccormack runs the fused combined
+    path (K1, two launches); otherwise each density channel, then the
+    velocity (K5 for every interpolation in 2-D and for the 3-D density,
+    K1's unfused velocity sweep in 3-D). advection_window 0 takes the
+    exact gather path (ops/advect.py, plain PyTorch) for each density
+    channel, then the velocity, in 2-D and 3-D (simulate.py:115-166)."""
     u, flags, density = state.u, state.flags, state.density
     W = _window(mconf, u, dt) if window is None else window
     method = mconf.advection_method
@@ -343,9 +343,9 @@ def _advect(state, mconf, consts, dt, plain, window=None):
             density.shape[1] == 1 and method != "maccormack":
         return advect_vel_scalar_fast(
             dt, density, u, flags, method, False, mconf.maccormack_strength,
-            W, free=free, plain=plain)[::-1]
+            W, free=free, plain=plain, z0=z0)[::-1]
     kw = dict(method=method, maccormack_strength=mconf.maccormack_strength,
-              window=W, free_space=free, plain=plain)
+              window=W, free_space=free, plain=plain, z0=z0)
     if density is not None:
         density = torch.cat([
             advect_scalar(dt, density[:, c:c + 1], u, flags,
@@ -381,8 +381,9 @@ def _step(state, mconf, model, bcs, consts, use_kernels, forces,
     slab of a z-sharded grid takes from the whole grid."""
     dt = forces.dt
     flags = state.flags
-    u, density = _advect(state, mconf, consts, dt, not use_kernels,
-                         None if slab is None else slab.window)
+    window, z0 = (None, 0) if slab is None else (slab.window, slab.z0)
+    u, density = _advect(state, mconf, consts, dt, not use_kernels, window,
+                         z0)
     state = state.replace(u=u, density=density)
     dx = get_dx(flags) if slab is None else slab.dx
     buoy_g, grav_g, amp = _forces_config(dx, forces)

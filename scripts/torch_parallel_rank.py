@@ -171,15 +171,19 @@ def dropped_adjoint():
 
 
 class FirstInput(torch.nn.Module):
-    """`model`, keeping in `seen` the u it is given at its first call."""
+    """`model`, keeping in `seen` the u it is given at its first call and
+    in `div` the divergence it is handed then (K2's, on a ConvNet step),
+    if any."""
 
     def __init__(self, model):
         super().__init__()
-        self.model, self.seen = model, None
+        self.model, self.seen, self.div = model, None, None
 
     def forward(self, p, u, flags, **kw):
         if self.seen is None:
             self.seen = u.detach().clone()
+            div = kw.get("precomputed_div")
+            self.div = None if div is None else div.detach().clone()
         return self.model(p, u, flags, **kw)
 
 
@@ -326,8 +330,9 @@ def step(inp, reps, rank):
         del state, bcs
         model = None
         if mconf.sim_method == "convnet":
-            model = InputScale(FluidNet(mconf, device=dev).load_jax_params(
-                load_params(inp["model"])), run.get("scales"))
+            model = InputScale(FirstInput(FluidNet(
+                mconf, device=dev).load_jax_params(load_params(
+                    inp["model"]))), run.get("scales"))
 
         def roll(use_kernels=True):
             with zeroed_ghosts(2, rank) if run["fault"] \
@@ -338,6 +343,14 @@ def step(inp, reps, rank):
             out, launches = counted(roll)
         keys = ("u", "p", "density")
         saved[run["name"]] = {k: getattr(out, k).cpu() for k in keys}
+        if model is not None:
+            # The own planes of the first step's model inputs (the u and
+            # divergence the advection and K2 hand it).
+            zl, lo = state_l.u.shape[2], ss.ghost_planes(mconf) * (rank > 0)
+            first = model.model
+            saved[run["name"]].update(
+                first_u=first.seen[:, :, lo:lo + zl].cpu(),
+                first_div=first.div[:, :, lo:lo + zl].cpu())
         rec = {"launches": launches, "comms": dict(comms),
                "slab": list(state_l.u.shape),
                "ghost": ss.ghost_planes(mconf),

@@ -8,7 +8,8 @@ has no JAX, so run this file without the suite's conftest:
 
 Both sides run the same float32 operations (the kernels are built with
 -fmad=false): K1 (fused and unfused, with its VJP), K2, K3, K4, K5 and K6
-are held to a max abs error of 0, K1, K2 and K4 on shapes that cut their
+are held to a max abs error of 0 (K1, K5 and K6 also at z origins up to
+past K1's tiled reach), K1, K2 and K4 on shapes that cut their
 xy tiles and z-ranges raggedly and on both routes of K1 (windows 1, 2
 tiled, 3 global), K6 on shapes that cut its 32 x 8 tiles raggedly, K3 on
 every route it takes, from p = 0 and from a given p0; rollouts to 1e-5 of
@@ -23,6 +24,8 @@ import torch
 from fluidnet_tpu_torch.core.celltype import is_fluid
 from fluidnet_tpu_torch.ops.advect_fast import chebyshev_free_space
 from fluidnet_tpu_torch.ops.cuda import _build, forces_kernel, mac_sweep
+from fluidnet_tpu_torch.ops.cuda.warp_transpose import (
+    warp_transpose_cuda, warp_transpose_plain)
 from fluidnet_tpu_torch.ops.forces import forces_block, forces_block_xla
 from fluidnet_tpu_torch.ops.warp import warp_group, warp_group_plain
 from fluidnet_tpu_torch.solvers.cuda_jacobi import (
@@ -151,6 +154,82 @@ def test_mac_sweep_long_axis_takes_the_global_route(dev, shape, W):
     assert _build.launches["mac_sweep_global"] == before + 1
     for k in ref:
         _exact(out[k], ref[k], f"mac_sweep_global {k}")
+
+
+# z origins (the global index of an array's first plane, a slab's of a
+# z-sharded grid): 0, two in the thousands, and one whose z0 + Z passes
+# MAX_TILED_EXTENT (K1's global route).
+Z_ORIGINS = (0, 1021, 2998, mac_sweep.MAX_TILED_EXTENT - 20)
+
+
+def _origin_positions(dev, shape, G, W, z0, nearest, seed):
+    """(px, py, pz) (b, G, z, y, x) within +-(W - 1e-3) of the centres,
+    pz global from plane z0; nearest mode's at whole-cell centres."""
+    rng = np.random.default_rng(seed)
+    B, Z, Y, X = shape
+    pos = []
+    for n, axis, first in ((X, 4, 0), (Y, 3, 0), (Z, 2, z0)):
+        centre = (np.arange(first, first + n, dtype=np.float32) + 0.5)
+        d = rng.uniform(-(W - 1e-3), W - 1e-3, (B, G, Z, Y, X))
+        p = torch.tensor(centre.reshape([n if a == axis else 1
+                                         for a in range(5)]),
+                         device=dev) + torch.tensor(d.astype(np.float32),
+                                                    device=dev)
+        pos.append(torch.floor(p) + 0.5 if nearest else p.contiguous())
+    return pos
+
+
+@pytest.mark.parametrize("z0", Z_ORIGINS)
+@pytest.mark.parametrize("W", [1, 2])
+def test_position_kernels_at_a_z_origin(dev, W, z0):
+    """K1 (fused forward and backward, the unfused forms), K5 (trilinear
+    with min/max, nearest) and K6 (linear, nearest) at a z origin equal
+    their plain versions there to the bit, one launch counted each; K1
+    takes its global route once z0 + Z passes MAX_TILED_EXTENT."""
+    shape = (2, 37, 45, 61)
+    c = _sweep_case(dev, shape, 11, W, True)
+    route = mac_sweep.sweep_route(W, c["u"].shape, z0)
+    assert route == ("global" if z0 + shape[1] >
+                     mac_sweep.MAX_TILED_EXTENT else "tiled")
+    args = (c["u"], c["s"], c["m"], None, None, c["free"], -0.1, 0.6, W,
+            True, True)
+    ref_f = mac_sweep.sweep_fused_ep_plain(*args, z0=z0)
+    fwd_u, fwd_s = ref_f["u_w"].contiguous(), ref_f["s_val"].contiguous()
+    bargs = (c["u"], c["s"], c["m"], fwd_u, fwd_s, c["free"], 0.1, 0.6, W,
+             True, True)
+    ref_b = mac_sweep.sweep_fused_ep_plain(*bargs, z0=z0)
+    for a, ref, key in ((args, ref_f, "mac_sweep_fwd"),
+                        (bargs, ref_b, "mac_sweep_bwd")):
+        key = key if route == "tiled" else "mac_sweep_global"
+        before = _build.launches[key]
+        out = mac_sweep.advect_sweep_fused_ep(*a, z0=z0)
+        torch.cuda.synchronize()
+        assert _build.launches[key] == before + 1
+        for k in ref:
+            _exact(out[k], ref[k], f"{key} z0={z0} {k}")
+    for ua in ((c["u"], c["s"], c["m"], None, None, c["free"], -0.1, W, True,
+                True, True),
+               (c["u"], None, c["m"], fwd_u, fwd_s, c["free"], 0.1, W, True,
+                True, True),
+               (c["u"], None, None, None, None, c["free"], -0.1, W, True,
+                False, False)):
+        _exact(mac_sweep.sweep_cuda(*ua, z0=z0),
+               mac_sweep.sweep_plain(*ua, z0=z0), f"unfused z0={z0}")
+    g = torch.randn((2, 3, 1) + shape[1:], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    for nearest in (False, True):
+        pos = _origin_positions(dev, shape, 3, W, z0, nearest, 13)
+        before = _build.launches["warp"]
+        out = warp_group(c["u"][:, :, None], *pos, W, nearest, not nearest,
+                         z0=z0)
+        torch.cuda.synchronize()
+        assert _build.launches["warp"] == before + 1
+        _exact(out, warp_group_plain(c["u"][:, :, None], *pos, W, nearest,
+                                     not nearest, z0=z0),
+               f"K5 nearest={nearest} z0={z0}")
+        _exact(warp_transpose_cuda(g, *pos, W, nearest, z0),
+               warp_transpose_plain(g, *pos, W, nearest, z0),
+               f"K6 nearest={nearest} z0={z0}")
 
 
 # K2's and K4's shapes (b, z, y, x): the small case, the 128^3 plume, the

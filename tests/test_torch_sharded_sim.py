@@ -17,13 +17,13 @@ Cases: the ConvNet, the ConvNet + 2 polish sweeps and jacobi-8, 3 steps of
 rollout_z_sharded each (bench knobs: maccormackOurs, W = 1), gathered and held
 against JAX's unsharded rollout at rtol 1e-4, atol 1e-5 (that file's tolerance)
 and against the port's unsharded plain rollout within PORT_MAX of the field's
-largest value, at most PORT_FRAC of the cells past PORT_ROUND of it (a slab
-past the first rounds its positions at its own index magnitude, and the input
-scale sums in another order). After one step rank 0's own planes equal the
-whole grid's to the bit through the advection and K2 (the ConvNet's inputs),
-and after the whole jacobi-8 step those out of the Jacobi's reach of rank 1's
-planes. Also: the sharded input scale (std, norm) against _input_scale on the
-whole grid, the adaptive window chosen the same on both ranks, each case
+largest value, at most PORT_FRAC of the cells past PORT_ROUND of it (the
+ConvNet's input scale sums in another order). After one step every rank's
+own planes equal the whole grid's to the bit through the advection and K2
+(the ConvNet's inputs, each slab's advection at its own z origin), and
+through the whole jacobi-8 step. Also: the sharded input scale (std,
+norm) against _input_scale on the whole grid, the adaptive window chosen
+the same on both ranks, each case
 with every kernel's plain version equal to the bit, a planted ghost-zone
 fault that must fail the comparisons, and the refusals.
 """
@@ -44,14 +44,12 @@ SHAPE = (2, 1, 32, 16, 16)
 N_STEPS = 3
 RTOL, ATOL = 1e-4, 1e-5
 # Against the port's unsharded rollout: the largest difference over the
-# field's largest value, and the share of cells past PORT_ROUND of it. A
-# rank past the first rounds its positions at its slab's magnitude; where
-# a displacement lies within an ulp of a whole cell the MacCormack clamp's
-# bounds move by a neighbour's jump (PERF.md §6: 7.5e-5 of u's largest
-# value in the sharded advection at 256^3), and the ConvNet spreads that
-# over its reach.
-# chip_smoke.py phase 21 holds the card's sharded rollouts to the same.
-PORT_MAX, PORT_ROUND, PORT_FRAC = 3e-4, 1e-5, 1e-3
+# field's largest value, and the share of cells past PORT_ROUND of it.
+# Each slab advects at its own z origin, so a step equals the whole grid's
+# to the bit through the advection and K2 (jacobi-8's whole rollout does);
+# the ConvNet's input scale sums in another order, and its rounding moves
+# a cell by at most 7.5e-7 of the field's largest value in 3 steps.
+PORT_MAX, PORT_ROUND, PORT_FRAC = 1e-5, 1e-6, 1e-3
 KNOBS = dict(is_3d=True, sim_method="convnet", dt=0.1, buoyancy_scale=2.0,
              vorticity_confinement_amp=3.0, maccormack_strength=0.6,
              advection_method="maccormackOurs", adaptive_window=False,
@@ -139,13 +137,18 @@ def _worker(rank, port, inp):
     res.update({f"gathered_{k}": getattr(whole, k)
                 for k in ("u", "p", "flags")})
 
-    # One step with the recording model; one jacobi-8 step.
-    rec = _Recorder(model)
-    ss.simulate_z_sharded(state_l, base, mesh, rec, bcs_l)
-    slab = ss._Slab(state_l, base, mesh, bcs_l)
-    res["step1_u"], res["step1_div"] = (slab.own(x) for x in rec.seen)
-    res["step1_jacobi8_u"] = ss.simulate_z_sharded(
-        state_l, base.replace(**CASES["jacobi8"]), mesh, None, bcs_l).u
+    # One step of each case: the ConvNet's with the recording model (the
+    # u and divergence K2 hands it), jacobi-8's whole.
+    for name in ("convnet", "convnet_p2"):
+        rec = _Recorder(model)
+        m = base.replace(**CASES[name])
+        ss.simulate_z_sharded(state_l, m, mesh, rec, bcs_l)
+        slab = ss._Slab(state_l, m, mesh, bcs_l)
+        res[f"step1_{name}_u"], res[f"step1_{name}_div"] = (
+            slab.own(x) for x in rec.seen)
+    out = ss.simulate_z_sharded(
+        state_l, base.replace(**CASES["jacobi8"]), mesh, None, bcs_l)
+    res["step1_jacobi8_u"], res["step1_jacobi8_p"] = out.u, out.p
 
     # The input scale of the whole grid from the slabs' own planes.
     sc = ss.shard_state(_state(inp, "sc_"), mesh)
@@ -351,11 +354,12 @@ def _port_refs_1(inp):
         if name == "convnet":
             out, ref["frames"] = out
         ref[name] = {k: getattr(out, k) for k in ("u", "p", "density")}
-    rec = _Recorder(model)
-    simulate(state, base, rec, bcs)
-    ref["step1_u"], ref["step1_div"] = rec.seen
-    ref["step1_jacobi8_u"] = simulate(
-        state, base.replace(**CASES["jacobi8"]), None, bcs).u
+    for name in ("convnet", "convnet_p2"):
+        rec = _Recorder(model)
+        simulate(state, base.replace(**CASES[name]), rec, bcs)
+        ref[f"step1_{name}_u"], ref[f"step1_{name}_div"] = rec.seen
+    out = simulate(state, base.replace(**CASES["jacobi8"]), None, bcs)
+    ref["step1_jacobi8_u"], ref["step1_jacobi8_p"] = out.u, out.p
     adapt = _state(inp, "ad_")
     out = rollout(adapt, base.replace(**ADAPT), 1, model, _bcs(adapt))
     ref["adapt"] = {"u": out.u, "density": out.density}
@@ -441,6 +445,7 @@ def test_save_every_and_gather(run):
     inp, _, pref, outs = run
     frames = np.concatenate([o["frames"] for o in outs], axis=3)
     assert frames.shape == (N_STEPS,) + SHAPE
+    print(f"frames: (max, share) {_port_err(frames, pref['frames'])}")
     assert _within_port(frames, pref["frames"])
     for o in outs:
         np.testing.assert_array_equal(o["gathered_flags"], inp["flags"])
@@ -449,21 +454,21 @@ def test_save_every_and_gather(run):
 
 
 def test_rank0_first_step_is_bit_equal(run):
-    """Rank 0's extended slab starts at global plane 0: after one step its
-    own planes equal the whole grid's to the bit through the advection and
-    K2 (the u and divergence the ConvNet gets). Rank 1's advection rounds
-    at its slab's magnitude, and the Jacobi carries that 8 planes into
-    rank 0 (the velocity update one more): after the whole jacobi-8 step
-    rank 0's planes below those are equal to the bit."""
+    """Every rank's extended slab passes its first global plane (the z
+    origin) to the advection: after one step every rank's own planes equal
+    the whole grid's to the bit through the advection and K2 (the u and
+    divergence the ConvNet gets, with and without the polish), and
+    through the whole jacobi-8 step (u and p)."""
     _, _, pref, outs = run
     zl = SHAPE[2] // 2
-    for key in ("step1_u", "step1_div"):
-        np.testing.assert_array_equal(outs[0][key],
-                                      pref[key][:, :, :zl].numpy(), key)
-    far = zl - CASES["jacobi8"]["max_iter"] - 1
-    np.testing.assert_array_equal(outs[0]["step1_jacobi8_u"][:, :, :far],
-                                  pref["step1_jacobi8_u"][:, :, :far].numpy())
-    assert np.abs(outs[0]["step1_div"]).max() > 1e-3
+    keys = ("step1_convnet_u", "step1_convnet_div", "step1_convnet_p2_u",
+            "step1_convnet_p2_div", "step1_jacobi8_u", "step1_jacobi8_p")
+    for r, o in enumerate(outs):
+        for key in keys:
+            np.testing.assert_array_equal(
+                o[key], pref[key][:, :, r * zl:(r + 1) * zl].numpy(),
+                f"rank {r} {key}")
+    assert np.abs(outs[1]["step1_convnet_div"]).max() > 1e-3
 
 
 def test_sharded_input_scale(run):
@@ -495,7 +500,9 @@ def test_adaptive_window_is_global(run):
     assert float(outs[0]["local_cfl"]) > 1.0 > float(outs[1]["local_cfl"])
     assert [int(o["window"]) for o in outs] == [2, 2]
     for k in ("u", "density"):
-        assert _within_port(_gather(outs, f"adapt_{k}"), pref["adapt"][k]), k
+        got = _gather(outs, f"adapt_{k}")
+        print(f"adapt {k}: (max, share) {_port_err(got, pref['adapt'][k])}")
+        assert _within_port(got, pref["adapt"][k]), k
 
 
 def test_planted_ghost_fault_fails(run):

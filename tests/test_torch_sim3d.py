@@ -179,8 +179,15 @@ def test_simulate_exact_route_matches_jax(scene, is_3d, monkeypatch):
     for name in ("u", "p", "density"):
         assert torch.isfinite(getattr(ts, name)).all()
         assert_close(getattr(ts, name), getattr(js, name), RTOL, ATOL, name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate(c["ts"], c["tm"], c["tmodel"], c["tbcs"], grad=True)
+    # grad=True records the exact route for autograd: the same state, and
+    # a finite gradient of it with respect to the initial velocity.
+    u0 = c["ts"].u.clone().requires_grad_(True)
+    gs = simulate(c["ts"].replace(u=u0), c["tm"], c["tmodel"], c["tbcs"],
+                  grad=True)
+    for name in ("u", "p", "density"):
+        assert torch.equal(getattr(gs, name).detach(), getattr(ts, name))
+    g, = torch.autograd.grad(gs.density.sum() + gs.u.square().sum(), u0)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
 def test_rollout_exact_route_matches_jax(scene, monkeypatch):
