@@ -220,7 +220,15 @@ and its training, in ranks that share the card), in these phases:
              fail their limits; (g) why bf16 rounds apart: (b) with the
              whole grid's input scale of each step fed to the slabs, and
              one step of each, each rank's own planes against the whole
-             grid's cell by cell. Every rank runs each rollout a second
+             grid's cell by cell; (h) PCG (bench.py's: max_iter 100,
+             pcg_tol 1e-4; pcg_sharded.solve_pcg_z_sharded on the slabs),
+             8 steps: u within STEP_PCG_U of one process's (over u's
+             largest value), the labels equal to one process's to the bit,
+             every rank's CG iterations and residuals a step the same,
+             each rank's rerun equal to the bit, the labelling's sweeps,
+             ms and collectives and the CG iterations a step printed; (i)
+             (h) with the CG direction's exchange zeroed must fail the u
+             limit. Every rank runs each rollout a second
              time with the kernels' plain versions on the same slab (K1,
              K2, K3 at the shapes this path gives them) and must give the
              same bits. Each slab advects at its z origin, so every rank's
@@ -228,8 +236,8 @@ and its training, in ranks that share the card), in these phases:
              advection and K2: the first step's model inputs (u, div) in
              every ConvNet run, the whole rollout in (d). Each rank
              launches K1's fused forward and backward
-             and K2's prologue once a step (K2's forces block in (d)), K3
-             once a step in (c) and twice in (d): jacobi-34 runs
+             and K2's prologue once a step (K2's forces block in (d) and
+             (h)), K3 once a step in (c) and twice in (d): jacobi-34 runs
              halo.slab_jacobi_solve, two rounds of K3 on the slab grown by
              32 planes. (d) is rerun on the per-sweep halo Jacobi, which
              must give the same bits, and timed beside it in the same
@@ -252,13 +260,17 @@ and its training, in ranks that share the card), in these phases:
              augment_without_targets (K4 on every slab, once a step a
              rank; each rank's augmented u equal to the bit to the whole
              batch's); (c-f32) and (d-f32): (c) and (d) in float32, at
-             (a)'s limits; (e) at (a)'s terms limit and 2x its gradients'
-             sound reading (SPT_RUNS). Each: the loss
-             terms within rtol and every gradient
-             and param after 2 steps within the relative L2 of its
-             limits; each rank's gradients equal to the bit to its rerun
-             with every kernel's plain version; each rank's launches
-             train_launches(4) (and K4 once in (e)); the planted fault
+             (a)'s limits; (f) (a) with PCG solver targets and the p and u
+             losses on (the sharded PCG and the per-component p mean
+             across the slabs; K4 once a step), at (a)'s limits, its
+             planted fault the CG direction's exchange zeroed; (e) at
+             (a)'s terms limit and 2x its gradients' sound reading
+             (SPT_RUNS). Each: the loss terms within rtol and every
+             gradient and param after 2 steps within the relative L2 of
+             its limits; each rank's gradients equal to the bit to its
+             rerun with every kernel's plain version; each rank's
+             launches train_launches(4) (and K4 once in (e) and (f)); the
+             planted fault
              (the exchanges' adjoint drops the ghost planes' cotangents)
              past the gradient limit, its margin (fault over limit)
              printed; for a float32 run, how much one process's gradient
@@ -468,18 +480,27 @@ STEP_BIG, STEP_BIG_N = 256, 4
 # the planted bf16 fault's 2.339e-04.
 STEP_MAX, STEP_ROUND, STEP_FRAC = 1e-5, 1e-6, 1e-3
 STEP_DIV_REL = 6.6e-5
+# The sharded PCG rollout (bench.py's PCG: max_iter 100, pcg_tol 1e-4)
+# against one process's: the largest difference of u over u's largest
+# value. Its dot products and component sums add in another order, and CG
+# carries the rounding from one iteration to the next: 4x the sound
+# reading on an H100 (6.333e-06; the planted fault 6.780e-01).
+STEP_PCG_U = 2.53e-5
+PCG_KW = dict(sim_method="pcg", max_iter=100, pcg_tol=1e-4)
 K1_FUSED = {"mac_sweep_fwd": 1, "mac_sweep_bwd": 1}
 CONVNET_STEP = dict(K1_FUSED, prologue=1)
 # Each run of phase 21: mconf changes, conv dtype, state (a key of the
 # phase's states, or the empty plume's resolution), steps, the run whose
 # one-process rollout it is held against, how it is held, a planted
-# fault (the ghost planes of step 2's exchange zeroed), whether the model
+# fault (True: the ghost planes of step 2's exchange zeroed;
+# "cg_direction": the CG direction's exchange zeroed), whether the model
 # is fed the whole grid's input scale of each step in place of the
 # slab's, and the launches a rank makes a step. Held: "limits" (STEP_MAX,
 # STEP_FRAC), "div" (STEP_DIV_REL), "fails_limits" and "fails_div" (a
 # planted fault must fail them), "report" (errors reported: whether the
 # bf16 trunk rounds apart on a slab through its input scale's sums or
-# through the convolutions themselves).
+# through the convolutions themselves), "u_limit" (PCG: u within
+# STEP_PCG_U) and "fails_u_limit" (its planted fault must fail it).
 STEP_DEFAULT = dict(kw={}, dtype="float32", state="rolled", steps=STEP_N,
                     ref=None, held="limits", fault=False, fed=False,
                     launches=CONVNET_STEP)
@@ -500,6 +521,11 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
     "bf16_1": dict(dtype="bfloat16", steps=1, held="report"),
     "bf16_1_fed": dict(dtype="bfloat16", steps=1, ref="bf16_1", fed=True,
                        held="report"),
+    "pcg": dict(kw=PCG_KW, held="u_limit",
+                launches=dict(K1_FUSED, forces_block=1)),
+    "pcg_fault": dict(kw=PCG_KW, ref="pcg", fault="cg_direction",
+                      held="fails_u_limit",
+                      launches=dict(K1_FUSED, forces_block=1)),
 }.items()}
 
 
@@ -522,7 +548,10 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
 # over all parameters it reads 4.319e-07, but one process's gradient of
 # its worst, a bias, is a sum that cancels (the phase prints by how
 # much), and the slabs sum it in another order; its limit is 2x the
-# sound reading 2.196e-04, 106x under its fault 4.670e-02.
+# sound reading 2.196e-04, 106x under its fault 4.670e-02. (f) PCG solver
+# targets with the p and u losses on (the batch's targets zeros: the
+# solver's replace them), float32 at (a)'s limits; its planted fault is
+# the CG direction's exchange zeroed ("cg_direction").
 SPT_WORLD, SPT_N, SPT_SEED, SPT_GEN_SEED = 4, 4, 17, 6
 SPT_BIG, SPT_BIG_B = 128, 2
 SPT_F32 = dict(rtol=1e-5, rel_l2=GRAD_TOL)
@@ -542,6 +571,10 @@ SPT_RUNS = {
                           limits=SPT_F32),
     "d_f32_sp4_big": dict(mesh=(1, 4), dtype="float32", batch="big",
                           limits=SPT_F32),
+    "f_f32_sp4_pcg": dict(mesh=(1, 4), dtype="float32", batch="targets",
+                          kw=dict(train_target_source="pcg",
+                                  loss_p_lambda=1.0, loss_u_lambda=1.0),
+                          fault="cg_direction", limits=SPT_F32),
 }
 
 
@@ -2830,6 +2863,31 @@ def step_err(a, b):
     return err.max().item(), (err > STEP_ROUND).double().mean().item()
 
 
+@contextlib.contextmanager
+def cg_iterations():
+    """Counts the CG iterations of each solve of sim.simulate's PCG step
+    while entered, by solvers.cg's dot products (2 before its loop, 3 an
+    iteration). Yields the list of counts, one a solve."""
+    from fluidnet_tpu_torch.sim import simulate as sim
+    from fluidnet_tpu_torch.solvers import cg
+    real, real_solve, calls, out = cg._bdot, sim.solve_pcg, [0], []
+
+    def counting(a, b):
+        calls[0] += 1
+        return real(a, b)
+
+    def solve(*a, **kw):
+        before = calls[0]
+        p = real_solve(*a, **kw)
+        out.append((calls[0] - before - 2) // 3)
+        return p
+    cg._bdot, sim.solve_pcg = counting, solve
+    try:
+        yield out
+    finally:
+        cg._bdot, sim.solve_pcg = real, real_solve
+
+
 def sharded_step_phase(dev, mconf, model):
     """Phase 21: rollout_z_sharded in STEP_SP ranks sharing the card
     (gloo, host-staged exchanges), each run of STEP_RUNS against one
@@ -2839,6 +2897,7 @@ def sharded_step_phase(dev, mconf, model):
     result line's entry)."""
     from fluidnet_tpu_torch.core.grids import FluidState
     from fluidnet_tpu_torch.sim.simulate import rollout
+    from fluidnet_tpu_torch.solvers.components import connected_components
 
     shutil.rmtree(PAR_ROOT, ignore_errors=True)
     os.makedirs(PAR_ROOT)
@@ -2864,12 +2923,16 @@ def sharded_step_phase(dev, mconf, model):
             net = model if run["dtype"] == mconf.conv_compute_dtype else \
                 retyped_model(model, m, dev)
             rec = rs.InputScale(rs.FirstInput(net))
-        out = rollout(state, m, run["steps"], rec, bcs)
+        with cg_iterations() as iters:
+            out = rollout(state, m, run["steps"], rec, bcs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rollout(state, m, run["steps"], net, bcs)
         torch.cuda.synchronize()
         refs[name] = {
+            "labels": connected_components(state.flags).cpu()
+            if m.sim_method == "pcg" else None,
+            "cg_iterations": iters,
             "out": {k: getattr(out, k).cpu() for k in ("u", "p",
                                                        "density")},
             "div": final_check(out, f"sharded step ({name}), one process"),
@@ -2914,6 +2977,12 @@ def sharded_step_phase(dev, mconf, model):
             bits = [k for k, a, b in zip(("u", "div"), firsts, ref["first"])
                     if not torch.equal(a, b)]
             bits_what = "the first step's model inputs (u, div)"
+        elif ref["labels"] is not None:
+            # PCG's dot products and component sums add in another order:
+            # its labels are the whole grid's to the bit.
+            labels = torch.cat([s[name]["labels"] for s in saved], dim=2)
+            bits = [] if torch.equal(labels, ref["labels"]) else ["labels"]
+            bits_what = "the connected components' labels"
         else:
             bits = [k for k in got if not torch.equal(got[k], want[k])]
             bits_what = f"the {n}-step rollout (u, p, density)"
@@ -2937,6 +3006,14 @@ def sharded_step_phase(dev, mconf, model):
                 raise AssertionError(f"sharded step ({name}): rank {rank}'s "
                                      f"slab on the per-sweep halo Jacobi "
                                      f"differs from K3's rounds")
+            if not r.get("rerun_equal", True):
+                raise AssertionError(f"sharded step ({name}): rank {rank}'s "
+                                     f"rerun differs from its first run")
+            if r.get("cg") != recs[0].get("cg"):
+                raise AssertionError(f"sharded step ({name}): the ranks' CG "
+                                     f"(iterations, residual) differ: rank "
+                                     f"0 {recs[0]['cg']}, rank {rank} "
+                                     f"{r['cg']}")
         flags = (states["rolled"]["flags"] if run["state"] == "rolled" else
                  rs.plume({}, run["state"])[0].flags)
         gstate = FluidState(u=got["u"].to(dev), p=got["p"].to(dev),
@@ -2948,9 +3025,11 @@ def sharded_step_phase(dev, mconf, model):
         within = all(e[0] <= STEP_MAX and e[1] <= STEP_FRAC
                      for e in errs.values())
         div_ok = div_rel <= STEP_DIV_REL
-        # A rollout's collectives: the flags' exchange at its start, then
-        # each step's.
-        per_step = {k: (v - (k == "exchanges")) / n
+        u_ok = errs["u"][0] <= STEP_PCG_U
+        # A rollout's collectives: the flags' exchange and PCG's labelling
+        # at its start, then each step's.
+        labelling = recs[0].get("label_comms", {})
+        per_step = {k: (v - (k == "exchanges") - labelling.get(k, 0)) / n
                     for k, v in recs[0]["comms"].items()}
         res = {"held": held, "max_and_share": errs, "div_l2": div,
                "div_l2_one_process": ref["div"], "div_rel": div_rel,
@@ -2978,12 +3057,46 @@ def sharded_step_phase(dev, mconf, model):
             raise AssertionError(f"sharded step ({name}): the planted ghost "
                                  f"fault passes the ||div||_2 limit "
                                  f"{STEP_DIV_REL}: {what}")
+        if held == "u_limit" and not u_ok:
+            raise AssertionError(f"sharded step ({name}): {what}; u limit "
+                                 f"{STEP_PCG_U}")
+        if held == "fails_u_limit" and u_ok:
+            raise AssertionError(f"sharded step ({name}): the planted CG "
+                                 f"direction fault passes the u limit "
+                                 f"{STEP_PCG_U}: {what}")
+        if "cg" in recs[0]:
+            its = [c[0] for c in recs[0]["cg"]]
+            res.update({
+                "cg_iterations_per_step": its,
+                "cg_residual_per_step": [c[1] for c in recs[0]["cg"]],
+                "one_process_cg_iterations": ref["cg_iterations"],
+                "label_sweeps": recs[0]["label_sweeps"],
+                "label_ms_per_rank": [r["label_ms"] for r in recs],
+                "label_collectives_rank0": labelling})
+            what += (f"; CG iterations a step {its} on every rank (one "
+                     f"process: {ref['cg_iterations']}), residuals "
+                     f"{[f'{c[1]:.3e}' for c in recs[0]['cg']]}; labels in "
+                     f"{recs[0]['label_sweeps']} sweeps, ms per rank "
+                     f"{rounded(res['label_ms_per_rank'])}, collectives "
+                     f"{labelling}")
+        if "cg_exchange_ms" in recs[0]:
+            ex, ar = ([float(np.median(r[k])) for r in recs]
+                      for k in ("cg_exchange_ms", "cg_all_reduce_ms"))
+            res.update(rerun_equal_all_ranks=True,
+                       cg_collective_ms_per_rank={"exchange": ex,
+                                                  "all_reduce": ar})
+            what += (f"; each rank's rerun equal to the bit; a CG "
+                     f"iteration's collectives alone, ms per rank: an "
+                     f"exchange of one plane {rounded(ex)}, an all_reduce "
+                     f"of the dots {rounded(ar)}")
         if run["fault"]:
             out["runs"][name] = res
-            log(f"sharded step ({name}): ghost planes of step 2's exchange "
-                f"zeroed; {what}: fails the "
-                f"{'limits' if held == 'fails_limits' else 'div limit'}, as "
-                f"it must")
+            planted = "the CG direction's exchange" \
+                if run["fault"] == "cg_direction" else \
+                "ghost planes of step 2's exchange"
+            log(f"sharded step ({name}): {planted} zeroed; {what}: fails "
+                f"the {held[len('fails_'):].replace('_', ' ')}, as it "
+                f"must")
             continue
         if held == "report":
             zl = got["u"].shape[2] // STEP_SP
@@ -3069,7 +3182,10 @@ def sharded_train_phase(dev, mconf, model, batch):
            "density": torch.cat([rolled.density, later.density])}
     big = {k: v[:SPT_BIG_B] for k, v in big.items()}
     del rolled, later
-    batches = {"train": batch, "big": big}
+    batches = {"train": batch, "big": big,
+               "targets": dict(batch, p_target=torch.zeros_like(
+                   batch["p_div"]), u_target=torch.zeros_like(
+                   batch["u_div"]))}
     base = recipe_mconf().replace(loss_reject_threshold=0.0)
     draws = draw(torch.Generator().manual_seed(SPT_GEN_SEED), base)._replace(
         b_scale=torch.tensor(2.0), g_scale=torch.tensor(0.0),
@@ -3082,7 +3198,7 @@ def sharded_train_phase(dev, mconf, model, batch):
             m = base.replace(conv_compute_dtype=run["dtype"],
                              **run.get("kw", {}))
             runs.append({"name": name, "mesh": run["mesh"], "mconf": m,
-                         "batch": run["batch"]})
+                         "batch": run["batch"], "fault": run.get("fault")})
             key = spt_ref_key(run)
             if key in refs:
                 continue
@@ -3145,7 +3261,10 @@ def sharded_train_phase(dev, mconf, model, batch):
         ref = refs[spt_ref_key(run)]
         lim = run["limits"]
         want_launches = dict(train_launches(SPT_N))
-        if run.get("kw", {}).get("augment_without_targets"):
+        kw = run.get("kw", {})
+        if kw.get("augment_without_targets") or \
+                kw.get("train_target_source", "manta") != "manta":
+            # The augmentation: K4 once a step.
             want_launches["vorticity"] = 1
         recs = [r["runs"][name] for r in reports]
         worst = {"terms": 0.0, "grads": 0.0, "params": 0.0, "fault": 0.0}

@@ -17,15 +17,21 @@ Each rank holds a slab of zl = Z / n_sp planes of every field (batch over
      from the grid's sums over each rank's own planes (all_reduces of
      per-sample partial sums), and the solves that reach past G: the
      polish (an exchange of u by n + 2 planes, then divergence, n Jacobi
-     sweeps on K3, the velocity update, on that extension) and jacobi-n
+     sweeps on K3, the velocity update, on that extension), jacobi-n
      (the divergence, `halo.slab_jacobi_solve`: K3 in rounds of at most
      h = min(n, zl) sweeps on the slab grown by h planes, then an
+     exchange of p by one plane, the velocity update) and PCG (the
+     divergence, `pcg_sharded.solve_pcg_z_sharded`: an exchange of d by
+     one plane and two all_reduces over 'sp' a CG iteration, then an
      exchange of p by one plane, the velocity update);
   4. the extended slab is cropped back to the rank's own planes.
 
 The flags and the BC masks do not change within a rollout: one exchange
 extends them at its start, to the widest reach a step needs (h for
-jacobi-n).
+jacobi-n). PCG's connected components are labelled across the slabs
+once, at the same start (pcg_sharded.slab_components: a label exchange
+and an all_reduce MAX a sweep, then one all_gather of the labels
+present).
 
 Why one-sided. An extended slab is then a contiguous range of the whole
 grid, so every positional border test on the path falls where it falls on
@@ -40,17 +46,22 @@ The ghost zone G is the sum of the stencil radii of one step before its
 Jacobi solves (`ghost_planes`): the advection 2W + 2 (W the largest window
 mconf allows), K2's halo of 4 (the prologue, or the forces block), then
 for the ConvNet the trunk's conv radii (3 for the default 8-8-8-8-1 stack)
-and the model's velocity update and setWallBcs (2), for jacobi-n the
-setWallBcs and the divergence (2): 13 planes for the ConvNet at W = 1, 10
-for jacobi-n.
+and the model's velocity update and setWallBcs (2), for jacobi-n and PCG
+the setWallBcs and the divergence (2): 13 planes for the ConvNet at W = 1,
+10 for jacobi-n and PCG.
 
-Exchanges a step: the ConvNet 1 (u, p, density: 5 channels x G planes
-each way), plus 1 with the polish (u: 3 channels x (n + 2) planes);
-jacobi-n 1 (u, density: 4 x G), 1 + (ceil(n / h) - 1) in the solve (div
-by h, then p by h before each round after the first: 1 x h) and 1 for
-the velocity update (p: 1 x 1): 4 for jacobi-34 at 128^3 over 4 ranks
-(h = 32, two rounds). All reductions (the input scale, the
-window) run over each rank's own planes, never the ghost planes.
+Exchanges a step: the ConvNet 1 (u, p, density: 5 channels x G planes each
+way), plus 1 with the polish (u: 3 channels x (n + 2) planes); jacobi-n 1
+(u, density: 4 x G), 1 + (ceil(n / h) - 1) in the solve (div by h, then p
+by h before each round after the first: 1 x h) and 1 for the velocity
+update (p: 1 x 1): 4 for jacobi-34 at 128^3 over 4 ranks (h = 32, two
+rounds); PCG 2 + k, and 4 + 2k all_reduces, at k CG iterations (d: 1 x 1
+an iteration; the all_reduces: the component sums of has_dirichlet, the
+RHS mean and the p mean, the first dot products, then 2 an iteration; with
+more than one 'dp' group k + 2 more, the stop test's and the residual's
+max over the mesh). All reductions (the input scale, the window, the dot
+products, the component sums) run over each rank's own planes, never the
+ghost planes.
 
 Every rank's own planes after one step equal the whole grid's to the bit
 through the advection and K2, and for jacobi-n through the whole step.
@@ -62,12 +73,16 @@ zone. The jacobi-n solve adds nothing: each rank's p equals K3 on the
 whole grid's divergence to the bit. What stays apart on the ConvNet: the
 input scale sums in another order, and cuDNN rounds the trunk's
 convolutions differently on another shape; so the whole ConvNet step
-agrees with the whole grid's to that rounding, not to the bit.
+agrees with the whole grid's to that rounding, not to the bit. PCG's
+labels are the whole grid's exactly, but its dot products and
+component sums add in another order, so its p agrees with the whole
+grid's to the solver's rounding; a rerun on the same ranks gives the
+same bits.
 
-Not ported here (NotImplementedError, each naming its ROADMAP item): PCG
-(its dot products and component sums need all_reduces), models with
-pooling, pixel shuffles or banks (their halos must align to the pooling
-factor), 2-D states, states without density and advection_window 0.
+Not ported here (NotImplementedError, each naming its ROADMAP item):
+models with pooling, pixel shuffles or banks (their halos must align to
+the pooling factor), 2-D states, states without density and
+advection_window 0.
 
 Training: under autograd (`simulate_z_sharded(grad=True)`, the unroll of
 parallel/train_sharded.py) the same step records its graph on the slab.
@@ -97,6 +112,8 @@ from fluidnet_tpu_torch.parallel.mesh import (all_reduce_max,
                                               all_reduce_sum, batch_sharding,
                                               host_staged, local_part,
                                               mesh_device)
+from fluidnet_tpu_torch.parallel.pcg_sharded import (slab_components,
+                                                     solve_pcg_z_sharded)
 from fluidnet_tpu_torch.sim.simulate import (Boundaries, FlagConsts,
                                              SlabStep, _check_slice,
                                              _fixed_jacobi, _resolve_forces,
@@ -120,10 +137,6 @@ def ghost_planes(mconf: ModelConfig) -> int:
 def _check(state_l: FluidState, mconf: ModelConfig, model):
     """Refuses what the sharded step does not port."""
     _check_slice(state_l, mconf, model)
-    if mconf.sim_method == "pcg":
-        raise NotImplementedError("PCG on a z-sharded state is not ported: "
-                                  "every CG iteration needs all_reduces "
-                                  "(ROADMAP queue 1, item 9: sharded PCG)")
     if mconf.sim_method == "convnet":
         _, _, psize, usize = layer_spec(mconf)
         if mconf.banks_num > 1 or max(psize) > 1 or max(usize) > 1:
@@ -161,8 +174,10 @@ class _Slab:
         Y, X = state_l.u.shape[3:]
         self.dx = get_dx((zl * self.n, Y, X))
         self.g = ghost_planes(mconf)
-        # The global index of the G-extended slab's first plane.
-        self.z0 = idx * zl - self.g * self.below
+        # The global index of the own and the G-extended slab's first
+        # plane.
+        self.z_own = idx * zl
+        self.z0 = self.z_own - self.g * self.below
         self.polish = mconf.polish_iters + 2 \
             if mconf.sim_method == "convnet" and mconf.polish_iters > 0 \
             else 0
@@ -184,6 +199,9 @@ class _Slab:
             for k, x in zip(names, ext[1:])})
         self.flags_reach = ext[0]
         self.consts = FlagConsts()
+        # PCG's components depend on the flags alone: labelled once.
+        self.labels = slab_components(state_l.flags, mesh, self.z_own) \
+            if mconf.sim_method == "pcg" else None
 
     def crop(self, x, have: int, want: int):
         """x, this rank's slab extended by `have` planes (one-sided),
@@ -259,6 +277,26 @@ class _Slab:
                              p=self.embed(state.p, p))
 
 
+    def pcg_solve(self, state, mconf, consts, use_kernels):
+        """sim.simulate._solver_projection for PCG on the slab: the
+        divergence of the own planes, pcg_sharded.solve_pcg_z_sharded
+        (its dot products and component sums all_reduced over 'sp', the
+        labels and the flags grown by one plane kept from the rollout's
+        start), then p extended by one plane and the velocity update."""
+        flags, u = state.flags, state.u
+        div = velocity_divergence(u, flags)
+        p, _, _ = solve_pcg_z_sharded(
+            self.own(flags), self.own(div), self.mesh, self.z_own,
+            mconf.pcg_tol, mconf.max_iter,
+            labels=self.labels,
+            flags_ext=self.crop(self.flags_reach, self.reach, 1))
+        pe, = exchange_ghost([p], 1, self.group)
+        u1 = velocity_update(self.crop(u, self.g, 1),
+                             self.crop(flags, self.g, 1), pe)
+        return state.replace(u=self.embed(u, self.crop(u1, 1, 0)),
+                             p=self.embed(state.p, p))
+
+
 def step_window(mconf: ModelConfig, u_l, dt, group) -> int:
     """The advection window every rank takes: sim.simulate._window on the
     grid's max|u| (an all_reduce MAX over `group` of each rank's own
@@ -287,7 +325,9 @@ def _sharded_step(state_l, mconf, model, slab, forces, use_kernels,
         pe = slab.embed(torch.zeros_like(ue[:, :1]), state_l.p)
     hooks = SlabStep(dx=slab.dx, z0=slab.z0, window=W,
                      input_scale=slab.input_scale,
-                     polish=slab.polish_step, solve=slab.jacobi_solve)
+                     polish=slab.polish_step,
+                     solve=slab.pcg_solve if mconf.sim_method == "pcg"
+                     else slab.jacobi_solve)
     out = _step(FluidState(u=ue, p=pe, flags=slab.flags, density=de), mconf,
                 model, slab.bcs, slab.consts, use_kernels, forces,
                 output_div, slab=hooks)

@@ -44,15 +44,32 @@ over 'dp' in one all_reduce.
      the same exchanges in the same order, since every rank builds the
      same graph.
 
+  4. Solver targets (train_target_source 'pcg' or 'jacobi' with the p/u
+     losses on): the first call's exchange grows p_div, u_div and density
+     by model_ghost + TARGET_REACH + AUGMENT_REACH planes, the
+     augmentation runs there, then train/train._calc_pu_targets on the
+     slab without gradients (`_slab_targets`): setWallBcs and the
+     divergence on the grown slab, the solve on the own planes
+     (pcg_sharded.solve_pcg_z_sharded, tol 1e-4, max_iter or 100; or
+     halo.slab_jacobi_solve, max_iter or 50 sweeps on K3, the flags grown
+     by its h once a loss), an exchange of p by 2 planes, the velocity
+     update and setWallBcs, cropped to the own planes. The wall-BC'd
+     u_div, grown by model_ghost, is the first model call's input and
+     its own planes the unroll's start. The long-term frame solves for
+     its targets again on the unroll's u, grown by one exchange of
+     TARGET_REACH + 2 planes (JAX's train.py:263-266).
+  5. loss_p_lambda > 0 (and the long-term solver targets): the target
+     pressure's per-component mean is the whole grid's
+     (pcg_sharded.normalize_pressure_mean_z_sharded), with the
+     components labelled across the slabs once a loss.
+
 Every rank must take the same horizon and the same draws (JAX has one key
 for the whole batch): they come from equal generator seeds, and
 `loss_fn_sharded` checks them with one all_reduce.
 
-Not ported (NotImplementedError, each naming its ROADMAP item): solver
-targets with the p/u losses on and loss_p_lambda > 0 (normalize_pressure_
-mean sums per connected component, which needs components labelled across
-slabs: item 9), and what the sharded step refuses (pooled or banked
-models: item 10; 2-D, no density, window 0: item 6).
+Not ported: what the sharded step refuses (NotImplementedError, each
+naming its ROADMAP item: pooled or banked models, item 10; 2-D, no
+density, window 0, item 6).
 """
 
 import functools
@@ -64,10 +81,15 @@ from torch.utils.checkpoint import checkpoint
 from fluidnet_tpu_torch.core.config import ModelConfig
 from fluidnet_tpu_torch.core.grids import FluidState
 from fluidnet_tpu_torch.models.fluidnet import layer_spec
+from fluidnet_tpu_torch.ops.boundary import set_wall_bcs
 from fluidnet_tpu_torch.ops.cuda.forces_kernel import HALO as K2_HALO
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
-from fluidnet_tpu_torch.parallel.halo import exchange_ghost
+from fluidnet_tpu_torch.ops.velocity_update import velocity_update
+from fluidnet_tpu_torch.parallel.halo import (exchange_ghost,
+                                              slab_jacobi_solve)
 from fluidnet_tpu_torch.parallel.mesh import all_reduce_max
+from fluidnet_tpu_torch.parallel.pcg_sharded import (
+    normalize_pressure_mean_z_sharded, slab_components, solve_pcg_z_sharded)
 from fluidnet_tpu_torch.parallel.simulate_sharded import (_check, _Slab,
                                                           _sharded_step)
 from fluidnet_tpu_torch.sim.simulate import _resolve_forces
@@ -77,6 +99,10 @@ from fluidnet_tpu_torch.train.train import _data_augmentation, draw
 # The planes augment_without_targets reads beyond a cell (the module's
 # note, step 2): K2's forces block composes the same three forces.
 AUGMENT_REACH = K2_HALO
+# The planes the solver targets' setWallBcs reads beyond a cell: the
+# wall-BC'd u_div is right on one plane fewer than the u it is given
+# (_slab_targets).
+TARGET_REACH = 1
 
 
 def model_ghost(mconf: ModelConfig) -> int:
@@ -86,19 +112,42 @@ def model_ghost(mconf: ModelConfig) -> int:
     return sum((k - 1) // 2 for k in layer_spec(mconf)[1]) + 5
 
 
-def _refuse(mconf: ModelConfig):
-    if mconf.train_target_source != "manta" and (
-            mconf.loss_p_lambda > 0 or mconf.loss_u_lambda > 0):
-        raise NotImplementedError(
-            f"solver targets ({mconf.train_target_source}) with the p/u "
-            f"losses on a z-sharded batch are not ported: the target "
-            f"pressure's per-component mean needs components labelled "
-            f"across slabs (ROADMAP queue 1, item 9: sharded PCG)")
-    if mconf.loss_p_lambda > 0:
-        raise NotImplementedError(
-            "loss_p_lambda > 0 on a z-sharded batch is not ported: the "
-            "target pressure's per-component mean needs components "
-            "labelled across slabs (ROADMAP queue 1, item 9: sharded PCG)")
+def _jacobi_sweeps(mconf: ModelConfig) -> int:
+    """The sweeps of the 'jacobi' solver targets (train/train.
+    _calc_pu_targets)."""
+    return mconf.max_iter or 50
+
+
+def _slab_targets(slab, mesh, mconf, u, have: int, segs, use_kernels):
+    """train/train._calc_pu_targets on this rank's slab, without
+    gradients: `u`, its u_div grown by `have` >= 3 planes (one-sided at
+    the global ends), right on every plane. setWallBcs and the divergence
+    run on the grown slab, the solve on the own planes (`segs`: the
+    slab_components of the flags), the velocity update and setWallBcs on
+    the own planes grown by 2 (p exchanged by 2 planes). Returns (the
+    wall-BC'd u on the slab grown by have - 1, p_target and u_target on
+    the own planes)."""
+    fe = slab.crop(slab.flags_reach, slab.reach, have)
+    uw = set_wall_bcs(u, fe)
+    div = slab.crop(velocity_divergence(uw, fe), have, 0).contiguous()
+    f_own = slab.crop(fe, have, 0).contiguous()
+    if mconf.train_target_source == "pcg":
+        p_t, _, _ = solve_pcg_z_sharded(
+            f_own, div, mesh, slab.z_own, tol=1e-4,
+            max_iter=mconf.max_iter or 100, labels=segs,
+            flags_ext=slab.crop(fe, have, 1))
+    elif mconf.train_target_source == "jacobi":
+        n = _jacobi_sweeps(mconf)
+        p_t = slab_jacobi_solve(
+            f_own, div, mesh, n, use_kernels,
+            slab.crop(slab.flags_reach, slab.reach, min(n, slab.zl)))
+    else:
+        raise ValueError(
+            f"bad train_target_source {mconf.train_target_source}")
+    pe, = exchange_ghost([p_t], 2, slab.group)
+    f2 = slab.crop(fe, have, 2)
+    u_t = set_wall_bcs(velocity_update(slab.crop(uw, have, 2), f2, pe), f2)
+    return slab.crop(uw, have, have - 1), p_t, slab.crop(u_t, 2, 0)
 
 
 def check_same(n_future: int, draws, group, device):
@@ -148,7 +197,6 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
     it with the same horizon and draws. The unroll records gradients when
     autograd is on; a backward through the share then runs the exchanges'
     adjoints, so every rank must run it."""
-    _refuse(mconf)
     flags = batch_l["flags"]
     state_l = FluidState(u=batch_l["u_div"], p=batch_l["p_div"], flags=flags,
                          density=batch_l.get("density"))
@@ -157,10 +205,19 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
         draws = draw(gen, mconf)
     check_same(n_future, draws, dist.group.WORLD, flags.device)
     grad = torch.is_grad_enabled()
+    use_solver_gt = (mconf.train_target_source != "manta" and
+                     (mconf.loss_p_lambda > 0 or mconf.loss_u_lambda > 0))
     gm = model_ghost(mconf)
-    ga = gm + AUGMENT_REACH if mconf.augment_without_targets else gm
+    ga = gm
+    if use_solver_gt:
+        ga = gm + TARGET_REACH + AUGMENT_REACH
+    elif mconf.augment_without_targets:
+        ga = gm + AUGMENT_REACH
+    solve_h = min(_jacobi_sweeps(mconf), flags.shape[2]) \
+        if mconf.train_target_source == "jacobi" else 0
     slab = _Slab(state_l, mconf, mesh, None,
-                 max(ga, mconf.loss_func_border_width))
+                 max(ga, mconf.loss_func_border_width, solve_h,
+                     TARGET_REACH + 2))
     flags_m = slab.crop(slab.flags_reach, slab.reach, gm)
 
     def crop(x):
@@ -191,9 +248,15 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
         return _slab_terms(mconf, crop, count, p_pred, u_pred, p_tgt, u_tgt,
                            flags_m, weights, **lambdas)
 
+    segs = None
+    if mconf.loss_p_lambda > 0 or mconf.train_target_source != "manta":
+        # The components across the slabs, once a loss.
+        segs = slab_components(flags, mesh, slab.z_own)
+
     grown = None
-    if mconf.augment_without_targets:
-        if mconf.loss_p_lambda != 0 or mconf.loss_u_lambda != 0:
+    if use_solver_gt or mconf.augment_without_targets:
+        if not use_solver_gt and (mconf.loss_p_lambda != 0 or
+                                  mconf.loss_u_lambda != 0):
             raise ValueError("augment_without_targets requires the p/u "
                              "losses off")
         with torch.no_grad():
@@ -202,8 +265,19 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
             ua = _data_augmentation(
                 ua, slab.crop(slab.flags_reach, slab.reach, ga).contiguous(),
                 da, mconf, draws, use_kernels, dx=slab.dx)
-            grown = (slab.crop(pa, ga, gm), slab.crop(ua, ga, gm))
-            u_div = slab.crop(ua, ga, 0).contiguous()
+            gu = ga
+            if use_solver_gt:
+                have = ga - AUGMENT_REACH
+                ua, p_target, u_target = _slab_targets(
+                    slab, mesh, mconf, slab.crop(ua, ga, have), have, segs,
+                    use_kernels)
+                gu = have - 1
+            grown = (slab.crop(pa, ga, gm), slab.crop(ua, gu, gm))
+            u_div = slab.crop(ua, gu, 0).contiguous()
+    if mconf.loss_p_lambda > 0:
+        with torch.no_grad():
+            p_target = normalize_pressure_mean_z_sharded(p_target, flags,
+                                                         segs)
 
     total, terms = model_loss(
         batch_l["p_div"], u_div, p_target, u_target, grown,
@@ -236,12 +310,26 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
             raise ValueError(f"bad long_term_grad_mode "
                              f"{mconf.long_term_grad_mode}")
         u_lt, p_lt = fields[0], fields[1]
-        # Manta targets: no ground truth for future frames, the p and u
-        # lambdas zeroed (run_epoch.lua:273-277). Solver targets reach
-        # here only with both losses off (_refuse), so their terms are 0.
-        lt_total, lt_terms = model_loss(
-            p_lt, u_lt, p_lt, u_lt, p_lambda=0.0, u_lambda=0.0,
-            div_lambda=mconf.long_term_div_lambda)
+        if mconf.train_target_source == "manta":
+            # No ground truth for future frames: the p and u lambdas
+            # zeroed (run_epoch.lua:273-277).
+            lt_total, lt_terms = model_loss(
+                p_lt, u_lt, p_lt, u_lt, p_lambda=0.0, u_lambda=0.0,
+                div_lambda=mconf.long_term_div_lambda)
+        else:
+            # Solver ground truth for the future frame too
+            # (run_epoch.lua:278-283).
+            have = TARGET_REACH + 2
+            with torch.no_grad():
+                ue, = exchange_ghost([u_lt], have, slab.group)
+                _, p_lt_t, u_lt_t = _slab_targets(slab, mesh, mconf, ue,
+                                                  have, segs, use_kernels)
+                p_lt_t = normalize_pressure_mean_z_sharded(p_lt_t, flags,
+                                                           segs)
+            lt_total, lt_terms = model_loss(
+                p_lt, u_lt, p_lt_t, u_lt_t, p_lambda=mconf.loss_p_lambda,
+                u_lambda=mconf.loss_u_lambda,
+                div_lambda=mconf.long_term_div_lambda)
         total = total + lt_total
         terms["long_term_div"] = lt_terms["div"]
     else:

@@ -26,12 +26,18 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       takes its slab of the state and its plume BC masks (shard_state,
       shard_bcs) and runs rollout_z_sharded with the bundled model
       (mconf's conv dtype; none for jacobi) once with its launches and
-      collectives counted (`fault`: with zeroed_ghosts planted), once with
-      every kernel's plain version (use_kernels=False) on the same slab,
-      its difference to the first reported, then once more timed, and
-      --reps timed exchanges of the step's fields. A jacobi-n run is also
-      rerun and timed on the per-sweep halo Jacobi (`halo_solve`), which
-      must give the same bits.
+      collectives counted (`fault`: "ghosts" plants zeroed_ghosts,
+      "cg_direction" zeroed_d_ghosts), once with every kernel's plain
+      version (use_kernels=False) on the same slab, its difference to the
+      first reported, then once more timed, and --reps timed exchanges of
+      the step's fields. A jacobi-n run is also rerun and timed on the
+      per-sweep halo Jacobi (`halo_solve`), which must give the same bits.
+      A PCG run keeps each step's CG iteration count and residual
+      (`cg_solves`), its slab's labels (connected_components_z_sharded,
+      timed, its sweeps and collectives kept), times its rerun with the
+      kernels, which must give the same bits, and --reps of a CG
+      iteration's collectives alone (an exchange of one plane, an
+      all_reduce of two per-sample dots).
   --case train_sp: the inputs hold host batches, the draws, the model
       seed, the horizon n and the runs [{name, mesh (n_dp, n_sp), mconf,
       batch}]. On each run's mesh each rank takes its part of the batch
@@ -40,7 +46,8 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       gradients: once with its launches and collectives counted, once
       with every kernel's plain version (the gradients must be the same
       bits), once with the exchanges' adjoint dropping the ghost planes'
-      cotangents (`dropped_adjoint`, the planted fault); each reduced
+      cotangents (`dropped_adjoint`, the planted fault; a run with
+      `fault` "cg_direction" plants zeroed_d_ghosts instead); each reduced
       over the mesh as train_step(mesh=) reduces them. Then two timed
       train_step(mesh=) and --reps timed forward and adjoint exchanges of
       a step's fields. With augment_without_targets, the u the first
@@ -132,6 +139,61 @@ def zeroed_ghosts(at_call, rank):
         yield
     finally:
         ss.exchange_ghost = real
+
+
+@contextlib.contextmanager
+def zeroed_d_ghosts():
+    """Plants the fault the sharded PCG's checks must catch: every
+    floating-point exchange of parallel/pcg_sharded.py (the CG direction
+    d, one plane a CG iteration) returns zeros in place of the
+    neighbours' planes, so each slab's apply_A sees p = 0 across the
+    cuts. The labels' and the flags' exchanges (int32) are left alone."""
+    from fluidnet_tpu_torch.parallel import pcg_sharded as ps
+    real = ps.exchange_ghost
+
+    def faulty(xs, g, group):
+        ext = real(xs, g, group)
+        if not xs[0].is_floating_point():
+            return ext
+        lo = g * (dist.get_rank(group) > 0)
+        return [torch.cat([torch.zeros_like(e[:, :, :lo]),
+                           e[:, :, lo:lo + x.shape[2]],
+                           torch.zeros_like(e[:, :, lo + x.shape[2]:])],
+                          dim=2) for e, x in zip(ext, xs)]
+    ps.exchange_ghost = faulty
+    try:
+        yield
+    finally:
+        ps.exchange_ghost = real
+
+
+@contextlib.contextmanager
+def cg_solves():
+    """Keeps (CG iterations, residual) of every sharded PCG solve of
+    parallel/simulate_sharded.py's step while entered. Yields the list."""
+    from fluidnet_tpu_torch.parallel import simulate_sharded as ss
+    real, out = ss.solve_pcg_z_sharded, []
+
+    def kept(*a, **kw):
+        p, res, it = real(*a, **kw)
+        out.append((it, res.item()))
+        return p, res, it
+    ss.solve_pcg_z_sharded = kept
+    try:
+        yield out
+    finally:
+        ss.solve_pcg_z_sharded = real
+
+
+def planted(fault, rank):
+    """The context of a run's planted fault: none (False or None),
+    zeroed_ghosts of step 2's exchange (True or "ghosts") or
+    zeroed_d_ghosts ("cg_direction")."""
+    if not fault:
+        return contextlib.nullcontext()
+    if fault == "cg_direction":
+        return zeroed_d_ghosts()
+    return zeroed_ghosts(2, rank)
 
 
 @contextlib.contextmanager
@@ -335,11 +397,10 @@ def step(inp, reps, rank):
                     inp["model"]))), run.get("scales"))
 
         def roll(use_kernels=True):
-            with zeroed_ghosts(2, rank) if run["fault"] \
-                    else contextlib.nullcontext():
+            with planted(run["fault"], rank):
                 return ss.rollout_z_sharded(state_l, mconf, n, mesh, model,
                                             bcs_l, use_kernels=use_kernels)
-        with comm_counts() as comms:
+        with comm_counts() as comms, cg_solves() as solves:
             out, launches = counted(roll)
         keys = ("u", "p", "density")
         saved[run["name"]] = {k: getattr(out, k).cpu() for k in keys}
@@ -367,6 +428,43 @@ def step(inp, reps, rank):
                                              getattr(plain, k))
                                  for k in keys)
         del plain
+        if mconf.sim_method == "pcg":
+            from fluidnet_tpu_torch.parallel.mesh import all_reduce_sum
+            from fluidnet_tpu_torch.parallel.pcg_sharded import (
+                connected_components_z_sharded, exchange_ghost,
+                slab_segments)
+            rec["cg"] = solves
+            if not run["fault"]:
+                # The rerun, timed: it must give the same bits.
+                again = []
+                rec["step_ms"] = [t / n for t in timed(
+                    lambda: again.append(roll()), 1)]
+                rec["rerun_equal"] = all(torch.equal(getattr(out, k),
+                                                     getattr(again[0], k))
+                                         for k in keys)
+                del again
+                # A CG iteration's collectives alone: the exchange of one
+                # plane of d and an all_reduce of two per-sample dots.
+                d = torch.zeros_like(state_l.p)
+                rec["cg_exchange_ms"] = timed(
+                    lambda: exchange_ghost([d], 1, group), reps)
+                dots = torch.zeros((2, d.shape[0]), device=dev)
+                rec["cg_all_reduce_ms"] = timed(
+                    lambda: all_reduce_sum(dots, group), reps)
+            # The labelling a rollout makes at its start, alone: its
+            # time, sweeps and collectives.
+            z0 = rank * state_l.u.shape[2]
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with comm_counts() as comms:
+                labels, rec["label_sweeps"] = \
+                    connected_components_z_sharded(state_l.flags, mesh, z0)
+                slab_segments(labels, group)
+            torch.cuda.synchronize()
+            rec["label_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["label_comms"] = dict(comms)
+            saved[run["name"]]["labels"] = labels.cpu()
         if mconf.sim_method == "jacobi":
             with halo_solve():
                 with comm_counts() as comms:
@@ -378,7 +476,8 @@ def step(inp, reps, rank):
                 del old
                 rec["halo_step_ms"] = [t / n for t in timed(roll, 1)]
         if not run["fault"]:
-            rec["step_ms"] = [t / n for t in timed(roll, 1)]
+            if "step_ms" not in rec:
+                rec["step_ms"] = [t / n for t in timed(roll, 1)]
             G = rec["ghost"]
             fields = [state_l.u, state_l.density] + (
                 [state_l.p] if model is not None else [])
@@ -469,7 +568,8 @@ def train_sp(inp, reps, rank):
                                     for a, b in zip(g_k, g_p))}
         grads, rec["terms"] = reduced(g_k, terms)
         del g_p
-        with dropped_adjoint():
+        with zeroed_d_ghosts() if run.get("fault") == "cg_direction" \
+                else dropped_adjoint():
             fault, _ = reduced(*local())
         aug_u = None
         if mconf.augment_without_targets:

@@ -58,7 +58,7 @@ CASES = {"convnet": {}, "convnet_p2": dict(polish_iters=2),
          "jacobi8": dict(sim_method="jacobi", max_iter=8)}
 ADAPT = dict(adaptive_window=True, advection_window=2)
 FAULT_CALL = 2        # step 2's exchange (call 0 extends the flags)
-REFUSALS = {"pcg": dict(sim_method="pcg"), "tog": dict(model_type="tog"),
+REFUSALS = {"tog": dict(model_type="tog"),
             "window0": dict(advection_window=0), "2d": {}, "no_density": {}}
 
 
@@ -520,9 +520,10 @@ def test_planted_ghost_fault_fails(run):
 
 
 def test_refusals(run):
-    """PCG, a pooled model (tog), advection_window 0, a 2-D state and a
-    state without density raise NotImplementedError naming the ROADMAP
-    item (training, grad=True, runs: tests/test_torch_sharded_train.py);
+    """A pooled model (tog), advection_window 0, a 2-D state and a state
+    without density raise NotImplementedError naming the ROADMAP item
+    (training, grad=True, runs: tests/test_torch_sharded_train.py; PCG
+    runs: tests/test_torch_sharded_pcg.py);
     a slab shorter than the ghost zone (W = 4: 19 planes > 16) raises
     ValueError."""
     _, _, _, outs = run

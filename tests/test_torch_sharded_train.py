@@ -24,9 +24,15 @@ True); the loss with augment_without_targets (gravity drawn on too) against
 the port's one-process loss_fn with it, with no more exchanges than
 without; the exchange's and all_reduce_sum's adjoints by the dot-product
 identity; a planted fault (the exchanges' adjoint drops the ghost
-planes' cotangents) that must fail the gradient limits; the refusals.
+planes' cotangents) that must fail the gradient limits; the sharded
+PCG's cases on 1 x 2 (SOLVER: PCG and Jacobi solver targets with the p
+and u losses on, loss_p_lambda on manta targets; horizon 1) against
+JAX's loss_fn (its value_and_grad of each in a thread) and the port's
+one process, with their planted fault (the CG direction's exchange
+zeroed); the refusals.
 """
 
+import contextlib
 import os
 import socket
 import subprocess
@@ -58,14 +64,20 @@ DRAWS = ("dt", "gravity", "b_scale", "g_scale", "v_amp")
 # another order). Gradients and params after 2 steps: each parameter
 # within GRAD_REL relative L2.
 JAX_RTOL, PORT_RTOL, GRAD_REL = 1e-4, 1e-5, 1e-4
-REFUSALS = {"solver_targets": dict(train_target_source="jacobi",
-                                   loss_u_lambda=1.0),
-            "p_loss": dict(loss_p_lambda=1.0),
-            "tog": dict(model_type="tog"),
+REFUSALS = {"tog": dict(model_type="tog"),
             "window0": dict(advection_window=0)}
-ITEMS = {"solver_targets": "item 9", "p_loss": "item 9",
-         "tog": "item 10", "window0": "item 6"}
+ITEMS = {"tog": "item 10", "window0": "item 6"}
 AUGMENT = dict(augment_without_targets=True)
+# The sharded PCG's cases (dp 1 x sp 2, horizon SOLVER_FUTURE): solver
+# targets with the p and u losses on, and the p loss on manta targets.
+# "pcg_fault" is "pcg" with the CG direction's exchange zeroed
+# (torch_parallel_rank.zeroed_d_ghosts), which must fail GRAD_REL.
+SOLVER_FUTURE = 1
+SOLVER = {"pcg": dict(train_target_source="pcg", loss_p_lambda=1.0,
+                      loss_u_lambda=1.0),
+          "jacobi": dict(train_target_source="jacobi", loss_p_lambda=1.0,
+                         loss_u_lambda=1.0),
+          "p_loss": dict(loss_p_lambda=1.0)}
 
 
 def _free_port():
@@ -95,9 +107,10 @@ def _aug_draws(inp):
     return _draws(inp)._replace(g_scale=torch.tensor(2.0))
 
 
-def _batch(inp):
+def _batch(inp, targets=False):
     return {k: torch.from_numpy(inp[k])
-            for k in ("flags", "u_div", "p_div", "density")}
+            for k in ("flags", "u_div", "p_div", "density") +
+            (("p_target", "u_target") if targets else ())}
 
 
 def _model(inp, mconf):
@@ -229,6 +242,24 @@ def _worker(rank, world, n_dp, n_sp, port, inp):
                             zip(_named(model), grads)})
                 res.update({f"aug_term_{k}": v for k, v in terms.items()})
 
+        # The sharded PCG's cases, and the planted fault.
+        batch_t = shard_batch(_batch(inp, targets=True), mesh, device="cpu")
+        for name in list(SOLVER) + ["pcg_fault"]:
+            m = tm.replace(**SOLVER[name.replace("_fault", "")])
+            model = _model(inp, m)
+            with _rank_script().zeroed_d_ghosts() if name == "pcg_fault" \
+                    else contextlib.nullcontext():
+                total, terms = loss_fn_sharded(model, batch_t, None, m,
+                                               SOLVER_FUTURE, mesh,
+                                               draws=draws)
+                grads = torch.autograd.grad(total, [
+                    q for _, q in model.jax_named_parameters()])
+            grads, terms = tr._mean_over(dist.group.WORLD, grads, terms,
+                                         tr._replicas(mesh))
+            res.update({f"{name}_grad_{k}": g for k, g in
+                        zip(_named(model), grads)})
+            res.update({f"{name}_term_{k}": v for k, v in terms.items()})
+
         def error(fn):
             try:
                 fn()
@@ -320,7 +351,11 @@ def _inputs():
            "p_div": (rng.standard_normal(SHAPE) * 0.1).astype(np.float32),
            "density": rng.random(SHAPE).astype(np.float32),
            "cot_u": rng.standard_normal((B, 3, Z, Y, X)).astype(np.float32),
-           "cot_p": rng.standard_normal(SHAPE).astype(np.float32)}
+           "cot_p": rng.standard_normal(SHAPE).astype(np.float32),
+           "p_target": (rng.standard_normal(SHAPE) * 0.1).astype(
+               np.float32),
+           "u_target": (rng.standard_normal((B, 3, Z, Y, X)) * 0.5).astype(
+               np.float32)}
     jm = JModelConfig(**M3D_V5)
     jm = jm.replace(optim=jm.optim.__class__(learning_rate=5e-4))
     for seed in range(200):
@@ -429,20 +464,61 @@ def _port_ref(inp):
         torch.set_num_threads(threads)
 
 
+def _jax_solver_ref(inp, params, key, jm, name):
+    """JAX's value_and_grad of loss_fn on the whole batch (with its
+    targets) for a SOLVER case."""
+    import jax
+    import jax.numpy as jnp
+    from fluidnet_tpu.train import train as jtrain
+
+    batch = {k: jnp.asarray(v) for k, v in _batch(inp, True).items()}
+    (_, terms), grads = jax.value_and_grad(jtrain.loss_fn, has_aux=True)(
+        params, batch, key, jm.replace(**SOLVER[name]), SOLVER_FUTURE)
+    return {"terms": {k: float(v) for k, v in terms.items()},
+            "grads": jax.tree_util.tree_map(np.asarray, grads)}
+
+
+def _port_solver_ref(inp):
+    """The port's one-process loss_fn gradients of each SOLVER case, on
+    one thread."""
+    from fluidnet_tpu_torch.train import train as tr
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = {}
+        for name, kw in SOLVER.items():
+            m = _mconf().replace(**kw)
+            model = _model(inp, m)
+            total, terms = tr.loss_fn(model, _batch(inp, True), None, m,
+                                      SOLVER_FUTURE, draws=_draws(inp))
+            out[name] = {
+                "terms": {k: float(v.detach()) for k, v in terms.items()},
+                "grads": dict(zip(_named(model), torch.autograd.grad(
+                    total, [q for _, q in model.jax_named_parameters()])))}
+        return out
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """(JAX's results, the port's one-process results, {mesh: [each
-    rank's results]})."""
+    rank's results]}); JAX's and the port's results of the SOLVER cases
+    under "solver"."""
     tmp = str(tmp_path_factory.mktemp("torch_sharded_train"))
     inp, params, key, jm = _inputs()
     in_path = os.path.join(tmp, "inputs.npz")
     np.savez(in_path, **inp)
     procs = {name: _spawn(tmp, in_path, name) for name in MESHES}
     try:
-        with ThreadPoolExecutor(1) as pool:
+        with ThreadPoolExecutor(1 + len(SOLVER)) as pool:
             jref = pool.submit(_jax_ref, inp, params, key, jm)
+            jsol = {name: pool.submit(_jax_solver_ref, inp, params, key, jm,
+                                      name) for name in SOLVER}
             pref = _port_ref(inp)
+            pref["solver"] = _port_solver_ref(inp)
             jref = jref.result()
+            jref["solver"] = {k: f.result() for k, f in jsol.items()}
     finally:
         outs = {name: _collect(p) for name, p in procs.items()}
     return jref, pref, outs
@@ -616,10 +692,50 @@ def test_augmentation_on_slabs(run):
         1e-3 * pref["terms"]["div"]
 
 
+@pytest.mark.parametrize("name", list(SOLVER))
+def test_sharded_pcg_cases(run, name):
+    """The sharded PCG's uses in the loss on dp 1 x sp 2: solver targets
+    (PCG on the slabs' pcg_sharded.solve_pcg_z_sharded; jacobi on K3 in
+    halo.slab_jacobi_solve's rounds) with the p and u losses on, and
+    loss_p_lambda > 0 on manta targets (the per-component mean across the
+    slabs), at horizon 1 (the long-term frame solves for its targets
+    again): the reduced terms within JAX_RTOL of JAX's loss_fn on the
+    whole batch and PORT_RTOL of the port's one-process loss_fn (atol
+    1e-7), and every gradient within GRAD_REL relative L2 of both, on
+    every rank."""
+    jref, pref, outs = run
+    js, ps = jref["solver"][name], pref["solver"][name]
+    for o in outs["dp1_sp2"]:
+        for k in TERMS:
+            np.testing.assert_allclose(o[f"{name}_term_{k}"], js["terms"][k],
+                                       rtol=JAX_RTOL, atol=1e-7, err_msg=k)
+            np.testing.assert_allclose(o[f"{name}_term_{k}"], ps["terms"][k],
+                                       rtol=PORT_RTOL, atol=1e-7, err_msg=k)
+        wj = _worst_grad(o, f"{name}_grad_",
+                         lambda k: _jax_leaf(js["grads"], k))
+        wp = _worst_grad(o, f"{name}_grad_",
+                         lambda k: ps["grads"][k].numpy())
+        print(f"{name}: gradients' worst relative L2 vs JAX {wj:.3e}, vs "
+              f"the port {wp:.3e}")
+        assert wj <= GRAD_REL and wp <= GRAD_REL, (wj, wp)
+    assert js["terms"]["p"] > 0 and js["terms"]["long_term_div"] > 0
+
+
+def test_sharded_pcg_planted_fault_fails(run):
+    """The "pcg" case with the CG direction's exchange zeroed: its
+    gradients fail GRAD_REL against JAX's."""
+    jref, _, outs = run
+    js = jref["solver"]["pcg"]
+    for o in outs["dp1_sp2"]:
+        w = _worst_grad(o, "pcg_fault_grad_",
+                        lambda k: _jax_leaf(js["grads"], k))
+        print(f"pcg_fault: gradients' worst relative L2 vs JAX {w:.3e}")
+        assert w > GRAD_REL, w
+
+
 def test_refusals(run):
-    """Solver targets with the p/u losses on, loss_p_lambda > 0, a pooled
-    model (tog) and advection_window 0 raise NotImplementedError naming
-    their ROADMAP item."""
+    """A pooled model (tog) and advection_window 0 raise
+    NotImplementedError naming their ROADMAP item."""
     _, _, outs = run
     for o in outs["dp1_sp2"]:
         for name, item in ITEMS.items():
