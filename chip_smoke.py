@@ -228,7 +228,12 @@ and its training, in ranks that share the card), in these phases:
              each rank's rerun equal to the bit, the labelling's sweeps,
              ms and collectives and the CG iterations a step printed; (i)
              (h) with the CG direction's exchange zeroed must fail the u
-             limit. Every rank runs each rollout a second
+             limit; (j) phase 18's models with random weights (seed 18),
+             float32: tog (ghost zone G = 28, its trunk's reach 16 rounded
+             up to its pooling factor 4) and the two-bank mres model with
+             batch norm and the skip (G = 16), each held as (a), and (k)
+             tog with its trunk one plane off the pooling factor's
+             multiples must fail them. Every rank runs each rollout a second
              time with the kernels' plain versions on the same slab (K1,
              K2, K3 at the shapes this path gives them) and must give the
              same bits. Each slab advects at its z origin, so every rank's
@@ -263,7 +268,11 @@ and its training, in ranks that share the card), in these phases:
              (a)'s limits; (f) (a) with PCG solver targets and the p and u
              losses on (the sharded PCG and the per-component p mean
              across the slabs; K4 once a step), at (a)'s limits, its
-             planted fault the CG direction's exchange zeroed; (e) at
+             planted fault the CG direction's exchange zeroed; (g) tog
+             (phase 18's, random weights) in float32 over dp 1 x sp 2 in a
+             second spawn of 2 ranks (slabs of 32 planes, model calls
+             grown by 24), at (a)'s limits, its planted fault the trunk
+             one plane off its pooling factor's multiples; (e) at
              (a)'s terms limit and 2x its gradients' sound reading
              (SPT_RUNS). Each: the loss terms within rtol and every
              gradient and param after 2 steps within the relative L2 of
@@ -429,6 +438,7 @@ RECIPE = ["-batch_size", "6", "-seed", "17",
 # Phase 18: the models of the generic stage path on bench.py's plume,
 # each with its timed reps of MODEL_STEPS steps after MODEL_WARMUP.
 MODEL_WARMUP, MODEL_STEPS = 8, 16
+MODEL_SEED = 18                 # random_model's seed for these models
 MODELS = {"tog": (dict(model_type="tog"), 2),
           "mres_bn_skip": (dict(banks_num=2, add_batch_norm=True,
                                 add_pressure_skip=True), 0)}
@@ -493,9 +503,13 @@ CONVNET_STEP = dict(K1_FUSED, prologue=1)
 # phase's states, or the empty plume's resolution), steps, the run whose
 # one-process rollout it is held against, how it is held, a planted
 # fault (True: the ghost planes of step 2's exchange zeroed;
-# "cg_direction": the CG direction's exchange zeroed), whether the model
+# "cg_direction": the CG direction's exchange zeroed; "misaligned": the
+# trunk one plane off its pooling factor's multiples), whether the model
 # is fed the whole grid's input scale of each step in place of the
-# slab's, and the launches a rank makes a step. Held: "limits" (STEP_MAX,
+# slab's, the launches a rank makes a step, and the seed of random
+# weights (phase 18's models: tog at G = 28 and a two-bank mres model
+# with batch norm and the skip at G = 16 on slabs of 32 planes; None: the
+# bundled model). Held: "limits" (STEP_MAX,
 # STEP_FRAC), "div" (STEP_DIV_REL), "fails_limits" and "fails_div" (a
 # planted fault must fail them), "report" (errors reported: whether the
 # bf16 trunk rounds apart on a slab through its input scale's sums or
@@ -503,7 +517,8 @@ CONVNET_STEP = dict(K1_FUSED, prologue=1)
 # STEP_PCG_U) and "fails_u_limit" (its planted fault must fail it).
 STEP_DEFAULT = dict(kw={}, dtype="float32", state="rolled", steps=STEP_N,
                     ref=None, held="limits", fault=False, fed=False,
-                    launches=CONVNET_STEP)
+                    launches=CONVNET_STEP, seed=None)
+TOG = dict(kw=MODELS["tog"][0], seed=MODEL_SEED)
 STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
     "f32": {},
     "bf16": dict(dtype="bfloat16", held="div"),
@@ -526,6 +541,10 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
     "pcg_fault": dict(kw=PCG_KW, ref="pcg", fault="cg_direction",
                       held="fails_u_limit",
                       launches=dict(K1_FUSED, forces_block=1)),
+    "tog": TOG,
+    "tog_fault": dict(TOG, ref="tog", fault="misaligned",
+                      held="fails_limits"),
+    "mres_bn_skip": dict(kw=MODELS["mres_bn_skip"][0], seed=MODEL_SEED),
 }.items()}
 
 
@@ -551,7 +570,10 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
 # sound reading 2.196e-04, 106x under its fault 4.670e-02. (f) PCG solver
 # targets with the p and u losses on (the batch's targets zeros: the
 # solver's replace them), float32 at (a)'s limits; its planted fault is
-# the CG direction's exchange zeroed ("cg_direction").
+# the CG direction's exchange zeroed ("cg_direction"). (g) tog, float32,
+# over dp 1 x sp 2 (a spawn of its own: a run's mesh holds every rank of
+# its spawn), at (a)'s limits; its planted fault is the trunk one plane
+# off its pooling factor's multiples ("misaligned").
 SPT_WORLD, SPT_N, SPT_SEED, SPT_GEN_SEED = 4, 4, 17, 6
 SPT_BIG, SPT_BIG_B = 128, 2
 SPT_F32 = dict(rtol=1e-5, rel_l2=GRAD_TOL)
@@ -575,6 +597,9 @@ SPT_RUNS = {
                           kw=dict(train_target_source="pcg",
                                   loss_p_lambda=1.0, loss_u_lambda=1.0),
                           fault="cg_direction", limits=SPT_F32),
+    "g_f32_sp2_tog": dict(mesh=(1, 2), dtype="float32", batch="train",
+                          kw=MODELS["tog"][0], fault="misaligned",
+                          limits=SPT_F32),
 }
 
 
@@ -2138,7 +2163,7 @@ def models_phase(dev, batch):
 
     for name, (kw, reps) in MODELS.items():
         mconf = base.replace(**kw)
-        model = random_model(mconf, 18, dev)
+        model = random_model(mconf, MODEL_SEED, dev)
         what = f"models {name} ({RES}^3)"
         state, bcs = make_plume(dev)
         torch.cuda.synchronize()
@@ -2896,6 +2921,7 @@ def sharded_step_phase(dev, mconf, model):
     (equal to the bit). Returns (the ranks' summed kernel launches, the
     result line's entry)."""
     from fluidnet_tpu_torch.core.grids import FluidState
+    from fluidnet_tpu_torch.models.fluidnet import random_model
     from fluidnet_tpu_torch.sim.simulate import rollout
     from fluidnet_tpu_torch.solvers.components import connected_components
 
@@ -2910,7 +2936,8 @@ def sharded_step_phase(dev, mconf, model):
     for name, run in STEP_RUNS.items():
         m = mconf.replace(conv_compute_dtype=run["dtype"], **run["kw"])
         runs.append({"name": name, "mconf": m, "state": run["state"],
-                     "steps": run["steps"], "fault": run["fault"]})
+                     "steps": run["steps"], "fault": run["fault"],
+                     "model_seed": run["seed"]})
         if run["ref"] != name:
             continue
         state, bcs = rs.plume(states, run["state"])
@@ -2920,12 +2947,17 @@ def sharded_step_phase(dev, mconf, model):
                            for k, v in vars(bcs).items()})
         net = rec = None
         if m.sim_method == "convnet":
-            net = model if run["dtype"] == mconf.conv_compute_dtype else \
+            net = random_model(m, run["seed"], dev) \
+                if run["seed"] is not None else model \
+                if run["dtype"] == mconf.conv_compute_dtype else \
                 retyped_model(model, m, dev)
             rec = rs.InputScale(rs.FirstInput(net))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with cg_iterations() as iters:
             out = rollout(state, m, run["steps"], rec, bcs)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
         t0 = time.perf_counter()
         rollout(state, m, run["steps"], net, bcs)
         torch.cuda.synchronize()
@@ -2937,6 +2969,7 @@ def sharded_step_phase(dev, mconf, model):
                                                        "density")},
             "div": final_check(out, f"sharded step ({name}), one process"),
             "ms": (time.perf_counter() - t0) / run["steps"] * 1e3,
+            "peak_gib": peak,
             "scales": [] if rec is None else [s.cpu() for s in rec.seen],
             "first": None if rec is None else [rec.model.seen.cpu(),
                                                rec.model.div.cpu()]}
@@ -3091,12 +3124,12 @@ def sharded_step_phase(dev, mconf, model):
                      f"of the dots {rounded(ar)}")
         if run["fault"]:
             out["runs"][name] = res
-            planted = "the CG direction's exchange" \
-                if run["fault"] == "cg_direction" else \
-                "ghost planes of step 2's exchange"
-            log(f"sharded step ({name}): {planted} zeroed; {what}: fails "
-                f"the {held[len('fails_'):].replace('_', ' ')}, as it "
-                f"must")
+            planted = {"cg_direction": "the CG direction's exchange zeroed",
+                       "misaligned": "the trunk one plane off its pooling "
+                       "factor's multiples"}.get(
+                run["fault"], "ghost planes of step 2's exchange zeroed")
+            log(f"sharded step ({name}): {planted}; {what}: fails the "
+                f"{held[len('fails_'):].replace('_', ' ')}, as it must")
             continue
         if held == "report":
             zl = got["u"].shape[2] // STEP_SP
@@ -3125,7 +3158,9 @@ def sharded_step_phase(dev, mconf, model):
             "exchange_mib_each_way": recs[0]["exchange_mib"],
             "step_ms_per_rank": step_ms, "exchange_ms_per_rank": exch_ms,
             "one_process_step_ms": ref["ms"],
-            "step_ratio": max(step_ms) / ref["ms"]})
+            "step_ratio": max(step_ms) / ref["ms"],
+            "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+            "one_process_peak_gib": ref["peak_gib"]})
         if "halo_step_ms" in recs[0]:
             res["halo_step_ms_per_rank"] = [r["halo_step_ms"][0]
                                             for r in recs]
@@ -3143,7 +3178,9 @@ def sharded_step_phase(dev, mconf, model):
             f"({recs[0]['exchange_mib']:.3f} MiB each way); {what}; "
             f"launches a rank {recs[0]['launches']} in {n} steps; ms a step "
             f"per rank {[round(v, 3) for v in step_ms]}, one process "
-            f"{ref['ms']:.3f}; exchange {[round(v, 3) for v in exch_ms]}")
+            f"{ref['ms']:.3f}; exchange {[round(v, 3) for v in exch_ms]}; "
+            f"peak GiB per rank {rounded(res['peak_gib_per_rank'])}, one "
+            f"process {ref['peak_gib']:.3f}")
     shutil.rmtree(PAR_ROOT, ignore_errors=True)
     return launches, out
 
@@ -3244,20 +3281,28 @@ def sharded_train_phase(dev, mconf, model, batch):
                 "model_seed": SPT_SEED}, in_path)
     del big, batches
     torch.cuda.empty_cache()
-    log(f"sharded train: m3d_v5's recipe, n = {SPT_N}, {TRAIN_B}x"
-        f"{TRAIN_RES}^3 and {SPT_BIG_B}x{SPT_BIG}^3, {SPT_WORLD} ranks on "
-        f"{torch.cuda.get_device_name(0)}")
-    reports, saved, secs = spawn_ranks(
-        ["--case", "train_sp", "--inputs", in_path, "--reps",
-         str(PAR_REPS)], SPT_WORLD, "train_sp")
+    # A spawn a world size: every run's mesh holds every rank of its spawn.
+    spawns = {}
+    for world in sorted({a * b for a, b in (r["mesh"] for r in runs)},
+                        reverse=True):
+        log(f"sharded train: m3d_v5's recipe, n = {SPT_N}, {TRAIN_B}x"
+            f"{TRAIN_RES}^3 and {SPT_BIG_B}x{SPT_BIG}^3, {world} ranks on "
+            f"{torch.cuda.get_device_name(0)}")
+        spawns[world] = spawn_ranks(
+            ["--case", "train_sp", "--inputs", in_path, "--reps",
+             str(PAR_REPS)], world, f"train_sp{world}")
     launches, out = {}, {"world": SPT_WORLD, "n": SPT_N,
-                         "transport": reports[0]["runs"][runs[0]["name"]][
-                             "transport"], "spawn_s": secs, "runs": {}}
-    for rep in reports:
-        for k, v in rep["launches_total"].items():
-            launches[k] = launches.get(k, 0) + v
+                         "transport": spawns[SPT_WORLD][0][0]["runs"][
+                             runs[0]["name"]]["transport"],
+                         "spawn_s": {w: v[2] for w, v in spawns.items()},
+                         "runs": {}}
+    for reports, _, _ in spawns.values():
+        for rep in reports:
+            for k, v in rep["launches_total"].items():
+                launches[k] = launches.get(k, 0) + v
     failed = []
     for name, run in SPT_RUNS.items():
+        reports, saved, _ = spawns[run["mesh"][0] * run["mesh"][1]]
         ref = refs[spt_ref_key(run)]
         lim = run["limits"]
         want_launches = dict(train_launches(SPT_N))
@@ -3368,8 +3413,9 @@ def sharded_train_phase(dev, mconf, model, batch):
                 or worst["params"] > lim["rel_l2"]:
             failed.append(f"{name}: past its limits {lim}: {worst}")
         if not worst["fault"] > lim["rel_l2"]:
-            failed.append(f"{name}: the planted adjoint fault passes the "
-                          f"limit {lim['rel_l2']}: {worst['fault']}")
+            failed.append(f"{name}: the planted fault "
+                          f"({run.get('fault', 'dropped adjoint')}) passes "
+                          f"the limit {lim['rel_l2']}: {worst['fault']}")
     if failed:
         raise AssertionError("sharded train: " + "; ".join(failed))
     shutil.rmtree(PAR_ROOT, ignore_errors=True)

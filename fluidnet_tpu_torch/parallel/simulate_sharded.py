@@ -37,18 +37,40 @@ Why one-sided. An extended slab is then a contiguous range of the whole
 grid, so every positional border test on the path falls where it falls on
 the whole grid (K2's `interior`, the border masks of the advection, the
 divergence, the velocity update and the forces, K3's zero border, K1's
-index clamps), and each 3-wide conv of the trunk zero-pads z at the global
-ends as the whole grid does. A slab's own ends lie inside the ghost zone:
-what the positional tests and the zero pads spoil there reaches at most G
+index clamps), and each conv of the trunk zero-pads z at the global ends
+as the whole grid does. A slab's own ends lie inside the ghost zone: what
+the positional tests and the zero pads spoil there reaches at most G
 planes in and is cropped away.
 
 The ghost zone G is the sum of the stencil radii of one step before its
 Jacobi solves (`ghost_planes`): the advection 2W + 2 (W the largest window
 mconf allows), K2's halo of 4 (the prologue, or the forces block), then
-for the ConvNet the trunk's conv radii (3 for the default 8-8-8-8-1 stack)
-and the model's velocity update and setWallBcs (2), for jacobi-n and PCG
-the setWallBcs and the divergence (2): 13 planes for the ConvNet at W = 1,
-10 for jacobi-n and PCG.
+for the ConvNet the trunk's reach (`trunk_reach`) and the model's velocity
+update and setWallBcs (2), for jacobi-n and PCG the setWallBcs and the
+divergence (2). For the ConvNet G is rounded up to a multiple of the
+trunk's pooling factor F (`pool_factor`), and a slab's own length zl must
+be one too: then every extended slab starts on a multiple of F (or on 0,
+and ends on Z, at the global ends), so each pool window, mres pyramid
+level and pixel shuffle block of the slab's trunk covers the planes it
+covers on the whole grid. Off alignment the slab's trunk pools other
+planes together, and its own planes differ from the whole grid's by the
+field's scale, however wide G. G: 13 planes for the default 8-8-8-8-1
+model at W = 1 (reach 3, F 1), 28 for tog at W = 1 or 2 (reach 16, F 4),
+16 for a two-bank mres model at W = 1 (reach 6, F 2), 10 for jacobi-n
+and PCG.
+
+The trunk's reach is how many planes at full resolution one output plane
+of the trunk reads on each side, walked from the layer spec and the bank
+structure as models.fluidnet.FluidNet._stages_path runs them: a conv of
+radius r and dilation d at a level whose planes each cover f planes adds
+r d f; a pool or the mres pyramid's pool adds nothing but multiplies f by
+its size; a pixel shuffle or the mres join's nearest upsampling from f to
+f' adds f - f' (a plane reads the whole coarse plane that holds it); the
+skip concat and batch norm (eval-mode, pointwise: fault F11) add nothing;
+banks take the widest. It is an upper bound that the trunk meets at some
+plane within F of any other (tests/test_torch_sharded_models.py probes
+it): the default 3, tog 16, mres with 2 and 3 banks 6 and 12, dilate 5
+and 9.
 
 Exchanges a step: the ConvNet 1 (u, p, density: 5 channels x G planes each
 way), plus 1 with the polish (u: 3 channels x (n + 2) planes); jacobi-n 1
@@ -79,10 +101,8 @@ component sums add in another order, so its p agrees with the whole
 grid's to the solver's rounding; a rerun on the same ranks gives the
 same bits.
 
-Not ported here (NotImplementedError, each naming its ROADMAP item):
-models with pooling, pixel shuffles or banks (their halos must align to
-the pooling factor), 2-D states, states without density and
-advection_window 0.
+Not ported here (NotImplementedError, each naming its ROADMAP item): 2-D
+states, states without density and advection_window 0.
 
 Training: under autograd (`simulate_z_sharded(grad=True)`, the unroll of
 parallel/train_sharded.py) the same step records its graph on the slab.
@@ -123,28 +143,80 @@ BC_FIELDS = ("u_bc", "u_bc_inv_mask", "p_bc", "p_bc_inv_mask", "density_bc",
              "density_bc_inv_mask")
 
 
+def _trunk_walk(mconf: ModelConfig):
+    """(trunk_reach, pool_factor): the layer spec and the banks walked as
+    FluidNet._stages_path runs them, each bank with its reach so far and
+    the planes at full resolution that one of its planes covers."""
+    _, ksize, psize, usize = layer_spec(mconf)
+    nb = mconf.banks_num
+    banks, peak = [(0, 1)], 1
+    for lid in range(len(ksize)):
+        if nb > 1 and lid + 1 == mconf.banks_split_stage:
+            r, f = banks[0]
+            banks = [(r, f * 2 ** ib if mconf.banks_type == "mres" else f)
+                     for ib in range(nb)]
+        if nb > 1 and lid + 1 == mconf.banks_join_stage:
+            f0 = banks[0][1]
+            banks = [(max(r + f - f0 for r, f in banks), f0)]
+        grown = []
+        for ib, (r, f) in enumerate(banks):
+            dil = 2 ** ib if mconf.banks_type == "dilate" and \
+                usize[lid] == 1 else 1
+            r += (ksize[lid] - 1) // 2 * dil * f
+            if usize[lid] > 1:
+                r, f = r + f - f // usize[lid], f // usize[lid]
+            grown.append((r, f * psize[lid]))
+            peak = max(peak, f * psize[lid])
+        banks = grown
+    (r, _), = banks
+    return r, peak
+
+
+def trunk_reach(mconf: ModelConfig) -> int:
+    """The planes at full resolution that one output plane of the trunk
+    reads on each side: an upper bound (the module's note)."""
+    return _trunk_walk(mconf)[0]
+
+
+def pool_factor(mconf: ModelConfig) -> int:
+    """F, the planes at full resolution that one plane of the trunk's
+    coarsest level covers: the stage pools times 2^(banks - 1) for mres
+    banks (tog 4, a two-bank mres model 2, dilate banks and the default
+    model 1)."""
+    return _trunk_walk(mconf)[1]
+
+
+def _round_up(n: int, f: int) -> int:
+    return -(-n // f) * f
+
+
 def ghost_planes(mconf: ModelConfig) -> int:
     """G, the planes a step's exchange adds on each side: the stencil
     radii of the step before its Jacobi solves, at the largest window
-    mconf allows."""
+    mconf allows; for the ConvNet rounded up to a multiple of
+    pool_factor."""
     advection = 2 * mconf.advection_window + 2
     if mconf.sim_method == "convnet":
-        trunk = sum((k - 1) // 2 for k in layer_spec(mconf)[1])
-        return advection + K2_HALO + trunk + 2
+        return _round_up(advection + K2_HALO + trunk_reach(mconf) + 2,
+                         pool_factor(mconf))
     return advection + K2_HALO + 2
+
+
+def check_aligned(zl: int, mconf: ModelConfig):
+    """Raises ValueError unless a slab's own length zl is a multiple of
+    the model's pooling factor (the module's note)."""
+    f = pool_factor(mconf)
+    if zl % f:
+        raise ValueError(
+            f"shard z-length {zl} is not a multiple of model "
+            f"{mconf.model_type!r}'s pooling factor {f} (banks "
+            f"{mconf.banks_num}): the slab's pool windows would not align "
+            f"with the whole grid's (use another number of sp shards)")
 
 
 def _check(state_l: FluidState, mconf: ModelConfig, model):
     """Refuses what the sharded step does not port."""
     _check_slice(state_l, mconf, model)
-    if mconf.sim_method == "convnet":
-        _, _, psize, usize = layer_spec(mconf)
-        if mconf.banks_num > 1 or max(psize) > 1 or max(usize) > 1:
-            raise NotImplementedError(
-                f"model {mconf.model_type!r} with pooling, pixel shuffles "
-                f"or banks on a z-sharded state is not ported: its halos "
-                f"must align to the pooling factor (ROADMAP queue 1, item "
-                f"10: sharded pooled and banked models)")
     if not state_l.is_3d:
         raise NotImplementedError("the z-sharded step is 3-D: a 2-D state "
                                   "has no z to split (ROADMAP queue 1, item "
@@ -184,6 +256,8 @@ class _Slab:
         self.solve_h = min(mconf.max_iter, zl) \
             if mconf.sim_method == "jacobi" else 0
         self.reach = max(self.g, self.polish, self.solve_h, reach)
+        if mconf.sim_method == "convnet":
+            check_aligned(zl, mconf)
         if zl < self.reach:
             raise ValueError(f"shard z-length {zl} < ghost zone "
                              f"{self.reach}: the exchange only reaches "
@@ -348,7 +422,8 @@ def rollout_z_sharded(state_l: FluidState, mconf: ModelConfig, n_steps: int,
     also its density every `save_every` steps, stacked (n_steps //
     save_every, b, c, zl, y, x). Raises NotImplementedError on what is not
     ported (the module's note) and ValueError when a slab is shorter than
-    the ghost zone."""
+    the ghost zone or, with the ConvNet, its length is not a multiple of
+    the model's pooling factor."""
     if save_every > 1 and n_steps % save_every:
         raise ValueError(f"n_steps ({n_steps}) must be divisible by "
                          f"save_every ({save_every})")

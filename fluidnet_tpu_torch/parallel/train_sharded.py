@@ -23,9 +23,17 @@ over 'dp' in one all_reduce.
      of `model_ghost(mconf)` planes, with the grid's input scale
      (all_reduced sums over the own planes). The zone covers the reach of
      what the loss reads of the model's output: the model's setWallBcs
-     and divergence of its input (2), the trunk's conv radii (3 for the
-     default 8-8-8-8-1 stack), its velocity update and setWallBcs (2) and
-     the loss's divergence of u_pred (1): 8 planes for the default model.
+     and divergence of its input (2), the trunk's reach
+     (simulate_sharded.trunk_reach: 3 for the default 8-8-8-8-1 stack, 16
+     for tog), its velocity update and setWallBcs (2) and the loss's
+     divergence of u_pred (1), rounded up to a multiple of the trunk's
+     pooling factor F (simulate_sharded.pool_factor): 8 planes for the
+     default model, 24 for tog, 12 for a two-bank mres model. A slab's own
+     length is a multiple of F (simulate_sharded.check_aligned), so every
+     model input starts on a multiple of F (or on 0, and ends on Z) and
+     its trunk pools the planes the whole grid's pools together: the
+     first call's exchange grows by more (below), but its result is
+     cropped back to model_ghost before the model sees it.
      With augment_without_targets, the first call's exchange grows p_div,
      u_div and density by `model_ghost(mconf) + AUGMENT_REACH` planes
      instead: train/train._data_augmentation (buoyancy, gravity, K4's
@@ -67,9 +75,10 @@ Every rank must take the same horizon and the same draws (JAX has one key
 for the whole batch): they come from equal generator seeds, and
 `loss_fn_sharded` checks them with one all_reduce.
 
-Not ported: what the sharded step refuses (NotImplementedError, each
-naming its ROADMAP item: pooled or banked models, item 10; 2-D, no
-density, window 0, item 6).
+Not ported: what the sharded step refuses (NotImplementedError naming
+ROADMAP queue 1 item 6: 2-D, no density, window 0). A slab whose own
+length is not a multiple of the model's pooling factor raises
+ValueError.
 """
 
 import functools
@@ -80,7 +89,6 @@ from torch.utils.checkpoint import checkpoint
 
 from fluidnet_tpu_torch.core.config import ModelConfig
 from fluidnet_tpu_torch.core.grids import FluidState
-from fluidnet_tpu_torch.models.fluidnet import layer_spec
 from fluidnet_tpu_torch.ops.boundary import set_wall_bcs
 from fluidnet_tpu_torch.ops.cuda.forces_kernel import HALO as K2_HALO
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
@@ -91,7 +99,11 @@ from fluidnet_tpu_torch.parallel.mesh import all_reduce_max
 from fluidnet_tpu_torch.parallel.pcg_sharded import (
     normalize_pressure_mean_z_sharded, slab_components, solve_pcg_z_sharded)
 from fluidnet_tpu_torch.parallel.simulate_sharded import (_check, _Slab,
-                                                          _sharded_step)
+                                                          _round_up,
+                                                          _sharded_step,
+                                                          check_aligned,
+                                                          pool_factor,
+                                                          trunk_reach)
 from fluidnet_tpu_torch.sim.simulate import _resolve_forces
 from fluidnet_tpu_torch.train.loss import border_loss_weights
 from fluidnet_tpu_torch.train.train import _data_augmentation, draw
@@ -108,8 +120,9 @@ TARGET_REACH = 1
 def model_ghost(mconf: ModelConfig) -> int:
     """The planes a model call's inputs are extended by on each side, so
     that the loss's divergence of its velocity is the whole grid's on the
-    own planes (the module's note, step 2)."""
-    return sum((k - 1) // 2 for k in layer_spec(mconf)[1]) + 5
+    own planes (the module's note, step 2): rounded up to a multiple of
+    the model's pooling factor."""
+    return _round_up(trunk_reach(mconf) + 5, pool_factor(mconf))
 
 
 def _jacobi_sweeps(mconf: ModelConfig) -> int:
@@ -201,6 +214,7 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
     state_l = FluidState(u=batch_l["u_div"], p=batch_l["p_div"], flags=flags,
                          density=batch_l.get("density"))
     _check(state_l, mconf, model)
+    check_aligned(flags.shape[2], mconf)
     if draws is None:
         draws = draw(gen, mconf)
     check_same(n_future, draws, dist.group.WORLD, flags.device)

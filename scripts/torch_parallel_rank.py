@@ -19,15 +19,17 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       runs train_step(group=) twice, deterministic cuDNN; the first step's
       terms, params and launches are kept, the second is timed.
   --case step: the inputs hold global plume states and the runs [{name,
-      mconf, state, steps, fault, scales}] (`state`: a key of the inputs'
-      states, or a resolution for the empty plume from zeros; `scales`,
-      optional: the whole grid's input scale of each step, fed to the
-      model in place of the slab's). On a 1 x WORLD_SIZE mesh each rank
-      takes its slab of the state and its plume BC masks (shard_state,
-      shard_bcs) and runs rollout_z_sharded with the bundled model
-      (mconf's conv dtype; none for jacobi) once with its launches and
-      collectives counted (`fault`: "ghosts" plants zeroed_ghosts,
-      "cg_direction" zeroed_d_ghosts), once with every kernel's plain
+      mconf, state, steps, fault, scales, model_seed}] (`state`: a key of
+      the inputs' states, or a resolution for the empty plume from zeros;
+      `scales`, optional: the whole grid's input scale of each step, fed
+      to the model in place of the slab's). On a 1 x WORLD_SIZE mesh each
+      rank takes its slab of the state and its plume BC masks
+      (shard_state, shard_bcs) and runs rollout_z_sharded with the bundled
+      model, or with `model_seed` random_model of mconf's model type and
+      banks (mconf's conv dtype; none for jacobi), once with its launches
+      and collectives counted (`fault`: "ghosts" plants zeroed_ghosts,
+      "cg_direction" zeroed_d_ghosts, "misaligned" misaligned_trunk),
+      its peak memory kept, once with every kernel's plain
       version (use_kernels=False) on the same slab, its difference to the
       first reported, then once more timed, and --reps timed exchanges of
       the step's fields. A jacobi-n run is also rerun and timed on the
@@ -40,14 +42,16 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       all_reduce of two per-sample dots).
   --case train_sp: the inputs hold host batches, the draws, the model
       seed, the horizon n and the runs [{name, mesh (n_dp, n_sp), mconf,
-      batch}]. On each run's mesh each rank takes its part of the batch
+      batch, fault}] (mconf's model type and banks; the runs whose mesh
+      holds WORLD_SIZE ranks). On each run's mesh each rank takes its
+      part of the batch
       (shard_batch: samples over 'dp', z over 'sp'), deterministic cuDNN,
       and runs the sharded loss (parallel/train_sharded.py) with its
       gradients: once with its launches and collectives counted, once
       with every kernel's plain version (the gradients must be the same
       bits), once with the exchanges' adjoint dropping the ghost planes'
-      cotangents (`dropped_adjoint`, the planted fault; a run with
-      `fault` "cg_direction" plants zeroed_d_ghosts instead); each reduced
+      cotangents (`dropped_adjoint`, the planted fault; a run's `fault`
+      plants another: `planted`); each reduced
       over the mesh as train_step(mesh=) reduces them. Then two timed
       train_step(mesh=) and --reps timed forward and adjoint exchanges of
       a step's fields. With augment_without_targets, the u the first
@@ -185,14 +189,43 @@ def cg_solves():
         ss.solve_pcg_z_sharded = real
 
 
+@contextlib.contextmanager
+def misaligned_trunk():
+    """Plants the fault the sharded pooled and banked models' checks must
+    catch: every model call's trunk sees its input one plane off the
+    pooling factor F's multiples (a zero plane below it and F - 1 above,
+    its output cut back to the input's planes), so that its pool windows,
+    mres levels and pixel shuffle blocks straddle the whole grid's. On a
+    slab with a neighbour on each side only the alignment differs: the
+    zero planes lie past the ghost zone's ends."""
+    import torch.nn.functional as F
+    from fluidnet_tpu_torch.models.fluidnet import FluidNet
+    from fluidnet_tpu_torch.parallel.simulate_sharded import pool_factor
+    real = FluidNet.trunk
+
+    def shifted(self, x, skip=None):
+        grow = [0, 0, 0, 0, 1, pool_factor(self.mconf) - 1]
+        out = real(self, F.pad(x, grow),
+                   None if skip is None else F.pad(skip, grow))
+        return out[:, :, 1:1 + x.shape[2]]
+    FluidNet.trunk = shifted
+    try:
+        yield
+    finally:
+        FluidNet.trunk = real
+
+
 def planted(fault, rank):
     """The context of a run's planted fault: none (False or None),
-    zeroed_ghosts of step 2's exchange (True or "ghosts") or
-    zeroed_d_ghosts ("cg_direction")."""
+    zeroed_ghosts of step 2's exchange (True or "ghosts"),
+    zeroed_d_ghosts ("cg_direction") or misaligned_trunk
+    ("misaligned")."""
     if not fault:
         return contextlib.nullcontext()
     if fault == "cg_direction":
         return zeroed_d_ghosts()
+    if fault == "misaligned":
+        return misaligned_trunk()
     return zeroed_ghosts(2, rank)
 
 
@@ -376,7 +409,7 @@ def train(inp, rank):
 
 
 def step(inp, reps, rank):
-    from fluidnet_tpu_torch.models.fluidnet import FluidNet
+    from fluidnet_tpu_torch.models.fluidnet import FluidNet, random_model
     from fluidnet_tpu_torch.parallel import simulate_sharded as ss
     from fluidnet_tpu_torch.utils.checkpoint import load_params
     mesh = make_mesh(n_dp=1, n_sp=dist.get_world_size())
@@ -390,11 +423,14 @@ def step(inp, reps, rank):
         state_l = ss.shard_state(state, mesh, dev)
         bcs_l = ss.shard_bcs(bcs, mesh, dev)
         del state, bcs
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         model = None
         if mconf.sim_method == "convnet":
-            model = InputScale(FirstInput(FluidNet(
-                mconf, device=dev).load_jax_params(load_params(
-                    inp["model"]))), run.get("scales"))
+            net = FluidNet(mconf, device=dev).load_jax_params(load_params(
+                inp["model"])) if run.get("model_seed") is None else \
+                random_model(mconf, run["model_seed"], dev)
+            model = InputScale(FirstInput(net), run.get("scales"))
 
         def roll(use_kernels=True):
             with planted(run["fault"], rank):
@@ -415,7 +451,8 @@ def step(inp, reps, rank):
         rec = {"launches": launches, "comms": dict(comms),
                "slab": list(state_l.u.shape),
                "ghost": ss.ghost_planes(mconf),
-               "transport": transport(state_l.u, group)}
+               "transport": transport(state_l.u, group),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         if model is not None:
             rec["scales"] = [s.flatten().tolist() for s in model.seen[:n]]
         # The same rollout on the same slab with every kernel's plain
@@ -534,6 +571,8 @@ def train_sp(inp, reps, rank):
     info, saved, meshes = {"rank": rank, "runs": {}}, {}, {}
     for run in inp["runs"]:
         shape = tuple(run["mesh"])
+        if shape[0] * shape[1] != dist.get_world_size():
+            continue            # another spawn's run
         if shape not in meshes:
             meshes[shape] = make_mesh(*shape)
         mesh, mconf = meshes[shape], run["mconf"]
@@ -568,7 +607,7 @@ def train_sp(inp, reps, rank):
                                     for a, b in zip(g_k, g_p))}
         grads, rec["terms"] = reduced(g_k, terms)
         del g_p
-        with zeroed_d_ghosts() if run.get("fault") == "cg_direction" \
+        with planted(run["fault"], rank) if run.get("fault") \
                 else dropped_adjoint():
             fault, _ = reduced(*local())
         aug_u = None

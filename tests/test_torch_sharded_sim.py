@@ -58,8 +58,10 @@ CASES = {"convnet": {}, "convnet_p2": dict(polish_iters=2),
          "jacobi8": dict(sim_method="jacobi", max_iter=8)}
 ADAPT = dict(adaptive_window=True, advection_window=2)
 FAULT_CALL = 2        # step 2's exchange (call 0 extends the flags)
-REFUSALS = {"tog": dict(model_type="tog"),
-            "window0": dict(advection_window=0), "2d": {}, "no_density": {}}
+REFUSALS = {"window0": dict(advection_window=0), "2d": {}, "no_density": {}}
+# ValueErrors: tog's ghost zone (28) past a slab of 16 planes, and a
+# two-bank mres model (pooling factor 2) on slabs of 15 planes.
+SHORT = {"tog": dict(model_type="tog"), "mres_unaligned": dict(banks_num=2)}
 
 
 def _free_port():
@@ -107,6 +109,7 @@ def _model(inp, mconf):
 
 def _worker(rank, port, inp):
     from fluidnet_tpu_torch.core.config import ModelConfig
+    from fluidnet_tpu_torch.models.fluidnet import FluidNet
     from fluidnet_tpu_torch.parallel import simulate_sharded as ss
     from fluidnet_tpu_torch.parallel.halo import exchange_ghost
     from fluidnet_tpu_torch.parallel.mesh import make_mesh
@@ -196,6 +199,15 @@ def _worker(rank, port, inp):
             st, m, mesh, model, None if name == "2d" else bcs_l))
     res["err_short"] = error(lambda: ss.rollout_z_sharded(
         state_l, base.replace(advection_window=4), 1, mesh, model, bcs_l))
+    for name, kw in SHORT.items():
+        m = base.replace(**kw)
+        st = state_l
+        if name == "mres_unaligned":
+            st = st.replace(u=st.u[:, :, :15], p=st.p[:, :, :15],
+                            flags=st.flags[:, :, :15],
+                            density=st.density[:, :, :15])
+        res[f"err_{name}"] = error(lambda: ss.rollout_z_sharded(
+            st, m, 1, mesh, FluidNet(m, device="cpu"), None))
     return res
 
 
@@ -520,12 +532,14 @@ def test_planted_ghost_fault_fails(run):
 
 
 def test_refusals(run):
-    """A pooled model (tog), advection_window 0, a 2-D state and a state
-    without density raise NotImplementedError naming the ROADMAP item
-    (training, grad=True, runs: tests/test_torch_sharded_train.py; PCG
-    runs: tests/test_torch_sharded_pcg.py);
-    a slab shorter than the ghost zone (W = 4: 19 planes > 16) raises
-    ValueError."""
+    """advection_window 0, a 2-D state and a state without density raise
+    NotImplementedError naming the ROADMAP item (training, grad=True,
+    runs: tests/test_torch_sharded_train.py; PCG runs:
+    tests/test_torch_sharded_pcg.py; pooled and banked models:
+    tests/test_torch_sharded_models.py); a slab shorter than the ghost
+    zone (W = 4: 19 planes > 16; tog: 28 > 16) and a slab whose length is
+    not a multiple of the model's pooling factor (a two-bank mres model,
+    factor 2, on 15 planes) raise ValueError."""
     _, _, _, outs = run
     for o in outs:
         for name in REFUSALS:
@@ -533,6 +547,11 @@ def test_refusals(run):
             assert msg.startswith("NotImplementedError") and \
                 "ROADMAP" in msg, (name, msg)
         assert "shard z-length 16 < ghost zone 19" in str(o["err_short"])
+        assert str(o["err_tog"]).startswith(
+            "ValueError: shard z-length 16 < ghost zone 28"), o["err_tog"]
+        msg = str(o["err_mres_unaligned"])
+        assert msg.startswith("ValueError: shard z-length 15 is not a "
+                              "multiple") and "pooling factor 2" in msg, msg
 
 
 if __name__ == "__main__":
