@@ -222,8 +222,9 @@ and its training, in ranks that share the card), in these phases:
              one step of each, each rank's own planes against the whole
              grid's cell by cell; (h) PCG (bench.py's: max_iter 100,
              pcg_tol 1e-4; pcg_sharded.solve_pcg_z_sharded on the slabs),
-             8 steps: u within STEP_PCG_U of one process's (over u's
-             largest value), the labels equal to one process's to the bit,
+             STEP_PCG_N = 4 steps: u within STEP_PCG_U of one process's
+             (over u's largest value), the labels equal to one process's
+             to the bit,
              every rank's CG iterations and residuals a step the same,
              each rank's rerun equal to the bit, the labelling's sweeps,
              ms and collectives and the CG iterations a step printed; (i)
@@ -233,7 +234,15 @@ and its training, in ranks that share the card), in these phases:
              up to its pooling factor 4) and the two-bank mres model with
              batch norm and the skip (G = 16), each held as (a), and (k)
              tog with its trunk one plane off the pooling factor's
-             multiples must fail them. Every rank runs each rollout a second
+             multiples must fail them; (l) the rolled state without
+             density (no BCs), 8 steps, held as (a); (m) the exact route,
+             maccormackOurs at window 0 (G = 27), STEP_EXACT_N = 4 steps,
+             held as (a), and (n) with step 2's ghost planes zeroed must
+             fail its limits; (o) Manta's euler at window 0 with u_z raised
+             by STEP_FAST_UZ everywhere, 2 steps, held as (a): G from the
+             all_reduced max|u_z| passes a slab's 32 planes, so the
+             exchange takes planes from two ranks a side (G and the ranks
+             reached a step printed). Every rank runs each rollout a second
              time with the kernels' plain versions on the same slab (K1,
              K2, K3 at the shapes this path gives them) and must give the
              same bits. Each slab advects at its z origin, so every rank's
@@ -242,7 +251,8 @@ and its training, in ranks that share the card), in these phases:
              every ConvNet run, the whole rollout in (d). Each rank
              launches K1's fused forward and backward
              and K2's prologue once a step (K2's forces block in (d) and
-             (h)), K3 once a step in (c) and twice in (d): jacobi-34 runs
+             (h); K1's unfused sweeps and K4 in (l); K2's prologue alone in
+             (m)-(o)), K3 once a step in (c) and twice in (d): jacobi-34 runs
              halo.slab_jacobi_solve, two rounds of K3 on the slab grown by
              32 planes. (d) is rerun on the per-sweep halo Jacobi, which
              must give the same bits, and timed beside it in the same
@@ -272,13 +282,18 @@ and its training, in ranks that share the card), in these phases:
              (phase 18's, random weights) in float32 over dp 1 x sp 2 in a
              second spawn of 2 ranks (slabs of 32 planes, model calls
              grown by 24), at (a)'s limits, its planted fault the trunk
-             one plane off its pooling factor's multiples; (e) at
+             one plane off its pooling factor's multiples; (h) the exact
+             route (window 0) in float32 over dp 1 x sp 4 on one sample
+             of the batch, n = SPT_EXACT_N = 2, at (a)'s limits (its ranks
+             sum torch.gather's backward in a fixed order: torch's
+             deterministic algorithms); (e) at
              (a)'s terms limit and 2x its gradients' sound reading
              (SPT_RUNS). Each: the loss terms within rtol and every
              gradient and param after 2 steps within the relative L2 of
              its limits; each rank's gradients equal to the bit to its
              rerun with every kernel's plain version; each rank's
-             launches train_launches(4) (and K4 once in (e) and (f)); the
+             launches train_launches(n) (and K4 once in (e) and (f); K2's
+             alone in (h)); the
              planted fault
              (the exchanges' adjoint drops the ghost planes' cotangents)
              past the gradient limit, its margin (fault over limit)
@@ -496,6 +511,9 @@ STEP_DIV_REL = 6.6e-5
 # carries the rounding from one iteration to the next: 4x the sound
 # reading on an H100 (6.333e-06; the planted fault 6.780e-01).
 STEP_PCG_U = 2.53e-5
+# PCG's runs take STEP_PCG_N steps (8 until the exact route's runs came:
+# at ~1.3 s a step a rank, PCG was most of the phase).
+STEP_PCG_N = 4
 PCG_KW = dict(sim_method="pcg", max_iter=100, pcg_tol=1e-4)
 K1_FUSED = {"mac_sweep_fwd": 1, "mac_sweep_bwd": 1}
 CONVNET_STEP = dict(K1_FUSED, prologue=1)
@@ -517,8 +535,19 @@ CONVNET_STEP = dict(K1_FUSED, prologue=1)
 # STEP_PCG_U) and "fails_u_limit" (its planted fault must fail it).
 STEP_DEFAULT = dict(kw={}, dtype="float32", state="rolled", steps=STEP_N,
                     ref=None, held="limits", fault=False, fed=False,
-                    launches=CONVNET_STEP, seed=None)
+                    launches=CONVNET_STEP, seed=None, drop_density=False,
+                    u_z_add=0.0)
 TOG = dict(kw=MODELS["tog"][0], seed=MODEL_SEED)
+# The z-sharded step's remainders: (l) the rolled state without density
+# (no BCs: create_plume_bcs needs density), K1's unfused velocity sweeps
+# and K4 a step a rank; (m) the exact route (maccormackOurs at window 0,
+# G 27), STEP_EXACT_N steps, K2's prologue alone; (n) (m) with step 2's
+# ghost planes zeroed; (o) Manta's euler at window 0 with u_z raised by
+# STEP_FAST_UZ everywhere: dt max|u_z| past a slab's 32 planes, so G
+# (from the all_reduced max|u_z| each step) takes planes from two ranks.
+STEP_EXACT_N, STEP_FAST_UZ = 4, 340.0
+EXACT_RUN = dict(kw=dict(advection_window=0), steps=STEP_EXACT_N,
+                 launches=dict(prologue=1))
 STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
     "f32": {},
     "bf16": dict(dtype="bfloat16", held="div"),
@@ -536,15 +565,25 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
     "bf16_1": dict(dtype="bfloat16", steps=1, held="report"),
     "bf16_1_fed": dict(dtype="bfloat16", steps=1, ref="bf16_1", fed=True,
                        held="report"),
-    "pcg": dict(kw=PCG_KW, held="u_limit",
+    "pcg": dict(kw=PCG_KW, held="u_limit", steps=STEP_PCG_N,
                 launches=dict(K1_FUSED, forces_block=1)),
     "pcg_fault": dict(kw=PCG_KW, ref="pcg", fault="cg_direction",
-                      held="fails_u_limit",
+                      held="fails_u_limit", steps=STEP_PCG_N,
                       launches=dict(K1_FUSED, forces_block=1)),
     "tog": TOG,
     "tog_fault": dict(TOG, ref="tog", fault="misaligned",
                       held="fails_limits"),
     "mres_bn_skip": dict(kw=MODELS["mres_bn_skip"][0], seed=MODEL_SEED),
+    "nodensity": dict(drop_density=True, launches={
+        "mac_sweep_unfused_fwd": 1, "mac_sweep_unfused_bwd": 1,
+        "vorticity": 1}),
+    "exact": EXACT_RUN,
+    "exact_fault": dict(EXACT_RUN, ref="exact", fault=True,
+                        held="fails_limits"),
+    "exact_euler": dict(kw=dict(advection_window=0,
+                                advection_method="euler"),
+                        u_z_add=STEP_FAST_UZ, steps=2,
+                        launches=dict(prologue=1)),
 }.items()}
 
 
@@ -575,6 +614,11 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
 # its spawn), at (a)'s limits; its planted fault is the trunk one plane
 # off its pooling factor's multiples ("misaligned").
 SPT_WORLD, SPT_N, SPT_SEED, SPT_GEN_SEED = 4, 4, 17, 6
+# (h) the exact route (window 0) over dp 1 x sp 4 on one sample of the
+# 64^3 batch (slabs of 16 planes: G 27 takes planes from two ranks), its
+# own horizon SPT_EXACT_N (the exact step costs ~30x a windowed one), at
+# (a)'s limits; its planted fault the dropped adjoint.
+SPT_EXACT_N = 2
 SPT_BIG, SPT_BIG_B = 128, 2
 SPT_F32 = dict(rtol=1e-5, rel_l2=GRAD_TOL)
 SPT_RUNS = {
@@ -600,20 +644,26 @@ SPT_RUNS = {
     "g_f32_sp2_tog": dict(mesh=(1, 2), dtype="float32", batch="train",
                           kw=MODELS["tog"][0], fault="misaligned",
                           limits=SPT_F32),
+    "h_f32_sp4_exact": dict(mesh=(1, 4), dtype="float32", batch="one",
+                            kw=dict(advection_window=0), n=SPT_EXACT_N,
+                            limits=SPT_F32),
 }
 
 
-def train_launches(n):
+def train_launches(n, exact=False):
     """Kernel launches of one 'full'-mode train_step at unroll horizon n:
     K1 fused n forward + n - 1 recomputed per direction; K1 unfused and K6
     (two per sweep) for the n - 1 steps whose input depends on the
     parameters (the first step's does not, and autograd skips its
     adjoint); K2's prologue 2(n - 1); its forces block once (the last,
-    output_div, step)."""
+    output_div, step). `exact` (window 0): K2's alone, the advection is
+    plain PyTorch."""
+    k2 = {"prologue": 2 * (n - 1), "forces_block": 1}
+    if exact:
+        return k2
     return {"mac_sweep_fwd": 2 * n - 1, "mac_sweep_bwd": 2 * n - 1,
             "mac_sweep_unfused_fwd": n - 1, "mac_sweep_unfused_bwd": n - 1,
-            "warp_transpose": 4 * (n - 1), "prologue": 2 * (n - 1),
-            "forces_block": 1}
+            "warp_transpose": 4 * (n - 1), **k2}
 
 
 def log(*a):
@@ -1013,7 +1063,8 @@ def check_launches(launches, n, per_step, what):
 def final_check(state, what):
     from fluidnet_tpu_torch.ops.divergence import velocity_divergence
     for name in ("u", "p", "density"):
-        if not torch.isfinite(getattr(state, name)).all():
+        if getattr(state, name) is not None and \
+                not torch.isfinite(getattr(state, name)).all():
             raise AssertionError(f"{what}: non-finite {name}")
     div = torch.linalg.norm(velocity_divergence(state.u, state.flags))
     div, umax = div.item(), state.u.abs().max().item()
@@ -2937,14 +2988,17 @@ def sharded_step_phase(dev, mconf, model):
         m = mconf.replace(conv_compute_dtype=run["dtype"], **run["kw"])
         runs.append({"name": name, "mconf": m, "state": run["state"],
                      "steps": run["steps"], "fault": run["fault"],
-                     "model_seed": run["seed"]})
+                     "model_seed": run["seed"],
+                     "drop_density": run["drop_density"],
+                     "u_z_add": run["u_z_add"]})
         if run["ref"] != name:
             continue
-        state, bcs = rs.plume(states, run["state"])
-        state = FluidState(**{k: getattr(state, k).to(dev)
+        state, bcs = rs.plume(states, run["state"], run)
+        state = FluidState(**{k: None if getattr(state, k) is None else
+                              getattr(state, k).to(dev)
                               for k in ("u", "p", "flags", "density")})
-        bcs = type(bcs)(**{k: None if v is None else v.to(dev)
-                           for k, v in vars(bcs).items()})
+        bcs = None if bcs is None else type(bcs)(**{
+            k: None if v is None else v.to(dev) for k, v in vars(bcs).items()})
         net = rec = None
         if m.sim_method == "convnet":
             net = random_model(m, run["seed"], dev) \
@@ -2965,14 +3019,15 @@ def sharded_step_phase(dev, mconf, model):
             "labels": connected_components(state.flags).cpu()
             if m.sim_method == "pcg" else None,
             "cg_iterations": iters,
-            "out": {k: getattr(out, k).cpu() for k in ("u", "p",
-                                                       "density")},
+            "out": {k: getattr(out, k).cpu() for k in ("u", "p", "density")
+                    if getattr(out, k) is not None},
             "div": final_check(out, f"sharded step ({name}), one process"),
             "ms": (time.perf_counter() - t0) / run["steps"] * 1e3,
             "peak_gib": peak,
             "scales": [] if rec is None else [s.cpu() for s in rec.seen],
-            "first": None if rec is None else [rec.model.seen.cpu(),
-                                               rec.model.div.cpu()]}
+            "first": None if rec is None else [
+                rec.model.seen.cpu(),
+                None if rec.model.div is None else rec.model.div.cpu()]}
         del state, bcs, out, net, rec
         torch.cuda.empty_cache()
     for r in runs:
@@ -2999,17 +3054,20 @@ def sharded_step_phase(dev, mconf, model):
         ref, held, n = refs[run["ref"]], run["held"], run["steps"]
         want = ref["out"]
         got = {k: torch.cat([s[name][k] for s in saved], dim=2)
-               for k in ("u", "p", "density")}
+               for k in want}
         errs = {k: step_err(got[k], want[k]) for k in got}
         # Every rank's own planes through the advection (at the slab's z
         # origin) and K2 are the whole grid's to the bit: the first step's
         # model inputs, and jacobi-34's whole rollout.
         if ref["first"] is not None:
-            firsts = [torch.cat([s[name][k] for s in saved], dim=2)
-                      for k in ("first_u", "first_div")]
-            bits = [k for k, a, b in zip(("u", "div"), firsts, ref["first"])
-                    if not torch.equal(a, b)]
-            bits_what = "the first step's model inputs (u, div)"
+            # Without density the model takes no divergence from K2.
+            firsts = [(k, torch.cat([s[name][f"first_{k}"] for s in saved],
+                                    dim=2), b)
+                      for k, b in zip(("u", "div"), ref["first"])
+                      if b is not None]
+            bits = [k for k, a, b in firsts if not torch.equal(a, b)]
+            bits_what = (f"the first step's model inputs "
+                         f"({', '.join(k for k, _, _ in firsts)})")
         elif ref["labels"] is not None:
             # PCG's dot products and component sums add in another order:
             # its labels are the whole grid's to the bit.
@@ -3051,7 +3109,8 @@ def sharded_step_phase(dev, mconf, model):
                  rs.plume({}, run["state"])[0].flags)
         gstate = FluidState(u=got["u"].to(dev), p=got["p"].to(dev),
                             flags=flags.to(dev),
-                            density=got["density"].to(dev))
+                            density=got["density"].to(dev)
+                            if "density" in got else None)
         div = final_check(gstate, f"sharded step ({name}), gathered")
         del gstate
         div_rel = abs(div - ref["div"]) / max(ref["div"], 1e-30)
@@ -3153,6 +3212,13 @@ def sharded_step_phase(dev, mconf, model):
                      f"{' (fed)' if run['fed'] else ''}")
         step_ms = [r["step_ms"][0] for r in recs]
         exch_ms = [float(np.median(r["exchange_ms"])) for r in recs]
+        if run["kw"].get("advection_window", 1) == 0:
+            res.update(ghost_per_step=recs[0]["ghost_per_step"],
+                       ranks_reached_a_side_per_step=recs[0][
+                           "hops_per_step"])
+            what += (f"; the ghost zone a step {recs[0]['ghost_per_step']} "
+                     f"planes, from {recs[0]['hops_per_step']} ranks a "
+                     f"side")
         res.update({
             "slab": recs[0]["slab"], "ghost": recs[0]["ghost"],
             "exchange_mib_each_way": recs[0]["exchange_mib"],
@@ -3220,6 +3286,7 @@ def sharded_train_phase(dev, mconf, model, batch):
     big = {k: v[:SPT_BIG_B] for k, v in big.items()}
     del rolled, later
     batches = {"train": batch, "big": big,
+               "one": {k: v[:1] for k, v in batch.items()},
                "targets": dict(batch, p_target=torch.zeros_like(
                    batch["p_div"]), u_target=torch.zeros_like(
                    batch["u_div"]))}
@@ -3235,7 +3302,8 @@ def sharded_train_phase(dev, mconf, model, batch):
             m = base.replace(conv_compute_dtype=run["dtype"],
                              **run.get("kw", {}))
             runs.append({"name": name, "mesh": run["mesh"], "mconf": m,
-                         "batch": run["batch"], "fault": run.get("fault")})
+                         "batch": run["batch"], "fault": run.get("fault"),
+                         "n": spt_n(run)})
             key = spt_ref_key(run)
             if key in refs:
                 continue
@@ -3244,7 +3312,8 @@ def sharded_train_phase(dev, mconf, model, batch):
             torch.cuda.reset_peak_memory_stats()
             net = init_train_state(SPT_SEED, m, dev).model
             with bias_cotangents(net) as cots:
-                total, terms = loss_fn(net, b, None, m, SPT_N, draws=draws)
+                total, terms = loss_fn(net, b, None, m, spt_n(run),
+                                       draws=draws)
                 grads = torch.autograd.grad(total, [
                     p for _, p in net.jax_named_parameters()])
             st = init_train_state(SPT_SEED, m, dev)
@@ -3252,7 +3321,7 @@ def sharded_train_phase(dev, mconf, model, batch):
             for _ in range(2):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                st, _ = train_step(st, b, None, m, SPT_N, draws=draws)
+                st, _ = train_step(st, b, None, m, spt_n(run), draws=draws)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
             refs[key] = {
@@ -3305,7 +3374,8 @@ def sharded_train_phase(dev, mconf, model, batch):
         reports, saved, _ = spawns[run["mesh"][0] * run["mesh"][1]]
         ref = refs[spt_ref_key(run)]
         lim = run["limits"]
-        want_launches = dict(train_launches(SPT_N))
+        want_launches = dict(train_launches(
+            spt_n(run), run.get("kw", {}).get("advection_window", 1) == 0))
         kw = run.get("kw", {})
         if kw.get("augment_without_targets") or \
                 kw.get("train_target_source", "manta") != "manta":
@@ -3457,7 +3527,12 @@ def spt_ref_key(run):
     """The one-process reference a phase 22 run is held against: its
     dtype, batch and mconf changes."""
     return (run["dtype"], run["batch"],
-            tuple(sorted(run.get("kw", {}).items())))
+            tuple(sorted(run.get("kw", {}).items())), spt_n(run))
+
+
+def spt_n(run):
+    """A phase 22 run's unroll horizon."""
+    return run.get("n", SPT_N)
 
 
 def retyped_model(model, mconf, dev):
@@ -3557,11 +3632,17 @@ def main():
     grad_rel = train_grad_phase(dev, batch)
     model_launches, model_out = models_phase(dev, batch)
     par_launches, par_out = parallel_phase(dev, mconf, model, batch)
+    t0 = time.perf_counter()
     shard_launches, step_out = sharded_step_phase(dev, mconf, model)
+    step_out["phase_s"] = time.perf_counter() - t0
     step_out["k3_from_p0_at_slab"] = dict(zip(
         ("ms", "plain_ms", "bound_ms", "bound_by"), times["jacobi_p0_slab"]),
         shape=list(JACOBI_SLAB), sweeps=32)
+    t0 = time.perf_counter()
     spt_launches, spt_out = sharded_train_phase(dev, mconf, model, batch)
+    spt_out["phase_s"] = time.perf_counter() - t0
+    log(f"phases 21-22: {step_out['phase_s']:.1f} s and "
+        f"{spt_out['phase_s']:.1f} s")
 
     shutil.rmtree(SIM3D_ROOT, ignore_errors=True)
     try:

@@ -20,6 +20,17 @@ None or 0 runs the exact gather path here, the reference-parity semantics
 JAX package computes it with XLA gathers outside any Pallas kernel. Its
 MacCormackOurs clamp-bound search is a separable masked min/max filter and
 one gather, as in the JAX package.
+
+Both paths take a z origin `z0`, the global index of the array's first z
+plane (a slab of a z-sharded grid, parallel/simulate_sharded.py): the
+positions are global, z0 + k + 0.5 in z, and every z clamp, domain test
+and gather index sits at the array's ends expressed globally (z0 and
+z0 + Z). float32 holds z0 + k + 0.5 exactly below 2^23, so a slab's
+positions carry the whole grid's bits, and every operation on them (the
+line trace's steps, floor and truncation to a cell, the weights) rounds
+as the whole grid's; only the integer gather indices move by z0. On a
+one-sided extended slab the array's ends are the grid's wherever they
+reach its ends, so the domain tests fall there as on the whole grid.
 """
 
 import torch
@@ -47,14 +58,6 @@ def _check(method):
         raise ValueError(f"bad advection method {method!r}")
 
 
-def _exact_origin(z0):
-    """The exact path runs on whole grids: its line trace's domain tests
-    are the array's."""
-    if z0:
-        raise ValueError(f"advect: the exact path (window 0) takes no z "
-                         f"origin, got {z0}")
-
-
 def advect_scalar(dt, s, u, flags, method="maccormackOurs",
                   sample_outside_fluid=False, maccormack_strength=0.75,
                   boundary_width=1, max_trace_steps=8, window=None,
@@ -63,8 +66,8 @@ def advect_scalar(dt, s, u, flags, method="maccormackOurs",
     `window` W >= 1 runs the windowed fast path, None or 0 the exact path
     (`max_trace_steps`: the line trace's fixed step count). `plain=True`
     runs K5's plain version on any device (the exact path has no kernel).
-    `z0`: the global index of the first z plane of a slab (the windowed
-    path's z origin, ops/advect_fast.py; the exact path takes 0 only).
+    `z0`: the global index of the first z plane of a slab (the module's
+    note).
     `boundary_width` is 1 at every reference call site."""
     del boundary_width
     _check(method)
@@ -72,10 +75,9 @@ def advect_scalar(dt, s, u, flags, method="maccormackOurs",
         return advect_scalar_fast(dt, s, u, flags, method,
                                   sample_outside_fluid, maccormack_strength,
                                   window, free=free_space, plain=plain, z0=z0)
-    _exact_origin(z0)
     return _advect_scalar_exact(dt, s, u, flags, method,
                                 sample_outside_fluid, maccormack_strength,
-                                max_trace_steps)
+                                max_trace_steps, int(z0))
 
 
 def advect_vel(dt, u, flags, method="maccormackOurs",
@@ -89,9 +91,8 @@ def advect_vel(dt, u, flags, method="maccormackOurs",
     if window:
         return advect_vel_fast(dt, u, flags, method, maccormack_strength,
                                window, free=free_space, plain=plain, z0=z0)
-    _exact_origin(z0)
     return _advect_vel_exact(dt, u, flags, method, maccormack_strength,
-                             max_trace_steps)
+                             max_trace_steps, int(z0))
 
 
 def _maccormack_correct_mac(old, fwd, bwd, flags, strength, is_3d):
@@ -118,110 +119,123 @@ def _trunc(x):
     return torch.trunc(x).to(torch.int32)
 
 
-def _semi_lagrange_scalar(s, u, dt, is_3d):
+def _local(k, z0):
+    """A global z index as the array's own."""
+    return k - z0 if z0 else k
+
+
+def _semi_lagrange_scalar(s, u, dt, is_3d, z0=0):
     """Manta's SemiLagrange (tfluids.cc:211-220): plain backtrace and
     interpolation."""
-    px, py, pz = cell_center_positions(s.shape, s.dtype, s.device)
+    px, py, pz = cell_center_positions(s.shape, s.dtype, s.device, z0)
     cent = get_centered(u, is_3d)
     return interpol(s, px - cent[:, 0] * dt, py - cent[:, 1] * dt,
-                    pz - cent[:, 2] * dt, is_3d)
+                    pz - cent[:, 2] * dt, is_3d, z0)
 
 
-def _trace_backtrace(u, flags, disp_x, disp_y, disp_z, shape, max_steps):
+def _trace_backtrace(u, flags, disp_x, disp_y, disp_z, shape, max_steps,
+                     z0=0):
     """The line-traced backtrace from every cell centre along the given
-    displacement."""
-    return line_trace(*_positions(shape, u.shape[0], u.dtype, u.device),
-                      disp_x, disp_y, disp_z, flags, max_steps=max_steps)
+    displacement (z0 passed on only when set: a recorded call at origin 0
+    is the JAX line trace's, ops/trace_diff.py)."""
+    return line_trace(*_positions(shape, u.shape[0], u.dtype, u.device, z0),
+                      disp_x, disp_y, disp_z, flags, max_steps=max_steps,
+                      **({"z0": z0} if z0 else {}))
 
 
-def _sample_scalar(s, flags, bx, by, bz, sample_outside_fluid, is_3d):
+def _sample_scalar(s, flags, bx, by, bz, sample_outside_fluid, is_3d, z0=0):
     if sample_outside_fluid:
-        return interpol(s, bx, by, bz, is_3d)
-    return interpol_with_fluid(s, flags, bx, by, bz, is_3d)
+        return interpol(s, bx, by, bz, is_3d, z0)
+    return interpol_with_fluid(s, flags, bx, by, bz, is_3d, z0)
 
 
 def _euler_ours_scalar(s, u, flags, dt, is_3d, sample_outside_fluid,
-                       max_steps, save_pos=False):
+                       max_steps, save_pos=False, z0=0):
     """SemiLagrangeEulerOurs[SavePos] (tfluids.cc:152-209)."""
     cent = get_centered(u, is_3d)
     _, bx, by, bz = _trace_backtrace(
         u, flags, -dt * cent[:, 0], -dt * cent[:, 1], -dt * cent[:, 2],
-        s.shape, max_steps)
-    val = _sample_scalar(s, flags, bx, by, bz, sample_outside_fluid, is_3d)
+        s.shape, max_steps, z0)
+    val = _sample_scalar(s, flags, bx, by, bz, sample_outside_fluid, is_3d,
+                         z0)
     fl = is_fluid(flags)
     out = torch.where(fl, val, s)       # non-fluid cells are not advected
     if not save_pos:
         return out
     # Non-fluid cells record their own centre (tfluids.cc:157-160).
-    px, py, pz = cell_center_positions(s.shape, s.dtype, s.device)
+    px, py, pz = cell_center_positions(s.shape, s.dtype, s.device, z0)
     return out, (torch.where(fl[:, 0], bx, px), torch.where(fl[:, 0], by, py),
                  torch.where(fl[:, 0], bz, pz))
 
 
-def _velocity_at(u, hx, hy, hz, is_3d):
+def _velocity_at(u, hx, hy, hz, is_3d, z0=0):
     """The MAC velocity interpolated at traced positions, per component
     (z zero in 2-D)."""
-    vx = interpol_component(u, 0, hx, hy, hz, is_3d)
-    vy = interpol_component(u, 1, hx, hy, hz, is_3d)
-    vz = interpol_component(u, 2, hx, hy, hz, is_3d) if is_3d \
+    vx = interpol_component(u, 0, hx, hy, hz, is_3d, z0)
+    vy = interpol_component(u, 1, hx, hy, hz, is_3d, z0)
+    vz = interpol_component(u, 2, hx, hy, hz, is_3d, z0) if is_3d \
         else torch.zeros_like(vx)
     return vx, vy, vz
 
 
 def _rk2_ours_scalar(s, u, flags, dt, is_3d, sample_outside_fluid,
-                     max_steps):
+                     max_steps, z0=0):
     """SemiLagrangeRK2Ours (tfluids.cc:23-76)."""
     cent = get_centered(u, is_3d)
     hit1, hx, hy, hz = _trace_backtrace(
         u, flags, -dt * 0.5 * cent[:, 0], -dt * 0.5 * cent[:, 1],
-        -dt * 0.5 * cent[:, 2], s.shape, max_steps)
-    vx, vy, vz = _velocity_at(u, hx, hy, hz, is_3d)
+        -dt * 0.5 * cent[:, 2], s.shape, max_steps, z0)
+    vx, vy, vz = _velocity_at(u, hx, hy, hz, is_3d, z0)
     _, fx, fy, fz = _trace_backtrace(u, flags, -dt * vx, -dt * vy, -dt * vz,
-                                     s.shape, max_steps)
+                                     s.shape, max_steps, z0)
     # A half-step trace that hit a boundary stops at the half position
     # (tfluids.cc:44-53).
     bx = torch.where(hit1, hx, fx)
     by = torch.where(hit1, hy, fy)
     bz = torch.where(hit1, hz, fz)
-    val = _sample_scalar(s, flags, bx, by, bz, sample_outside_fluid, is_3d)
+    val = _sample_scalar(s, flags, bx, by, bz, sample_outside_fluid, is_3d,
+                         z0)
     return torch.where(is_fluid(flags), val, s)
 
 
 def _rk3_ours_scalar(s, u, flags, dt, is_3d, sample_outside_fluid,
-                     max_steps):
+                     max_steps, z0=0):
     """SemiLagrangeRK3Ours (tfluids.cc:78-147): Bridson p. 242's RK3."""
     cent = get_centered(u, is_3d)
     k1x, k1y, k1z = cent[:, 0], cent[:, 1], cent[:, 2]
     hit1, p2x, p2y, p2z = _trace_backtrace(
         u, flags, -dt * 0.5 * k1x, -dt * 0.5 * k1y, -dt * 0.5 * k1z,
-        s.shape, max_steps)
-    k2x, k2y, k2z = _velocity_at(u, p2x, p2y, p2z, is_3d)
+        s.shape, max_steps, z0)
+    k2x, k2y, k2z = _velocity_at(u, p2x, p2y, p2z, is_3d, z0)
     hit2, p3x, p3y, p3z = _trace_backtrace(
         u, flags, -dt * 0.75 * k2x, -dt * 0.75 * k2y, -dt * 0.75 * k2z,
-        s.shape, max_steps)
-    k3x, k3y, k3z = _velocity_at(u, p3x, p3y, p3z, is_3d)
+        s.shape, max_steps, z0)
+    k3x, k3y, k3z = _velocity_at(u, p3x, p3y, p3z, is_3d, z0)
 
     def disp(k1, k2, k3):
         return (-dt * (2.0 / 9.0) * k1 - dt * (3.0 / 9.0) * k2 -
                 dt * (4.0 / 9.0) * k3)
     _, fx, fy, fz = _trace_backtrace(u, flags, disp(k1x, k2x, k3x),
                                      disp(k1y, k2y, k3y),
-                                     disp(k1z, k2z, k3z), s.shape, max_steps)
+                                     disp(k1z, k2z, k3z), s.shape, max_steps,
+                                     z0)
     # Truncate to the earlier positions where an intermediate trace hit.
     bx = torch.where(hit1, p2x, torch.where(hit2, p3x, fx))
     by = torch.where(hit1, p2y, torch.where(hit2, p3y, fy))
     bz = torch.where(hit1, p2z, torch.where(hit2, p3z, fz))
-    val = _sample_scalar(s, flags, bx, by, bz, sample_outside_fluid, is_3d)
+    val = _sample_scalar(s, flags, bx, by, bz, sample_outside_fluid, is_3d,
+                         z0)
     return torch.where(is_fluid(flags), val, s)
 
 
-def _corner_minmax(field, pxf, pyf, pzf, is_3d):
+def _corner_minmax(field, pxf, pyf, pzf, is_3d, z0=0):
     """min/max of field (b, 1, Z, Y, X) over the 8 (4) cells around
     trunc(p), clamped as doClampComponent (tfluids.cc:263-287)."""
     Z, Y, X = field.shape[2:]
     i0 = _trunc(pxf).clamp(0, X - 2)
     j0 = _trunc(pyf).clamp(0, Y - 2)
-    k0 = _trunc(pzf).clamp(0, Z - 2 if is_3d else 1)
+    k0 = _local(_trunc(pzf).clamp(z0, z0 + Z - 2), z0) if is_3d \
+        else _trunc(pzf).clamp(0, 1)
     k1 = k0 + 1 if is_3d else k0
     corners = [(i0, j0, k0), (i0 + 1, j0, k0), (i0, j0 + 1, k0),
                (i0 + 1, j0 + 1, k0)]
@@ -237,17 +251,25 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _maccormack_clamp_manta_scalar(dst, src, fwd, u, flags, dt, is_3d):
+def _cells(shape, dtype, device, z0):
+    """Integer cell coordinates (pos = vec3(i, j, k), not + 0.5), k from
+    the z origin z0."""
+    Z, Y, X = shape[2:]
+    iz = _iota(Z, 1, dtype, device)
+    return (_iota(X, 3, dtype, device), _iota(Y, 2, dtype, device),
+            iz + z0 if z0 else iz)
+
+
+def _maccormack_clamp_manta_scalar(dst, src, fwd, u, flags, dt, is_3d,
+                                   z0=0):
     """MacCormackClamp and doClampComponent (tfluids.cc:249-325)."""
     shape = flags.shape
     Z, Y, X = shape[2:]
     cent = get_centered(u, is_3d)
     vx, vy, vz = cent[:, 0] * dt, cent[:, 1] * dt, cent[:, 2] * dt
-    # Integer cell coordinates (pos = vec3(i, j, k), not + 0.5).
-    ix, iy, iz = (_iota(n, a, src.dtype, src.device)
-                  for n, a in ((X, 3), (Y, 2), (Z, 1)))
-    mn_f, mx_f = _corner_minmax(src, ix - vx, iy - vy, iz - vz, is_3d)
-    mn_b, mx_b = _corner_minmax(src, ix + vx, iy + vy, iz + vz, is_3d)
+    ix, iy, iz = _cells(shape, src.dtype, src.device, z0)
+    mn_f, mx_f = _corner_minmax(src, ix - vx, iy - vy, iz - vz, is_3d, z0)
+    mn_b, mx_b = _corner_minmax(src, ix + vx, iy + vy, iz + vz, is_3d, z0)
     clamped = _clip(dst[:, 0], torch.minimum(mn_f, mn_b),
                     torch.maximum(mx_f, mx_b))
 
@@ -258,9 +280,9 @@ def _maccormack_clamp_manta_scalar(dst, src, fwd, u, flags, dt, is_3d):
     def lookup_bad(px_i, py_i, pz_i):
         oob = (px_i < 0) | (py_i < 0) | (px_i > X - 1) | (py_i > Y - 1)
         if is_3d:
-            oob = oob | (pz_i < 0) | (pz_i > Z - 1)
+            oob = oob | (pz_i < z0) | (pz_i > z0 + Z - 1)
         obs = gather3d(ob, px_i.clamp(0, X - 1), py_i.clamp(0, Y - 1),
-                       pz_i.clamp(0, Z - 1))[:, 0] > 0.5
+                       _local(pz_i.clamp(z0, z0 + Z - 1), z0))[:, 0] > 0.5
         return oob | (~oob & obs)
 
     bad = lookup_bad(_trunc(ix + 0.5 - vx), _trunc(iy + 0.5 - vy),
@@ -293,7 +315,7 @@ def _window_minmax_count(src, flags, sample_outside_fluid, is_3d):
 
 
 def _maccormack_clamp_ours_scalar(dst, src, fwd, flags, fwd_pos,
-                                  sample_outside_fluid, is_3d):
+                                  sample_outside_fluid, is_3d, z0=0):
     """MacCormackClampOurs (tfluids.cc:377-413): clamp the corrected value
     to the min/max of the valid cells in the 3^d window around the forward
     traced position; revert to fwd where the window has no valid cell."""
@@ -304,7 +326,7 @@ def _maccormack_clamp_ours_scalar(dst, src, fwd, flags, fwd_pos,
                          dim=1)
     i0 = bx.to(torch.int32).clamp(0, X - 1)
     j0 = by.to(torch.int32).clamp(0, Y - 1)
-    k0 = bz.to(torch.int32).clamp(0, Z - 1) if is_3d \
+    k0 = _local(bz.to(torch.int32).clamp(z0, z0 + Z - 1), z0) if is_3d \
         else torch.zeros_like(i0)
     g = gather3d(packed, i0, j0, k0)
     clamped = torch.where(g[:, 2] >= 1.0, _clip(dst[:, 0], g[:, 0], g[:, 1]),
@@ -314,7 +336,7 @@ def _maccormack_clamp_ours_scalar(dst, src, fwd, flags, fwd_pos,
 
 
 def _advect_scalar_exact(dt, s, u, flags, method, sample_outside_fluid,
-                         strength, max_steps):
+                         strength, max_steps, z0=0):
     is_3d = check_shapes(u, flags, s)
     border = border_mask(flags.shape, is_3d, 1, flags.device)
 
@@ -323,37 +345,37 @@ def _advect_scalar_exact(dt, s, u, flags, method, sample_outside_fluid,
 
     args = (s, u, flags, dt, is_3d, sample_outside_fluid, max_steps)
     if method == "euler":
-        return apply_border(_semi_lagrange_scalar(s, u, dt, is_3d))
+        return apply_border(_semi_lagrange_scalar(s, u, dt, is_3d, z0))
     if method == "eulerOurs":
-        return apply_border(_euler_ours_scalar(*args))
+        return apply_border(_euler_ours_scalar(*args, z0=z0))
     if method == "rk2Ours":
-        return apply_border(_rk2_ours_scalar(*args))
+        return apply_border(_rk2_ours_scalar(*args, z0=z0))
     if method == "rk3Ours":
-        return apply_border(_rk3_ours_scalar(*args))
+        return apply_border(_rk3_ours_scalar(*args, z0=z0))
 
     # The MacCormack variants (tfluids.cc:519-584).
     fl = is_fluid(flags)
     if method == "maccormack":
-        fwd = apply_border(_semi_lagrange_scalar(s, u, dt, is_3d))
-        bwd = apply_border(_semi_lagrange_scalar(fwd, u, -dt, is_3d))
+        fwd = apply_border(_semi_lagrange_scalar(s, u, dt, is_3d, z0))
+        bwd = apply_border(_semi_lagrange_scalar(fwd, u, -dt, is_3d, z0))
         # MacCormackCorrect runs on every cell (no border skip,
         # tfluids.cc:551).
         dst = fwd + torch.where(fl, strength * 0.5 * (s - bwd), 0.0)
         return _maccormack_clamp_manta_scalar(dst, s, fwd, u, flags, dt,
-                                              is_3d)
-    fwd_full, fwd_pos = _euler_ours_scalar(*args, save_pos=True)
+                                              is_3d, z0)
+    fwd_full, fwd_pos = _euler_ours_scalar(*args, save_pos=True, z0=z0)
     fwd = apply_border(fwd_full)
     # Border cells record their own centres (tfluids.cc:482).
     b2 = border[:, 0]
     fwd_pos = tuple(torch.where(b2, c, p) for c, p in zip(
-        cell_center_positions(s.shape, s.dtype, s.device), fwd_pos))
+        cell_center_positions(s.shape, s.dtype, s.device, z0), fwd_pos))
     bwd_full, _ = _euler_ours_scalar(fwd, u, flags, -dt, is_3d,
                                      sample_outside_fluid, max_steps,
-                                     save_pos=True)
+                                     save_pos=True, z0=z0)
     bwd = apply_border(bwd_full)
     dst = fwd + torch.where(fl, strength * 0.5 * (s - bwd), 0.0)
     return _maccormack_clamp_ours_scalar(dst, s, fwd, flags, fwd_pos,
-                                         sample_outside_fluid, is_3d)
+                                         sample_outside_fluid, is_3d, z0)
 
 
 # --- the exact path: the MAC velocity ---------------------------------------
@@ -366,47 +388,47 @@ def _macs(u, is_3d):
     return macs
 
 
-def _semi_lagrange_mac(src, u, dt, is_3d):
+def _semi_lagrange_mac(src, u, dt, is_3d, z0=0):
     """SemiLagrangeMAC (tfluids.cc:634-658): a per-component backtrace from
     the face-centred velocity."""
-    px, py, pz = cell_center_positions(src.shape, src.dtype, src.device)
+    px, py, pz = cell_center_positions(src.shape, src.dtype, src.device, z0)
     return torch.stack([
         interpol_component(src, c, px - mac[:, 0] * dt, py - mac[:, 1] * dt,
-                           pz - mac[:, 2] * dt, is_3d)
+                           pz - mac[:, 2] * dt, is_3d, z0)
         for c, mac in enumerate(_macs(u, is_3d))], dim=1)
 
 
-def _euler_ours_mac(src, u, flags, dt, is_3d, max_steps):
+def _euler_ours_mac(src, u, flags, dt, is_3d, max_steps, z0=0):
     """SemiLagrangeEulerOursMAC (tfluids.cc:594-632): a line-traced
     per-component backtrace; non-fluid cells copy src."""
     comps = []
     for c, mac in enumerate(_macs(u, is_3d)):
         _, bx, by, bz = _trace_backtrace(
             u, flags, -dt * mac[:, 0], -dt * mac[:, 1], -dt * mac[:, 2],
-            src.shape, max_steps)
-        comps.append(interpol_component(src, c, bx, by, bz, is_3d))
+            src.shape, max_steps, z0)
+        comps.append(interpol_component(src, c, bx, by, bz, is_3d, z0))
     return torch.where(is_fluid(flags), torch.stack(comps, dim=1), src)
 
 
-def _maccormack_clamp_mac(dst, orig, u, flags, dt, is_3d):
+def _maccormack_clamp_mac(dst, orig, u, flags, dt, is_3d, z0=0):
     """MacCormackClampMAC (tfluids.cc:701-774): per component,
     doClampComponent against orig around pos -/+ (face velocity * dt)."""
-    Z, Y, X = flags.shape[2:]
-    ix, iy, iz = (_iota(n, a, orig.dtype, orig.device)
-                  for n, a in ((X, 3), (Y, 2), (Z, 1)))
+    ix, iy, iz = _cells(flags.shape, orig.dtype, orig.device, z0)
     comps = []
     for c, mac in enumerate(_macs(u, is_3d)):
         vx, vy, vz = mac[:, 0] * dt, mac[:, 1] * dt, mac[:, 2] * dt
         field = orig[:, c:c + 1]
-        mn_f, mx_f = _corner_minmax(field, ix - vx, iy - vy, iz - vz, is_3d)
-        mn_b, mx_b = _corner_minmax(field, ix + vx, iy + vy, iz + vz, is_3d)
+        mn_f, mx_f = _corner_minmax(field, ix - vx, iy - vy, iz - vz, is_3d,
+                                    z0)
+        mn_b, mx_b = _corner_minmax(field, ix + vx, iy + vy, iz + vz, is_3d,
+                                    z0)
         comps.append(_clip(dst[:, c], torch.minimum(mn_f, mn_b),
                            torch.maximum(mx_f, mx_b)))
     interior = ~border_mask(flags.shape, is_3d, 1, flags.device)
     return torch.where(interior, torch.stack(comps, dim=1), dst)
 
 
-def _advect_vel_exact(dt, u, flags, method, strength, max_steps):
+def _advect_vel_exact(dt, u, flags, method, strength, max_steps, z0=0):
     # rk2Ours and rk3Ours fall back to maccormackOurs (tfluids.cc:799-802).
     if method in ("rk2Ours", "rk3Ours"):
         method = "maccormackOurs"
@@ -417,17 +439,17 @@ def _advect_vel_exact(dt, u, flags, method, strength, max_steps):
         return torch.where(border, 0.0, x)
 
     if method == "euler":
-        return apply_border(_semi_lagrange_mac(u, u, dt, is_3d))
+        return apply_border(_semi_lagrange_mac(u, u, dt, is_3d, z0))
     if method == "eulerOurs":
         return apply_border(_euler_ours_mac(u, u, flags, dt, is_3d,
-                                            max_steps))
+                                            max_steps, z0))
     if method == "maccormack":
-        fwd = apply_border(_semi_lagrange_mac(u, u, dt, is_3d))
-        bwd = apply_border(_semi_lagrange_mac(fwd, u, -dt, is_3d))
+        fwd = apply_border(_semi_lagrange_mac(u, u, dt, is_3d, z0))
+        bwd = apply_border(_semi_lagrange_mac(fwd, u, -dt, is_3d, z0))
     else:
         fwd = apply_border(_euler_ours_mac(u, u, flags, dt, is_3d,
-                                           max_steps))
+                                           max_steps, z0))
         bwd = apply_border(_euler_ours_mac(fwd, u, flags, -dt, is_3d,
-                                           max_steps))
+                                           max_steps, z0))
     dst = _maccormack_correct_mac(u, fwd, bwd, flags, strength, is_3d)
-    return _maccormack_clamp_mac(dst, u, u, flags, dt, is_3d)
+    return _maccormack_clamp_mac(dst, u, u, flags, dt, is_3d, z0)

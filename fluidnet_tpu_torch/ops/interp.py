@@ -38,30 +38,33 @@ class Index(NamedTuple):
     f1: torch.Tensor
 
 
-def build_index(px, py, pz, shape, is_3d):
+def build_index(px, py, pz, shape, is_3d, z0=0):
     """The BUILD_INDEX clamp logic (grid.cc:82-130). px/py/pz: float
-    positions (b, z, y, x); shape: the grid's (Z, Y, X)."""
+    positions (b, z, y, x); shape: the grid's (Z, Y, X). z0: the global
+    index of the grid's first z plane (a slab of a z-sharded grid): pz is
+    global, its clamps sit at the slab's ends expressed globally, and the
+    returned zi is the slab's own index."""
     Z, Y, X = shape
 
-    def one_axis(p, n):
+    def one_axis(p, n, o=0):
         p = p - 0.5
         i = torch.floor(p).to(torch.int32)
         w1 = p - i.to(p.dtype)
         w0 = 1.0 - w1
-        neg = p < 0.0           # clamp to the border (grid.cc:97-129)
-        i = torch.where(neg, 0, i)
+        neg = p < float(o)      # clamp to the border (grid.cc:97-129)
+        i = torch.where(neg, o, i)
         w0 = torch.where(neg, 1.0, w0)
         w1 = torch.where(neg, 0.0, w1)
-        hi = i >= n - 1
-        i = torch.where(hi, n - 2, i)
+        hi = i >= o + n - 1
+        i = torch.where(hi, o + n - 2, i)
         w0 = torch.where(hi, 0.0, w0)
         w1 = torch.where(hi, 1.0, w1)
-        return i, w0, w1
+        return (i - o if o else i), w0, w1
 
     xi, s0, s1 = one_axis(px, X)
     yi, t0, t1 = one_axis(py, Y)
     if is_3d:
-        zi, f0, f1 = one_axis(pz, Z)
+        zi, f0, f1 = one_axis(pz, Z, int(z0))
     else:
         zi = torch.zeros_like(xi)
         f0 = torch.ones_like(s0)
@@ -107,11 +110,11 @@ def _combine(g, idx, is_3d):
     return lo * idx.f0[:, None] + hi * idx.f1[:, None]
 
 
-def interpol(field, px, py, pz, is_3d):
+def interpol(field, px, py, pz, is_3d, z0=0):
     """Plain (tri)linear interpolation, RealGrid::interpol semantics, of
-    every channel of field (b, c, Z, Y, X) at the same positions. Returns
-    (b, c, z, y, x)."""
-    idx = build_index(px, py, pz, field.shape[2:], is_3d)
+    every channel of field (b, c, Z, Y, X) at the same positions (z0:
+    build_index's). Returns (b, c, z, y, x)."""
+    idx = build_index(px, py, pz, field.shape[2:], is_3d, z0)
     return _combine([gather3d(field, *c) for c in _corners(idx, is_3d)],
                     idx, is_3d)
 
@@ -124,12 +127,12 @@ def _lerp1d_with_fluid(va, fa, vb, fb, ta, tb):
     return val, fa | fb
 
 
-def interpol_with_fluid(field, flags, px, py, pz, is_3d):
+def interpol_with_fluid(field, flags, px, py, pz, is_3d, z0=0):
     """RealGrid::interpolWithFluid (grid.cc:224-332): combines the corner
     values along y, then x, then z, each time lerping only between fluid
     samples; with no fluid corner at all, the plain interpolation of the
-    same corners. field: (b, 1, Z, Y, X)."""
-    idx = build_index(px, py, pz, field.shape[2:], is_3d)
+    same corners. field: (b, 1, Z, Y, X); z0: build_index's."""
+    idx = build_index(px, py, pz, field.shape[2:], is_3d, z0)
     packed = torch.cat([field, is_fluid(flags).to(field.dtype)], dim=1)
     g = [gather3d(packed, *c) for c in _corners(idx, is_3d)]
     vals = [x[:, 0:1] for x in g]
@@ -150,11 +153,11 @@ def interpol_with_fluid(field, flags, px, py, pz, is_3d):
     return torch.where(f, v, _combine(vals, idx, is_3d))
 
 
-def interpol_component(u, c, px, py, pz, is_3d):
+def interpol_component(u, c, px, py, pz, is_3d, z0=0):
     """MACGrid::getInterpolatedComponentHi, order 1: the plain
-    interpolation of MAC component c (grid.cc:435-456). Returns
-    (b, z, y, x)."""
-    return interpol(u[:, c:c + 1], px, py, pz, is_3d)[:, 0]
+    interpolation of MAC component c (grid.cc:435-456); z0: build_index's.
+    Returns (b, z, y, x)."""
+    return interpol(u[:, c:c + 1], px, py, pz, is_3d, z0)[:, 0]
 
 
 def get_at_mac_x(u, is_3d):

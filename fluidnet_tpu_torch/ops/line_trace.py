@@ -27,21 +27,23 @@ EPSILON = 1e-12     # calc_line_trace.cc:23
 _ERR_TOL = 1e-6     # HitBoundingBox err_tol (calc_line_trace.cc:158)
 
 
-def _is_out_of_domain(px, py, pz, Z, Y, X):
-    """IsOutOfDomainReal (calc_line_trace.cc:44-52); boundary-inclusive."""
+def _is_out_of_domain(px, py, pz, Z, Y, X, z0=0):
+    """IsOutOfDomainReal (calc_line_trace.cc:44-52); boundary-inclusive.
+    z0: the global index of the grid's first z plane (line_trace's)."""
     return ((px <= 0.0) | (px >= X) | (py <= 0.0) | (py >= Y) |
-            (pz <= 0.0) | (pz >= Z))
+            (pz <= float(z0)) | (pz >= z0 + Z))
 
 
-def _blocked_at(blocked, px, py, pz):
+def _blocked_at(blocked, px, py, pz, z0=0):
     """IsBlockedCellReal: the blocked flag of the cell holding the
     position (GetPixelCenter truncates, calc_line_trace.cc:30-38); indices
-    clamped for the gather, callers pass in-domain positions."""
+    clamped for the gather, callers pass in-domain positions (pz global
+    from the z origin z0)."""
     Z, Y, X = blocked.shape[2:]
     xi = px.to(torch.int32).clamp(0, X - 1)
     yi = py.to(torch.int32).clamp(0, Y - 1)
-    zi = pz.to(torch.int32).clamp(0, Z - 1)
-    return gather3d(blocked, xi, yi, zi)[:, 0] > 0.5
+    zi = pz.to(torch.int32).clamp(z0, z0 + Z - 1)
+    return gather3d(blocked, xi, yi, zi - z0 if z0 else zi)[:, 0] > 0.5
 
 
 def _ray_box_intersection(ox, oy, oz, dx, dy, dz, cx, cy, cz):
@@ -79,19 +81,20 @@ def _ray_box_intersection(ox, oy, oz, dx, dy, dz, cx, cy, cz):
     return (ok & ~inside) | inside, coords[0], coords[1], coords[2]
 
 
-def _border_intersection(ox, oy, oz, nx, ny, nz, Z, Y, X):
+def _border_intersection(ox, oy, oz, nx, ny, nz, Z, Y, X, z0=0):
     """calcRayBorderIntersection (calc_line_trace.cc:205-286): step back to
-    HIT_MARGIN inside the first exceeded face. Returns (hit, ix, iy, iz);
-    without a hit the caller clamps instead."""
+    HIT_MARGIN inside the first exceeded face (z's at z0 and z0 + Z).
+    Returns (hit, ix, iy, iz); without a hit the caller clamps instead."""
     big = torch.finfo(ox.dtype).max
     min_step = torch.full_like(ox, big)
 
-    def face(min_step, n, o, hi_bound):
+    def face(min_step, n, o, hi_bound, lo_bound=0.0):
         d = n - o
         far = d.abs() >= EPSILON
         safe_d = torch.where(far, d, 1.0)
-        step_lo = (HIT_MARGIN - o) / safe_d        # the face n <= HIT_MARGIN
-        min_step = torch.where((n <= HIT_MARGIN) & far,
+        lo = lo_bound + HIT_MARGIN
+        step_lo = (lo - o) / safe_d        # the low face, n <= lo
+        min_step = torch.where((n <= lo) & far,
                                torch.minimum(min_step, step_lo), min_step)
         step_hi = (hi_bound - HIT_MARGIN - o) / safe_d
         return torch.where((n >= hi_bound - HIT_MARGIN) & far,
@@ -99,22 +102,23 @@ def _border_intersection(ox, oy, oz, nx, ny, nz, Z, Y, X):
 
     min_step = face(min_step, nx, ox, float(X))
     min_step = face(min_step, ny, oy, float(Y))
-    min_step = face(min_step, nz, oz, float(Z))
+    min_step = face(min_step, nz, oz, float(z0 + Z), float(z0))
     hit = (min_step >= 0.0) & (min_step < big)
     return (hit, min_step * (nx - ox) + ox, min_step * (ny - oy) + oy,
             min_step * (nz - oz) + oz)
 
 
-def _clamp_to_domain(px, py, pz, Z, Y, X):
+def _clamp_to_domain(px, py, pz, Z, Y, X, z0=0):
     """ClampToDomainReal (calc_line_trace.cc:72-81), as jnp.clip: min(max(.))
-    splits the gradient at ties, where torch.clamp passes it whole."""
-    def clip(p, n):
-        return torch.minimum(torch.maximum(p, p.new_tensor(HIT_MARGIN)),
+    splits the gradient at ties, where torch.clamp passes it whole. z
+    between z0 and z0 + Z."""
+    def clip(p, n, lo=0.0):
+        return torch.minimum(torch.maximum(p, p.new_tensor(lo + HIT_MARGIN)),
                              p.new_tensor(n - HIT_MARGIN))
-    return clip(px, X), clip(py, Y), clip(pz, Z)
+    return clip(px, X), clip(py, Y), clip(pz, z0 + Z, float(z0))
 
 
-def _step(state, ux, uy, uz, length, blocked, branches=None):
+def _step(state, ux, uy, uz, length, blocked, branches=None, z0=0):
     """One masked march step of every ray (the body of JAX's fori_loop).
     With a `branches` list, appends the step's per-ray decisions."""
     cx, cy, cz, cur_len, done, hit = state
@@ -127,16 +131,17 @@ def _step(state, ux, uy, uz, length, blocked, branches=None):
 
     # Case 1: the tentative step leaves the domain (calc_line_trace.cc:
     # 368-402).
-    oob = _is_out_of_domain(nx, ny, nz, Z, Y, X)
-    bhit, bx, by, bz = _border_intersection(cx, cy, cz, nx, ny, nz, Z, Y, X)
-    fx, fy, fz = _clamp_to_domain(nx, ny, nz, Z, Y, X)
+    oob = _is_out_of_domain(nx, ny, nz, Z, Y, X, z0)
+    bhit, bx, by, bz = _border_intersection(cx, cy, cz, nx, ny, nz, Z, Y, X,
+                                            z0)
+    fx, fy, fz = _clamp_to_domain(nx, ny, nz, Z, Y, X, z0)
     nx = torch.where(oob, torch.where(bhit, bx, fx), nx)
     ny = torch.where(oob, torch.where(bhit, by, fy), ny)
     nz = torch.where(oob, torch.where(bhit, bz, fz), nz)
 
     # Case 2: it lands in a blocked cell: back off along the ray, at most
     # 4 times (calc_line_trace.cc:403-478).
-    was_blocked = _blocked_at(blocked, nx, ny, nz)
+    was_blocked = _blocked_at(blocked, nx, ny, nz, z0)
     is_blk = was_blocked
     box_fail = torch.zeros_like(is_blk)
     sx, sy, sz = nx, ny, nz
@@ -151,7 +156,8 @@ def _step(state, ux, uy, uz, length, blocked, branches=None):
         sx = torch.where(moved, rx, sx)
         sy = torch.where(moved, ry, sy)
         sz = torch.where(moved, rz, sz)
-        is_blk = torch.where(moved, _blocked_at(blocked, sx, sy, sz), is_blk)
+        is_blk = torch.where(moved, _blocked_at(blocked, sx, sy, sz, z0),
+                             is_blk)
         if branches is not None:
             backoffs = backoffs + moved.to(torch.int32)
     # A failed box intersection stays at the current valid point
@@ -177,7 +183,7 @@ def _step(state, ux, uy, uz, length, blocked, branches=None):
 
 
 def line_trace(px, py, pz, dx, dy, dz, flags, max_steps: int = 8,
-               branches=None):
+               branches=None, z0: int = 0):
     """Traces from (px, py, pz) along the displacement (dx, dy, dz), all
     (b, z, y, x). Returns (hit, nx, ny, nz): whether geometry or the
     domain border stopped the ray, and where it ended. Rays that start out
@@ -185,19 +191,23 @@ def line_trace(px, py, pz, dx, dy, dz, flags, max_steps: int = 8,
     their start with hit False (advection copies src for non-fluid cells
     anyway; the reference hard-errors). `branches`, a list, receives one
     dict a step of per-ray decisions (out_of_domain, border_hit, blocked,
-    box_fail: bool; backoffs: int32), to compare two runs of a trace."""
+    box_fail: bool; backoffs: int32), to compare two runs of a trace.
+    z0: the global index of the first z plane of flags (a slab of a
+    z-sharded grid): pz is global, and the domain's z faces are the
+    slab's ends, z0 and z0 + Z (the whole grid's where the slab reaches
+    the grid's ends)."""
     Z, Y, X = flags.shape[2:]
     blocked = (~is_fluid(flags)).to(torch.float32)
     length = torch.sqrt(dx * dx + dy * dy + dz * dz)
     live0 = length > EPSILON
     inv_len = torch.where(live0, 1.0 / torch.where(live0, length, 1.0), 0.0)
     ux, uy, uz = dx * inv_len, dy * inv_len, dz * inv_len
-    start_bad = _is_out_of_domain(px, py, pz, Z, Y, X) | \
-        _blocked_at(blocked, px, py, pz)
+    start_bad = _is_out_of_domain(px, py, pz, Z, Y, X, z0) | \
+        _blocked_at(blocked, px, py, pz, z0)
     done = start_bad | ~live0
     state = (px, py, pz, torch.zeros_like(length), done,
              torch.zeros_like(done))
     for _ in range(max_steps):
-        state = _step(state, ux, uy, uz, length, blocked, branches)
+        state = _step(state, ux, uy, uz, length, blocked, branches, z0)
     cx, cy, cz, _, _, hit = state
     return hit, cx, cy, cz

@@ -28,10 +28,13 @@ has not reached the own planes, which equal jacobi_plain on the whole grid
 to the bit. Exchanges a solve: 1 + (rounds - 1), against n + 1 here.
 
 `exchange_ghost` is the one-sided form the whole sharded step uses
-(parallel/simulate_sharded.py): a slab grows by g planes from each
-neighbour and by nothing past the domain ends, so every extended slab is
-a contiguous range of the whole grid. `exchange_z_planes` fills zeros past
-the ends, as JAX's ppermute halos do (parallel/advect_sharded.py).
+(parallel/simulate_sharded.py): a slab grows by g planes on each side and
+by nothing past the domain ends, so every extended slab is a contiguous
+range of the whole grid. `exchange_z_planes` fills zeros past the ends,
+as JAX's ppermute halos do (parallel/advect_sharded.py). Both reach past
+the next rank when g exceeds a slab's zl planes: the planes come from
+the ranks 1, 2, ... places away, each rank's whole slab but the
+farthest's (`_hops`), in the same one batch of sends and receives.
 
 Both are differentiable, as JAX's ppermute is: under autograd the
 backward runs the exchange's adjoint (`planes_adjoint`), which sends the
@@ -52,18 +55,25 @@ from fluidnet_tpu_torch.solvers.cuda_jacobi import (jacobi_cuda,
                                                     jacobi_update)
 
 
+def _hops(h: int, zl: int):
+    """[(k, m)]: the h planes just beyond a slab of zl planes, as the m
+    planes that come from the rank k places away, k = 1, 2, ...: zl from
+    every rank but the farthest, which gives the rest."""
+    return [(k, min(zl, h - (k - 1) * zl))
+            for k in range(1, -(-h // zl) + 1)]
+
+
 def _swap(sends, group):
-    """For each (down, up) pair of (b, c, h, y, x) tensors of `sends`
-    (None where there is no neighbour to send to): (from_below,
-    from_above), what the rank before this one on `group` sent up and what
-    the rank after it sent down, None past the mesh ends; on the host when
-    the collective stages through it. One batch of sends and receives for
-    all."""
+    """For each (k, down, up) of `sends` ((b, c, m, y, x) tensors): (from_
+    below, from_above), what the rank k places before this one on `group`
+    sent up and what the rank k places after it sent down, None past the
+    mesh ends (nothing is sent there); on the host when the collective
+    stages through it. One batch of sends and receives for all."""
     idx, n = dist.get_rank(group), dist.get_world_size(group)
     out, ops = [], []
-    for tag, pair_send in enumerate(sends):
+    for tag, (k, *pair_send) in enumerate(sends):
         pair = []
-        for peer, send in zip((idx - 1, idx + 1), pair_send):
+        for peer, send in zip((idx - k, idx + k), pair_send):
             recv = None
             if 0 <= peer < n:
                 dev = torch.device("cpu") if host_staged(send, group) \
@@ -81,34 +91,63 @@ def _swap(sends, group):
     return out
 
 
+def _joined(pieces, ms, like):
+    """One side's received pieces (None: no rank there), of ms planes
+    each, joined along z on like's device, zeros for the missing ones;
+    None when no rank lies on that side."""
+    if all(t is None for t in pieces):
+        return None
+    return torch.cat([
+        torch.zeros(like.shape[:2] + (m,) + like.shape[3:], dtype=like.dtype,
+                    device=like.device) if t is None else t.to(like.device)
+        for t, m in zip(pieces, ms)], dim=2)
+
+
 def _swap_planes(xs, h: int, group):
     """For each (b, c, zl, y, x) tensor of `xs`: (lo, hi), the h z-planes
-    of the rank before this one on `group` (its top planes) and of the
-    rank after it (its bottom planes), None past the mesh ends, on x's
-    device. One batch of sends and receives for all."""
-    for x in xs:
-        if x.shape[2] < h:
-            raise ValueError(f"exchange: slab of {x.shape[2]} z-planes "
-                             f"cannot give {h}")
-    got = _swap([(x[:, :, :h], x[:, :, -h:]) for x in xs], group)
-    return [[None if t is None else t.to(x.device) for t in pair]
-            for x, pair in zip(xs, got)]
+    just below this rank's slab on `group` and just above it, from as many
+    ranks on each side as h needs (`_hops`: a rank's whole slab from each
+    but the farthest), zeros where they would lie past the mesh ends, None
+    when no rank lies on that side; on x's device. One batch of sends and
+    receives for all."""
+    hops = [_hops(h, x.shape[2]) for x in xs]
+    got = iter(_swap([(k, x[:, :, :m], x[:, :, x.shape[2] - m:])
+                      for x, hs in zip(xs, hops) for k, m in hs], group))
+    out = []
+    for x, hs in zip(xs, hops):
+        pairs = [next(got) for _ in hs]
+        ms = [m for _, m in hs]
+        # Below, the farthest rank's planes come first.
+        out.append([_joined([d for d, _ in pairs][::-1], ms[::-1], x),
+                    _joined([u for _, u in pairs], ms, x)])
+    return out
 
 
 def planes_adjoint(shapes, grads, h: int, group, like):
     """The adjoint of exchange_z_planes on slabs of `shapes`: grads[i]
     holds the cotangents (g_lo, g_hi) of the h planes slab i received
-    from below and from above (None past the mesh ends). Each goes back to
-    the rank that owns those planes, which adds what it gets into its own
-    bottom and top h planes. One batch of sends and receives for all.
+    from below and from above (None past the mesh ends). Each rank's
+    piece goes back to it (`_hops`), and it adds what it gets into its own
+    bottom or top planes. One batch of sends and receives for all.
     Returns [each slab's cotangent], of like's dtype and device."""
+    sends = []
+    for shape, (g_lo, g_hi) in zip(shapes, grads):
+        zl = shape[2]
+        for k, m in _hops(h, zl):
+            end, start = h - (k - 1) * zl, (k - 1) * zl
+            sends.append((k, None if g_lo is None else g_lo[:, :, end - m:end],
+                          None if g_hi is None else
+                          g_hi[:, :, start:start + m]))
+    got = iter(_swap(sends, group))
     out = []
-    for shape, (down, up) in zip(shapes, _swap(grads, group)):
+    for shape in shapes:
         g = torch.zeros(shape, dtype=like.dtype, device=like.device)
-        if down is not None:
-            g[:, :, :h] += down.to(like.device)
-        if up is not None:
-            g[:, :, -h:] += up.to(like.device)
+        for _, m in _hops(h, shape[2]):
+            down, up = next(got)
+            if down is not None:
+                g[:, :, :m] += down.to(like.device)
+            if up is not None:
+                g[:, :, shape[2] - m:] += up.to(like.device)
         out.append(g)
     return out
 
@@ -126,10 +165,10 @@ def _filled(xs, h: int, group):
 
 class _Exchange(torch.autograd.Function):
     """exchange_z_planes under autograd. The backward posts a send and a
-    receive to each neighbour for every slab on every rank, in the
-    forward's order, whatever reached the cotangents (a cotangent that
-    autograd leaves out arrives as zeros): the ranks' lists of sends and
-    receives must pair."""
+    receive to each rank the forward exchanged with, for every slab on
+    every rank, in the forward's order, whatever reached the cotangents (a
+    cotangent that autograd leaves out arrives as zeros): the ranks' lists
+    of sends and receives must pair."""
 
     @staticmethod
     def forward(ctx, h, group, *xs):
@@ -150,8 +189,9 @@ class _Exchange(torch.autograd.Function):
 
 def exchange_z_planes(xs, h: int, group):
     """For each (b, c, zl, y, x) tensor of `xs`: (lo, hi), the h z-planes
-    just below this rank's slab (the top planes of the rank before it on
-    `group`) and just above (the bottom planes of the rank after it);
+    just below this rank's slab (the top planes of the ranks before it on
+    `group`) and just above (the bottom planes of the ranks after it),
+    from as many ranks as h needs (h > zl reaches past the next one);
     zeros past the mesh ends. One batch of sends and receives for all.
     Differentiable: under autograd the cotangents of (lo, hi) go back to
     the ranks that own those planes, one batch of sends and receives in
@@ -164,19 +204,24 @@ def exchange_z_planes(xs, h: int, group):
 
 
 def exchange_ghost(xs, g: int, group):
-    """Each (b, c, zl, y, x) slab of `xs` extended by the g z-planes of
-    each neighbour on `group`, and by nothing past the global domain ends:
-    the first and last ranks get a one-sided ghost zone, so every
-    extended slab is a contiguous range of the whole grid and a
-    positional border test on it falls where it falls on the whole grid.
-    One batch of sends and receives for all; differentiable as
-    exchange_z_planes (the adjoint adds the ghost planes' cotangents
-    into the neighbours' own planes; the grid's ends stay one-sided).
-    Returns [the extended slabs]."""
+    """Each (b, c, zl, y, x) slab of `xs` (every rank's of the same zl)
+    extended by the g z-planes beyond each of its ends on `group`, from as
+    many ranks as g needs, and by nothing past the global domain ends: a
+    rank near an end grows by min(g, the planes beyond it) there, so every
+    extended slab is a contiguous range of the whole grid and a positional
+    border test on it falls where it falls on the whole grid. One batch of
+    sends and receives for all; differentiable as exchange_z_planes (the
+    adjoint adds the ghost planes' cotangents into their owners' own
+    planes; the grid's ends stay one-sided). Returns [the extended
+    slabs]."""
     idx, n = dist.get_rank(group), dist.get_world_size(group)
-    return [torch.cat(([lo] if idx > 0 else []) + [x] +
-                      ([hi] if idx < n - 1 else []), dim=2)
-            for x, (lo, hi) in zip(xs, exchange_z_planes(xs, g, group))]
+    out = []
+    for x, (lo, hi) in zip(xs, exchange_z_planes(xs, g, group)):
+        zl = x.shape[2]
+        below, above = min(g, idx * zl), min(g, (n - 1 - idx) * zl)
+        out.append(torch.cat([lo[:, :, g - below:], x, hi[:, :, :above]],
+                             dim=2))
+    return out
 
 
 def global_border_mask(shape, z_len_global: int, z0_global: int,

@@ -7,10 +7,13 @@ Each rank holds a slab of zl = Z / n_sp planes of every field (batch over
 
   1. the advection window from the grid's max|u| (one all_reduce MAX, only
      with adaptive_window and advection_window > 1), so that every rank
-     takes the same W;
-  2. one exchange (`halo.exchange_ghost`) extends u, density and, for the
-     ConvNet, p by the ghost zone of G planes from each neighbour, and by
-     nothing past the global z ends;
+     takes the same W; at advection_window 0 the ghost zone G from the
+     grid's max|u_z| where it depends on the data (below; one all_reduce
+     MAX);
+  2. one exchange (`halo.exchange_ghost`) extends u, density (when the
+     state has one) and, for the ConvNet, p by the ghost zone of G planes
+     on each side, from as many ranks as G needs, and by nothing past the
+     global z ends;
   3. sim.simulate's own `_step` runs on the extended slab with a
      `SlabStep`: the grid's dx, the extended slab's z origin (the global
      index of its first plane), that window, the ConvNet's input scale
@@ -43,8 +46,10 @@ the positional tests and the zero pads spoil there reaches at most G
 planes in and is cropped away.
 
 The ghost zone G is the sum of the stencil radii of one step before its
-Jacobi solves (`ghost_planes`): the advection 2W + 2 (W the largest window
-mconf allows), K2's halo of 4 (the prologue, or the forces block), then
+Jacobi solves (`ghost_planes`): the advection's reach (`advection_reach`:
+2W + 2 at the largest window W mconf allows; window 0 below), K2's halo
+of 4 (the prologue, or the forces block; without density gravity and K4,
+the same reach), then
 for the ConvNet the trunk's reach (`trunk_reach`) and the model's velocity
 update and setWallBcs (2), for jacobi-n and PCG the setWallBcs and the
 divergence (2). For the ConvNet G is rounded up to a multiple of the
@@ -58,6 +63,45 @@ field's scale, however wide G. G: 13 planes for the default 8-8-8-8-1
 model at W = 1 (reach 3, F 1), 28 for tog at W = 1 or 2 (reach 16, F 4),
 16 for a two-bank mres model at W = 1 (reach 6, F 2), 10 for jacobi-n
 and PCG.
+
+The exact route's reach (advection_window 0: ops/advect.py, plain
+PyTorch at the slab's z origin), walked through what it reads, trace by
+trace, d the grid's dt max|u_z| (every displacement's z part is at most d:
+the centred and face velocities average u):
+  - a line trace (the *Ours methods) marches TRACE_STEPS = 8 steps of at
+    most one cell (simulate never passes max_trace_steps; a back-off or
+    the border intersection only moves a point back along the ray, the
+    domain clamp back into the domain), so a ray ends within 8 planes of
+    its cell's centre, and the interpolation there reads the corner planes
+    floor(p - 0.5) and one above: 9 planes (its direction reads u one plane
+    away, within them);
+  - eulerOurs: one trace, 9. maccormackOurs: the backward trace
+    interpolates the forward's result, 2 x 9 = 18; the scalar clamp reads
+    the 3^3 window around the forward's traced cell (9), the velocity
+    clamp the 2x2x2 corners around trunc(k -/+ dt u_mac), not line traced:
+    floor(d) + 1 <= ceil(d) + 1. rk2Ours and rk3Ours trace every step
+    from the cell centre (9); their velocity is maccormackOurs's. So
+    max(18, ceil(d) + 1), which d moves only past 17;
+  - Manta's euler traces p - dt u with no step limit: ceil(d) + 1;
+    maccormack twice that (the backward trace over the forward's result;
+    its clamp and obstacle lookups read ceil(d) + 1).
+Where the reach depends on d (window 0, all but eulerOurs), each step
+takes d from an all_reduce MAX of every rank's own max|u_z| (so every rank
+exchanges the same G) and G = ghost_planes(mconf, d), at most (n - 1) zl
+(then every rank holds the whole grid). The flags and BC masks are
+extended once, at the rollout's start, to that widest reach, the whole
+grid (the flags 8 MiB a rank at 128^3), so no step exchanges them again.
+G at window 0 while d <= 17: 27 for the default model, 40 for tog, 24 for
+jacobi-n and PCG. The traces' 18 are loose by the zero-weight corner: a
+ray of 8 whole planes in z lands on a corner with weight 1 and reads the
+next with weight 0, so what maccormackOurs's two traces read with weight
+lies 16 planes away; the velocity clamp's bound is met at a whole d
+(tests/test_torch_sharded_exact.py probes both).
+
+A G wider than a slab's zl planes (tog at window 0 on 32 planes, small
+slabs, Manta's methods at a large d) takes planes from as many ranks as
+it needs (halo._hops), still one batch of sends and receives, and its
+adjoint sends each plane's cotangent back to its owner.
 
 The trunk's reach is how many planes at full resolution one output plane
 of the trunk reads on each side, walked from the layer spec and the bank
@@ -101,8 +145,11 @@ component sums add in another order, so its p agrees with the whole
 grid's to the solver's rounding; a rerun on the same ranks gives the
 same bits.
 
-Not ported here (NotImplementedError, each naming its ROADMAP item): 2-D
-states, states without density and advection_window 0.
+A state without density takes sim.simulate's unfused route on the slab
+(K1's unfused velocity sweep, gravity and K4, the ConvNet with the slab's
+input scale, or the slab solvers), with no plume BCs (create_plume_bcs
+needs density). 2-D states are refused (NotImplementedError): JAX's
+spatial sharding splits axis 2, which a 2-D state holds at one plane.
 
 Training: under autograd (`simulate_z_sharded(grad=True)`, the unroll of
 parallel/train_sharded.py) the same step records its graph on the slab.
@@ -114,6 +161,7 @@ on the slab (ops/replay.py for K1's fused sweeps and K2 with the grid's
 dx; K1's unfused sweeps, whose backward is K6).
 """
 
+import math
 from typing import Optional
 
 import torch
@@ -139,6 +187,9 @@ from fluidnet_tpu_torch.sim.simulate import (Boundaries, FlagConsts,
                                              _fixed_jacobi, _resolve_forces,
                                              _step, _window)
 
+# The line trace's march steps on the exact route: simulate() never passes
+# max_trace_steps (ops/advect.py's default).
+TRACE_STEPS = 8
 BC_FIELDS = ("u_bc", "u_bc_inv_mask", "p_bc", "p_bc_inv_mask", "density_bc",
              "density_bc_inv_mask")
 
@@ -190,12 +241,41 @@ def _round_up(n: int, f: int) -> int:
     return -(-n // f) * f
 
 
-def ghost_planes(mconf: ModelConfig) -> int:
+def advection_reach(mconf: ModelConfig, d: float = 0.0) -> int:
+    """The planes one output plane of the advection reads on each side
+    (the module's note): 2W + 2 at the largest window W >= 1 mconf allows;
+    at window 0 walked through the exact route, `d` the grid's dt
+    max|u_z| (a bound of every displacement's z part)."""
+    W = mconf.advection_window
+    if W:
+        return 2 * W + 2
+    plain = math.ceil(d) + 1
+    method = mconf.advection_method
+    if method == "euler":
+        return plain
+    if method == "maccormack":
+        return 2 * plain
+    trace = TRACE_STEPS + 1
+    if method == "eulerOurs":
+        return trace
+    # maccormackOurs, and the velocity of rk2Ours and rk3Ours.
+    return max(2 * trace, plain)
+
+
+def reach_of_data(mconf: ModelConfig) -> bool:
+    """Whether advection_reach depends on d: window 0, every method but
+    eulerOurs (whose traces are line traced and whose velocity has no
+    clamp)."""
+    return not mconf.advection_window and \
+        mconf.advection_method != "eulerOurs"
+
+
+def ghost_planes(mconf: ModelConfig, d: float = 0.0) -> int:
     """G, the planes a step's exchange adds on each side: the stencil
-    radii of the step before its Jacobi solves, at the largest window
-    mconf allows; for the ConvNet rounded up to a multiple of
-    pool_factor."""
-    advection = 2 * mconf.advection_window + 2
+    radii of the step before its Jacobi solves, the advection's at the
+    largest window mconf allows (at window 0 with the grid's dt max|u_z|
+    = d); for the ConvNet rounded up to a multiple of pool_factor."""
+    advection = advection_reach(mconf, d)
     if mconf.sim_method == "convnet":
         return _round_up(advection + K2_HALO + trunk_reach(mconf) + 2,
                          pool_factor(mconf))
@@ -215,74 +295,96 @@ def check_aligned(zl: int, mconf: ModelConfig):
 
 
 def _check(state_l: FluidState, mconf: ModelConfig, model):
-    """Refuses what the sharded step does not port."""
+    """Refuses what the sharded step cannot run."""
     _check_slice(state_l, mconf, model)
     if not state_l.is_3d:
-        raise NotImplementedError("the z-sharded step is 3-D: a 2-D state "
-                                  "has no z to split (ROADMAP queue 1, item "
-                                  "6: left out)")
-    if state_l.density is None:
-        raise NotImplementedError("the z-sharded step needs a density "
-                                  "field (ROADMAP queue 1, item 6: left "
-                                  "out)")
-    if not mconf.advection_window:
-        raise NotImplementedError("the exact advection (advection_window "
-                                  "0) on a z-sharded state is not ported "
-                                  "(ROADMAP queue 1, item 6: left out)")
+        raise NotImplementedError(
+            "the z-sharded step is 3-D: the JAX package's spatial sharding "
+            "splits axis 2 (fluidnet_tpu/parallel/mesh.py:37-39), which a "
+            "2-D state holds at one plane, so there is no z to split")
 
 
 class _Slab:
     """This rank's slab of the grid for one rollout: its place, the
     ghost zones, and the flags and BC masks extended once to the widest
-    reach a step needs (G, the polish's n + 2, jacobi-n's h), or `reach`
-    if wider (one-sided at the global ends)."""
+    reach a step can need (G, the polish's n + 2, jacobi-n's h; the whole
+    grid where G depends on the data), or `reach` if wider (one-sided at
+    the global ends, at most the planes that lie beyond). `at(g)` sets a
+    step's ghost zone."""
 
     def __init__(self, state_l, mconf, mesh, bcs_l, reach: int = 0):
         sp = mesh["sp"]
         self.mesh, self.group = mesh, sp.get_group()
         idx, self.n = sp.get_local_rank(), sp.size()
-        self.below, self.above = idx > 0, idx < self.n - 1
         self.zl = zl = state_l.u.shape[2]
         Y, X = state_l.u.shape[3:]
-        self.dx = get_dx((zl * self.n, Y, X))
-        self.g = ghost_planes(mconf)
-        # The global index of the own and the G-extended slab's first
-        # plane.
-        self.z_own = idx * zl
-        self.z0 = self.z_own - self.g * self.below
+        self.Z = zl * self.n
+        self.dx = get_dx((self.Z, Y, X))
+        # The global index of the own slab's first plane; past (n - 1) zl
+        # planes on each side a slab holds the whole grid.
+        self.z_own, self.cap = idx * zl, (self.n - 1) * zl
+        self.mconf, self.of_data = mconf, reach_of_data(mconf)
+        self.g_min = min(ghost_planes(mconf), self.cap)
         self.polish = mconf.polish_iters + 2 \
             if mconf.sim_method == "convnet" and mconf.polish_iters > 0 \
             else 0
         self.solve_h = min(mconf.max_iter, zl) \
             if mconf.sim_method == "jacobi" else 0
-        self.reach = max(self.g, self.polish, self.solve_h, reach)
+        self.reach = min(max(self.g_min, self.polish, self.solve_h, reach,
+                             self.cap * self.of_data), self.cap)
         if mconf.sim_method == "convnet":
             check_aligned(zl, mconf)
-        if zl < self.reach:
-            raise ValueError(f"shard z-length {zl} < ghost zone "
-                             f"{self.reach}: the exchange only reaches "
-                             f"immediate neighbours (use fewer sp shards)")
         names = [k for k in BC_FIELDS
                  if bcs_l is not None and getattr(bcs_l, k) is not None]
         ext = exchange_ghost(
             [state_l.flags] + [getattr(bcs_l, k) for k in names],
             self.reach, self.group)
-        self.flags = self.crop(ext[0], self.reach, self.g)
-        self.bcs = None if bcs_l is None else Boundaries(**{
-            k: self.crop(x, self.reach, self.g)
-            for k, x in zip(names, ext[1:])})
         self.flags_reach = ext[0]
-        self.consts = FlagConsts()
+        self.bcs_reach = None if bcs_l is None else dict(zip(names, ext[1:]))
+        self._cut = {}
+        self.at(self.g_min)
         # PCG's components depend on the flags alone: labelled once.
         self.labels = slab_components(state_l.flags, mesh, self.z_own) \
             if mconf.sim_method == "pcg" else None
 
+    def lo(self, g: int) -> int:
+        """The planes a ghost zone of g adds below the own slab."""
+        return min(g, self.z_own)
+
+    def hi(self, g: int) -> int:
+        """The planes a ghost zone of g adds above the own slab."""
+        return min(g, self.Z - self.z_own - self.zl)
+
+    def at(self, g: int):
+        """Sets this step's ghost zone of g planes: the extended slab's z
+        origin, and the flags, BC masks and flag constants cut to it."""
+        self.g, self.z0 = g, self.z_own - self.lo(g)
+        if g not in self._cut:
+            self._cut[g] = (
+                self.crop(self.flags_reach, self.reach, g).contiguous(),
+                None if self.bcs_reach is None else Boundaries(**{
+                    k: self.crop(x, self.reach, g).contiguous()
+                    for k, x in self.bcs_reach.items()}),
+                FlagConsts())
+        self.flags, self.bcs, self.consts = self._cut[g]
+
+    def step_ghost(self, u_l, dt) -> int:
+        """G for a step from this rank's own planes of u: the fixed G, or
+        where it depends on the data, from the grid's dt max|u_z| (an
+        all_reduce MAX over the ranks, so every rank takes the same G),
+        at most the whole grid."""
+        if not self.of_data:
+            return self.g_min
+        vz = all_reduce_max(u_l.detach()[:, 2].abs().max(), self.group)
+        d = float(vz) * float(torch.as_tensor(dt).abs().max())
+        return min(ghost_planes(self.mconf, d), self.cap)
+
     def crop(self, x, have: int, want: int):
         """x, this rank's slab extended by `have` planes (one-sided),
         cut to the slab extended by `want` <= have."""
-        start = (have - want) * self.below
-        return x[:, :, start:start + self.zl + want * (self.below +
-                                                       self.above)]
+        start = self.lo(have) - self.lo(want)
+        return x[:, :, start:start + self.zl + self.lo(want) +
+                 self.hi(want)]
 
     def own(self, x):
         """This rank's own planes of a G-extended slab."""
@@ -290,7 +392,7 @@ class _Slab:
 
     def embed(self, x, part):
         """The G-extended slab x with its own planes replaced by part."""
-        lo = self.g * self.below
+        lo = self.lo(self.g)
         return torch.cat([x[:, :, :lo], part, x[:, :, lo + self.zl:]],
                          dim=2)
 
@@ -386,17 +488,20 @@ def _sharded_step(state_l, mconf, model, slab, forces, use_kernels,
                   output_div=False):
     """sim.simulate._step on this rank's slab (`slab`: the flags and BC
     masks extended once); `output_div` returns the divergent state after
-    the forces, as the unsharded step does."""
+    the forces, as the unsharded step does. A state without density
+    exchanges and returns none."""
     W = step_window(mconf, state_l.u, forces.dt, slab.group)
+    slab.at(slab.step_ghost(state_l.u, forces.dt))
     convnet = mconf.sim_method == "convnet"
-    fields = [state_l.u, state_l.density] + ([state_l.p] if convnet else [])
-    ext = exchange_ghost(fields, slab.g, slab.group)
-    if convnet:
-        ue, de, pe = ext
-    else:
-        # jacobi-n overwrites p: its ghost planes need no exchange.
-        ue, de = ext
-        pe = slab.embed(torch.zeros_like(ue[:, :1]), state_l.p)
+    has_d = state_l.density is not None
+    fields = [state_l.u] + ([state_l.density] if has_d else []) + \
+        ([state_l.p] if convnet else [])
+    ext = iter(exchange_ghost(fields, slab.g, slab.group))
+    ue = next(ext)
+    de = next(ext) if has_d else None
+    # jacobi-n and PCG overwrite p: its ghost planes need no exchange.
+    pe = next(ext) if convnet else \
+        slab.embed(torch.zeros_like(ue[:, :1]), state_l.p)
     hooks = SlabStep(dx=slab.dx, z0=slab.z0, window=W,
                      input_scale=slab.input_scale,
                      polish=slab.polish_step,
@@ -407,7 +512,8 @@ def _sharded_step(state_l, mconf, model, slab, forces, use_kernels,
                 output_div, slab=hooks)
     return FluidState(u=slab.own(out.u).contiguous(),
                       p=slab.own(out.p).contiguous(), flags=state_l.flags,
-                      density=slab.own(out.density).contiguous())
+                      density=slab.own(out.density).contiguous()
+                      if has_d else None)
 
 
 def rollout_z_sharded(state_l: FluidState, mconf: ModelConfig, n_steps: int,
@@ -420,10 +526,9 @@ def rollout_z_sharded(state_l: FluidState, mconf: ModelConfig, n_steps: int,
 
     Returns this rank's slab of the final state; with `save_every > 0`
     also its density every `save_every` steps, stacked (n_steps //
-    save_every, b, c, zl, y, x). Raises NotImplementedError on what is not
-    ported (the module's note) and ValueError when a slab is shorter than
-    the ghost zone or, with the ConvNet, its length is not a multiple of
-    the model's pooling factor."""
+    save_every, b, c, zl, y, x). Raises NotImplementedError on a 2-D state
+    (the module's note) and, with the ConvNet, ValueError when a slab's
+    length is not a multiple of the model's pooling factor."""
     if save_every > 1 and n_steps % save_every:
         raise ValueError(f"n_steps ({n_steps}) must be divisible by "
                          f"save_every ({save_every})")

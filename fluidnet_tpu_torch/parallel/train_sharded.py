@@ -75,8 +75,11 @@ Every rank must take the same horizon and the same draws (JAX has one key
 for the whole batch): they come from equal generator seeds, and
 `loss_fn_sharded` checks them with one all_reduce.
 
-Not ported: what the sharded step refuses (NotImplementedError naming
-ROADMAP queue 1 item 6: 2-D, no density, window 0). A slab whose own
+A batch without density, and advection_window 0, train as the sharded
+step runs them (simulate_sharded's note): the exact route's gradient is
+autograd's through its plain PyTorch and the exchanges' adjoints, which
+reach past the next rank where G does. A 2-D batch is refused as the
+sharded step refuses it (NotImplementedError), and a slab whose own
 length is not a multiple of the model's pooling factor raises
 ValueError.
 """
@@ -274,8 +277,12 @@ def loss_fn_sharded(model, batch_l, gen, mconf: ModelConfig, n_future: int,
             raise ValueError("augment_without_targets requires the p/u "
                              "losses off")
         with torch.no_grad():
-            pa, ua, da = exchange_ghost(
-                [batch_l["p_div"], u_div, state_l.density], ga, slab.group)
+            grown_in = exchange_ghost(
+                [batch_l["p_div"], u_div] + (
+                    [] if state_l.density is None else [state_l.density]),
+                ga, slab.group)
+            pa, ua = grown_in[:2]
+            da = grown_in[2] if state_l.density is not None else None
             ua = _data_augmentation(
                 ua, slab.crop(slab.flags_reach, slab.reach, ga).contiguous(),
                 da, mconf, draws, use_kernels, dx=slab.dx)

@@ -32,7 +32,9 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       its peak memory kept, once with every kernel's plain
       version (use_kernels=False) on the same slab, its difference to the
       first reported, then once more timed, and --reps timed exchanges of
-      the step's fields. A jacobi-n run is also rerun and timed on the
+      the step's fields, each step's ghost zone and the ranks it reaches
+      kept (`drop_density`: the state without density and BCs; `u_z_add`:
+      added to u_z everywhere). A jacobi-n run is also rerun and timed on the
       per-sweep halo Jacobi (`halo_solve`), which must give the same bits.
       A PCG run keeps each step's CG iteration count and residual
       (`cg_solves`), its slab's labels (connected_components_z_sharded,
@@ -42,7 +44,8 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       all_reduce of two per-sample dots).
   --case train_sp: the inputs hold host batches, the draws, the model
       seed, the horizon n and the runs [{name, mesh (n_dp, n_sp), mconf,
-      batch, fault}] (mconf's model type and banks; the runs whose mesh
+      batch, fault, n}] (mconf's model type and banks; `n`, when set, the
+      run's own horizon; the runs whose mesh
       holds WORLD_SIZE ranks). On each run's mesh each rank takes its
       part of the batch
       (shard_batch: samples over 'dp', z over 'sp'), deterministic cuDNN,
@@ -133,7 +136,7 @@ def zeroed_ghosts(at_call, rank):
         calls.append(g)
         if len(calls) - 1 != at_call:
             return ext
-        lo = g * (rank > 0)
+        lo = min(g, rank * xs[0].shape[2])
         return [torch.cat([torch.zeros_like(e[:, :, :lo]),
                            e[:, :, lo:lo + x.shape[2]],
                            torch.zeros_like(e[:, :, lo + x.shape[2]:])],
@@ -159,7 +162,7 @@ def zeroed_d_ghosts():
         ext = real(xs, g, group)
         if not xs[0].is_floating_point():
             return ext
-        lo = g * (dist.get_rank(group) > 0)
+        lo = min(g, dist.get_rank(group) * xs[0].shape[2])
         return [torch.cat([torch.zeros_like(e[:, :, :lo]),
                            e[:, :, lo:lo + x.shape[2]],
                            torch.zeros_like(e[:, :, lo + x.shape[2]:])],
@@ -227,6 +230,24 @@ def planted(fault, rank):
     if fault == "misaligned":
         return misaligned_trunk()
     return zeroed_ghosts(2, rank)
+
+
+@contextlib.contextmanager
+def ghost_sizes():
+    """Keeps the ghost zone G of every sharded step (simulate_sharded.
+    _Slab.at) while entered. Yields the list."""
+    from fluidnet_tpu_torch.parallel import simulate_sharded as ss
+    real, out = ss._Slab.at, []
+
+    def at(self, g):
+        if self._cut:       # the first call cuts the rollout's start
+            out.append(g)
+        return real(self, g)
+    ss._Slab.at = at
+    try:
+        yield out
+    finally:
+        ss._Slab.at = real
 
 
 @contextlib.contextmanager
@@ -305,10 +326,12 @@ class InputScale(torch.nn.Module):
         return self.model(p, u, flags, input_scale=scale, **kw)
 
 
-def plume(states, key):
+def plume(states, key, run=None):
     """(global FluidState, its plume BC masks) on the host: states[key],
     or the empty plume of bench.py from zeros when `key` is a
-    resolution."""
+    resolution; a run's `drop_density` drops the density and the BCs
+    (create_plume_bcs needs density), its `u_z_add` adds to u's z
+    component everywhere."""
     from fluidnet_tpu_torch.core.grids import FluidState, empty_domain
     from fluidnet_tpu_torch.sim.simulate import create_plume_bcs
     if isinstance(key, int):
@@ -319,6 +342,13 @@ def plume(states, key):
                            density=torch.zeros(shape))
     else:
         state = FluidState(**states[key])
+    run = run or {}
+    if run.get("u_z_add"):
+        u = state.u.clone()
+        u[:, 2] += run["u_z_add"]
+        state = state.replace(u=u)
+    if run.get("drop_density"):
+        return state.replace(density=None), None
     return state, create_plume_bcs(state, [1.0], u_scale=0.6, rad=0.15)
 
 
@@ -419,7 +449,7 @@ def step(inp, reps, rank):
     saved = {}
     for run in inp["runs"]:
         mconf, n = run["mconf"], run["steps"]
-        state, bcs = plume(inp["states"], run["state"])
+        state, bcs = plume(inp["states"], run["state"], run)
         state_l = ss.shard_state(state, mesh, dev)
         bcs_l = ss.shard_bcs(bcs, mesh, dev)
         del state, bcs
@@ -436,21 +466,28 @@ def step(inp, reps, rank):
             with planted(run["fault"], rank):
                 return ss.rollout_z_sharded(state_l, mconf, n, mesh, model,
                                             bcs_l, use_kernels=use_kernels)
-        with comm_counts() as comms, cg_solves() as solves:
+        with comm_counts() as comms, cg_solves() as solves, \
+                ghost_sizes() as ghosts:
             out, launches = counted(roll)
-        keys = ("u", "p", "density")
+        keys = ("u", "p") + (("density",) if state_l.density is not None
+                             else ())
         saved[run["name"]] = {k: getattr(out, k).cpu() for k in keys}
+        zl = state_l.u.shape[2]
         if model is not None:
             # The own planes of the first step's model inputs (the u and
-            # divergence the advection and K2 hand it).
-            zl, lo = state_l.u.shape[2], ss.ghost_planes(mconf) * (rank > 0)
+            # divergence the advection and K2 hand it; no divergence
+            # without density: the model takes its own).
+            lo = min(ghosts[0], rank * zl)
             first = model.model
             saved[run["name"]].update(
                 first_u=first.seen[:, :, lo:lo + zl].cpu(),
-                first_div=first.div[:, :, lo:lo + zl].cpu())
+                first_div=None if first.div is None else
+                first.div[:, :, lo:lo + zl].cpu())
         rec = {"launches": launches, "comms": dict(comms),
                "slab": list(state_l.u.shape),
-               "ghost": ss.ghost_planes(mconf),
+               "ghost": max(ghosts),
+               "ghost_per_step": ghosts,
+               "hops_per_step": [-(-g // zl) for g in ghosts],
                "transport": transport(state_l.u, group),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         if model is not None:
@@ -516,7 +553,8 @@ def step(inp, reps, rank):
             if "step_ms" not in rec:
                 rec["step_ms"] = [t / n for t in timed(roll, 1)]
             G = rec["ghost"]
-            fields = [state_l.u, state_l.density] + (
+            fields = [state_l.u] + [state_l.density] * (
+                state_l.density is not None) + (
                 [state_l.p] if model is not None else [])
             rec["exchange_ms"] = timed(
                 lambda: ss.exchange_ghost(fields, G, group), reps)
@@ -567,15 +605,21 @@ def train_sp(inp, reps, rank):
     from fluidnet_tpu_torch.train import train as tr
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    n, draws, seed = inp["n"], inp["draws"], inp["model_seed"]
+    draws, seed = inp["draws"], inp["model_seed"]
     info, saved, meshes = {"rank": rank, "runs": {}}, {}, {}
     for run in inp["runs"]:
+        n = run.get("n") or inp["n"]
         shape = tuple(run["mesh"])
         if shape[0] * shape[1] != dist.get_world_size():
             continue            # another spawn's run
         if shape not in meshes:
             meshes[shape] = make_mesh(*shape)
         mesh, mconf = meshes[shape], run["mconf"]
+        # The exact route's gradient is torch.gather's backward, a
+        # scatter_add that sums by atomics on the card unless asked for a
+        # fixed order: without it two runs differ in the last bits.
+        torch.use_deterministic_algorithms(not mconf.advection_window,
+                                           warn_only=True)
         dev = mesh_device(mesh)
         group = mesh["sp"].get_group()
         batch_l = shard_batch(inp["batches"][run["batch"]], mesh, dev)
@@ -633,7 +677,8 @@ def train_sp(inp, reps, rank):
         rec["step_ms"] = steps
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         G = ghost_planes(mconf)
-        fields = [batch_l["u_div"], batch_l["density"], batch_l["p_div"]]
+        fields = [batch_l[k] for k in ("u_div", "density", "p_div")
+                  if k in batch_l]
         shapes = [f.shape for f in fields]
         idx, n_sp = mesh["sp"].get_local_rank(), mesh["sp"].size()
         cots = [tuple(torch.ones(f.shape[:2] + (G,) + f.shape[3:],
@@ -653,6 +698,7 @@ def train_sp(inp, reps, rank):
             "params": [p.detach().to("cpu", copy=True)
                        for p in state.params]}
         del batch_l, state, fields, cots
+    torch.use_deterministic_algorithms(False)
     return info, saved
 
 

@@ -815,6 +815,66 @@ def test_exact_route_step_matches_cpu(dev):
     assert all(off[k] == 0 for k in TRACE_KEYS if k != "position"), off
 
 
+@pytest.mark.parametrize("z0, z1", [(19, 63), (25, 64)])
+def test_slab_paths_at_a_z_origin(dev, z0, z1):
+    """The kernels a z-sharded step without density runs, on a one-sided
+    extended slab (planes z0 .. z1 of a 64-plane grid: a cut at both ends,
+    and one ending on the grid's end): K1's unfused forward and backward
+    velocity sweeps at the slab's z origin and K4 equal their plain
+    versions to the bit, one launch each; their planes 10 away from a cut
+    equal the whole grid's kernels' to the bit (K4's interior test, with
+    no z origin, falls as the whole grid's). The exact route
+    (maccormackOurs at window 0, the density and the velocity) at the
+    slab's z origin on the card against the CPU: within 1e-5 of each
+    field's largest value, every line trace taking the same decisions."""
+    from fluidnet_tpu_torch.ops.advect import advect_scalar, advect_vel
+    from fluidnet_tpu_torch.ops.advect_fast import advect_vel_fast
+    from fluidnet_tpu_torch.ops.forces import vorticity_confinement_xla
+    from fluidnet_tpu_torch.ops.trace_diff import (TRACE_KEYS, branch_diff,
+                                                   record_traces)
+    rng = np.random.default_rng(20)
+    shape = (1, 1, 64, 24, 28)
+    flags = torch.tensor(_flags(rng, shape).astype(np.int32), device=dev)
+    u = torch.tensor((rng.standard_normal((1, 3) + shape[2:]) * 3.0)
+                     .astype(np.float32), device=dev)
+    s = torch.tensor(rng.random(shape).astype(np.float32), device=dev)
+    fs, us, ss_ = (x[:, :, z0:z1].contiguous() for x in (flags, u, s))
+    lo, hi = (10, z1 - z0 - 10 if z1 < shape[2] else z1 - z0)
+    W = 1
+    free, free_s = (chebyshev_free_space(f, W + 1) for f in (flags, fs))
+    whole_u = advect_vel_fast(0.1, u, flags, "maccormackOurs", 0.6, W,
+                              free=free)
+    before = dict(_build.launches)
+    got = advect_vel_fast(0.1, us, fs, "maccormackOurs", 0.6, W,
+                          free=free_s, z0=z0)
+    torch.cuda.synchronize()
+    for key in ("mac_sweep_unfused_fwd", "mac_sweep_unfused_bwd"):
+        assert _build.launches[key] == before.get(key, 0) + 1, key
+    _exact(got, advect_vel_fast(0.1, us, fs, "maccormackOurs", 0.6, W,
+                                free=free_s, plain=True, z0=z0),
+           f"K1 unfused z0={z0}")
+    _exact(got[:, :, lo:hi], whole_u[:, :, z0 + lo:z0 + hi],
+           f"K1 unfused slab vs whole z0={z0}")
+    before = _build.launches["vorticity"]
+    got = forces_kernel.vorticity_cuda(us, fs, 0.3)
+    torch.cuda.synchronize()
+    assert _build.launches["vorticity"] == before + 1
+    _exact(got, vorticity_confinement_xla(us, fs, 0.3), f"K4 z0={z0}")
+    _exact(got[:, :, lo:hi], forces_kernel.vorticity_cuda(
+        u, flags, 0.3)[:, :, z0 + lo:z0 + hi], f"K4 slab vs whole z0={z0}")
+    out, traces = {}, {}
+    for d in (dev, torch.device("cpu")):
+        f, v, c = (x.to(d) for x in (fs, us, ss_))
+        out[d.type], traces[d.type] = record_traces(lambda: (
+            advect_scalar(0.1, c, v, f, "maccormackOurs", window=0, z0=z0),
+            advect_vel(0.1, v, f, "maccormackOurs", window=0, z0=z0)))
+    for a, b, what in zip(out["cuda"], out["cpu"], ("density", "u")):
+        _close(a.cpu(), b, f"exact {what} z0={z0}")
+    off = branch_diff(traces["cpu"], traces["cuda"], dev)
+    assert len(traces["cpu"]) == 8   # 2 scalar, 6 velocity traces
+    assert all(off[k] == 0 for k in TRACE_KEYS if k != "position"), off
+
+
 def _rank_script():
     """scripts/torch_parallel_rank.py as a module."""
     import importlib.util

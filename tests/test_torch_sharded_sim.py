@@ -25,7 +25,9 @@ through the whole jacobi-8 step. Also: the sharded input scale (std,
 norm) against _input_scale on the whole grid, the adaptive window chosen
 the same on both ranks, each case
 with every kernel's plain version equal to the bit, a planted ghost-zone
-fault that must fail the comparisons, and the refusals.
+fault that must fail the comparisons, and the refusals (states without
+density, window 0 and ghost zones past a slab run:
+tests/test_torch_sharded_exact.py).
 """
 
 import os
@@ -58,10 +60,10 @@ CASES = {"convnet": {}, "convnet_p2": dict(polish_iters=2),
          "jacobi8": dict(sim_method="jacobi", max_iter=8)}
 ADAPT = dict(adaptive_window=True, advection_window=2)
 FAULT_CALL = 2        # step 2's exchange (call 0 extends the flags)
-REFUSALS = {"window0": dict(advection_window=0), "2d": {}, "no_density": {}}
-# ValueErrors: tog's ghost zone (28) past a slab of 16 planes, and a
-# two-bank mres model (pooling factor 2) on slabs of 15 planes.
-SHORT = {"tog": dict(model_type="tog"), "mres_unaligned": dict(banks_num=2)}
+# Refused: a 2-D state (NotImplementedError), and a two-bank mres model
+# (pooling factor 2) on slabs of 15 planes (ValueError).
+REFUSALS = {"2d": {}}
+SHORT = {"mres_unaligned": dict(banks_num=2)}
 
 
 def _free_port():
@@ -188,17 +190,11 @@ def _worker(rank, port, inp):
         return np.array("")
     for name, kw in REFUSALS.items():
         m = base.replace(**kw)
-        st = state_l
-        if name == "2d":
-            st = st.replace(u=st.u[:, :2, :1], p=st.p[:, :, :1],
-                            flags=st.flags[:, :, :1],
-                            density=st.density[:, :, :1])
-        if name == "no_density":
-            st = st.replace(density=None)
+        st = state_l.replace(u=state_l.u[:, :2, :1], p=state_l.p[:, :, :1],
+                             flags=state_l.flags[:, :, :1],
+                             density=state_l.density[:, :, :1])
         res[f"err_{name}"] = error(lambda: ss.simulate_z_sharded(
-            st, m, mesh, model, None if name == "2d" else bcs_l))
-    res["err_short"] = error(lambda: ss.rollout_z_sharded(
-        state_l, base.replace(advection_window=4), 1, mesh, model, bcs_l))
+            st, m, mesh, model, None))
     for name, kw in SHORT.items():
         m = base.replace(**kw)
         st = state_l
@@ -532,23 +528,21 @@ def test_planted_ghost_fault_fails(run):
 
 
 def test_refusals(run):
-    """advection_window 0, a 2-D state and a state without density raise
-    NotImplementedError naming the ROADMAP item (training, grad=True,
-    runs: tests/test_torch_sharded_train.py; PCG runs:
+    """A 2-D state raises NotImplementedError saying why (JAX's spatial
+    sharding splits axis 2, which a 2-D state holds at one plane), and a
+    slab whose length is not a multiple of the model's pooling factor (a
+    two-bank mres model, factor 2, on 15 planes) raises ValueError.
+    States without density, advection_window 0 and ghost zones past a
+    slab's planes run (tests/test_torch_sharded_exact.py); training,
+    grad=True: tests/test_torch_sharded_train.py; PCG:
     tests/test_torch_sharded_pcg.py; pooled and banked models:
-    tests/test_torch_sharded_models.py); a slab shorter than the ghost
-    zone (W = 4: 19 planes > 16; tog: 28 > 16) and a slab whose length is
-    not a multiple of the model's pooling factor (a two-bank mres model,
-    factor 2, on 15 planes) raise ValueError."""
+    tests/test_torch_sharded_models.py."""
     _, _, _, outs = run
     for o in outs:
         for name in REFUSALS:
             msg = str(o[f"err_{name}"])
             assert msg.startswith("NotImplementedError") and \
-                "ROADMAP" in msg, (name, msg)
-        assert "shard z-length 16 < ghost zone 19" in str(o["err_short"])
-        assert str(o["err_tog"]).startswith(
-            "ValueError: shard z-length 16 < ghost zone 28"), o["err_tog"]
+                "axis 2" in msg, (name, msg)
         msg = str(o["err_mres_unaligned"])
         assert msg.startswith("ValueError: shard z-length 15 is not a "
                               "multiple") and "pooling factor 2" in msg, msg

@@ -64,11 +64,10 @@ DRAWS = ("dt", "gravity", "b_scale", "g_scale", "v_amp")
 # another order). Gradients and params after 2 steps: each parameter
 # within GRAD_REL relative L2.
 JAX_RTOL, PORT_RTOL, GRAD_REL = 1e-4, 1e-5, 1e-4
-REFUSALS = {"window0": dict(advection_window=0)}
-ITEMS = {"window0": "item 6"}
-# ValueErrors: tog's ghost zone (28) past a slab of 16 planes, and a
-# two-bank mres model (pooling factor 2) on slabs of 15 planes.
-SHORT = {"tog": dict(model_type="tog"), "mres_unaligned": dict(banks_num=2)}
+# Refused (ValueError): a two-bank mres model (pooling factor 2) on slabs
+# of 15 planes. Window 0 and ghost zones past a slab's planes train:
+# tests/test_torch_sharded_exact.py.
+SHORT = {"mres_unaligned": dict(banks_num=2)}
 AUGMENT = dict(augment_without_targets=True)
 # The sharded PCG's cases (dp 1 x sp 2, horizon SOLVER_FUTURE): solver
 # targets with the p and u losses on, and the p loss on manta targets.
@@ -269,14 +268,9 @@ def _worker(rank, world, n_dp, n_sp, port, inp):
             except (NotImplementedError, ValueError) as e:
                 return np.array(f"{type(e).__name__}: {e}")
             return np.array("")
-        for name, kw in REFUSALS.items():
-            res[f"err_{name}"] = error(lambda: loss_fn_sharded(
-                _model(inp, tm), batch_l, None, tm.replace(**kw), N_FUTURE,
-                mesh, draws=draws))
         for name, kw in SHORT.items():
             m = tm.replace(**kw)
-            b = batch_l if name == "tog" else {
-                k: v[:, :, :15] for k, v in batch_l.items()}
+            b = {k: v[:, :, :15] for k, v in batch_l.items()}
             res[f"err_{name}"] = error(lambda: loss_fn_sharded(
                 FluidNet(m, device="cpu"), b, None, m, N_FUTURE, mesh,
                 draws=draws))
@@ -744,19 +738,13 @@ def test_sharded_pcg_planted_fault_fails(run):
 
 
 def test_refusals(run):
-    """advection_window 0 raises NotImplementedError naming its ROADMAP
-    item; tog on slabs of 16 planes (its ghost zone is 28) and a two-bank
-    mres model on slabs of 15 planes (not a multiple of its pooling
-    factor 2) raise ValueError (pooled and banked models train:
-    tests/test_torch_sharded_models.py)."""
+    """A two-bank mres model on slabs of 15 planes (not a multiple of its
+    pooling factor 2) raises ValueError (pooled and banked models train:
+    tests/test_torch_sharded_models.py; advection_window 0, batches
+    without density and model ghost zones past a slab's planes:
+    tests/test_torch_sharded_exact.py)."""
     _, _, outs = run
     for o in outs["dp1_sp2"]:
-        for name, item in ITEMS.items():
-            msg = str(o[f"err_{name}"])
-            assert msg.startswith("NotImplementedError") and \
-                f"ROADMAP queue 1, {item}" in msg, (name, msg)
-        assert str(o["err_tog"]).startswith(
-            "ValueError: shard z-length 16 < ghost zone 28"), o["err_tog"]
         msg = str(o["err_mres_unaligned"])
         assert msg.startswith("ValueError: shard z-length 15 is not a "
                               "multiple") and "pooling factor 2" in msg, msg
