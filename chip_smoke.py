@@ -13,7 +13,8 @@ dyngather probe, the ConvNets of the generic stage path (tog, banks,
 batch norm, the pressure skip), the host data path (the threaded
 loader, the native C++ runtime) and the scale-out layer (z-sharded
 advection, the halo Jacobi, data-parallel training, the z-sharded step
-and its training, in ranks that share the card), in these phases:
+and its training, in ranks that share the card, or under NCCL one card a
+rank where the machine has a card for each), in these phases:
 
   1. device: fails without CUDA; prints the card's name and power limit.
   2. build:  compiles the CUDA kernels (csrc/*.cu, one nvcc per source, all
@@ -177,11 +178,14 @@ and its training, in ranks that share the card), in these phases:
              equal to the bit to get_batch.
  20. parallel: the scale-out layer (parallel/) in ranks of scripts/
              torch_parallel_rank.py started with torchrun's variables,
-             sharing the card under gloo (every exchange staged through
-             the host; the phase prints the transport). (a) a 256^3 plume
-             around a box across the middle cut (8 ConvNet steps) z-sharded
-             over 4 ranks: advect_step_z_sharded with maccormackOurs at W =
-             1 and 2 (dt moving the fastest cell W + 0.5 cells): each
+             under NCCL with a card a rank where the machine has a card
+             for every rank of a spawn, else sharing the card under gloo
+             (every exchange staged through the host); each spawn prints
+             its backend, each rank's card and the transport. (a) a 256^3
+             plume around a box across the middle cut (8 ConvNet steps)
+             z-sharded over 4 ranks: advect_step_z_sharded with
+             maccormackOurs at W = 1 and 2 (dt moving the fastest cell W +
+             0.5 cells): each
              rank's exchanged planes equal its neighbours', each slab equal
              to the bit to the same slab advected in this process and
              within TOL of it advected by the kernels' plain versions, K1's
@@ -202,8 +206,8 @@ and its training, in ranks that share the card), in these phases:
              PAR_TIMEOUT fails the phase; the ranks' launches are added to
              the kernels line.
  21. sharded step: the z-sharded rollout (parallel/simulate_sharded.py)
-             in STEP_SP = 4 ranks of scripts/torch_parallel_rank.py sharing
-             the card under gloo, as phase 20's. Each run starts each rank
+             in STEP_SP = 4 ranks of scripts/torch_parallel_rank.py, NCCL
+             or gloo as phase 20's. Each run starts each rank
              from its slab of a global plume with bench.py's knobs and the
              bundled model and is held against one process's rollout with
              the kernels on the same state (STEP_RUNS): (a) a float32 copy
@@ -264,8 +268,8 @@ and its training, in ranks that share the card), in these phases:
              the kernels line.
 
  22. sharded train: train_step(mesh=) (parallel/train_sharded.py) in
-             SPT_WORLD = 4 ranks of scripts/torch_parallel_rank.py sharing
-             the card under gloo, as phase 20's, with m3d_v5's recipe (the
+             SPT_WORLD = 4 ranks of scripts/torch_parallel_rank.py, NCCL
+             or gloo as phase 20's, with m3d_v5's recipe (the
              reject guard off), n = 4, deterministic cuDNN and draws with
              buoyancy and vorticity on, each run of SPT_RUNS against one
              process's loss_fn and train_step on the whole batch: (a) dp 1
@@ -460,7 +464,9 @@ MODELS = {"tog": (dict(model_type="tog"), 2),
 
 
 # Phase 20: the scale-out paths (parallel/) in ranks of
-# scripts/torch_parallel_rank.py that share the card under gloo.
+# scripts/torch_parallel_rank.py: NCCL, a card a rank, where the machine has
+# a card for every rank of a spawn, else gloo, the ranks sharing the card
+# (spawn_backend).
 PAR_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "parallel")
 PAR_RES, PAR_SP, PAR_WINDOWS = 256, 4, (1, 2)   # the 256^3 stretch path
@@ -489,7 +495,7 @@ PAR_STEP = {"mac_sweep_unfused_fwd": 1, "mac_sweep_unfused_bwd": 1,
 
 
 # Phase 21: the z-sharded rollout (parallel/simulate_sharded.py) in ranks of
-# scripts/torch_parallel_rank.py that share the card under gloo: the
+# scripts/torch_parallel_rank.py (NCCL or gloo, as phase 20's): the
 # bench's plume at 128^3 over STEP_SP ranks, STEP_N steps a run, and the
 # empty 256^3 plume STEP_BIG_N steps.
 STEP_SP, STEP_N = 4, 8
@@ -588,8 +594,8 @@ STEP_RUNS = {name: {**STEP_DEFAULT, "ref": name, **run} for name, run in {
 
 
 # Phase 22: sp-sharded training (parallel/train_sharded.py) in SPT_WORLD
-# ranks of scripts/torch_parallel_rank.py sharing the card under gloo: m3d_v5's
-# recipe (the reject guard off), n = SPT_N, draws with buoyancy and
+# ranks of scripts/torch_parallel_rank.py (NCCL or gloo, as phase 20's):
+# m3d_v5's recipe (the reject guard off), n = SPT_N, draws with buoyancy and
 # vorticity on, against one process's train_step on the whole batch. Each
 # run: its ('dp', 'sp') mesh, conv dtype, batch (phase 10's 6x64^3, or
 # SPT_BIG_B samples of the plume at SPT_BIG^3), mconf changes and limits:
@@ -2648,12 +2654,43 @@ def exact_train(dev, batch):
 # --- phase 20: the scale-out paths -------------------------------------------
 
 
+def spawn_backend(world):
+    """The backend of a spawn of `world` ranks: NCCL, a card a rank, when
+    the machine has a card for every rank; else gloo, the ranks sharing
+    the card (every exchange staged through the host)."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def rank_transport(rep):
+    """A rank report's transport (its runs', where it has runs)."""
+    if "transport" in rep:
+        return rep["transport"]
+    return next(iter(rep["runs"].values()))["transport"]
+
+
 def spawn_ranks(args, world, what):
     """scripts/torch_parallel_rank.spawn_local in PAR_ROOT: `world` ranks
-    on this card, gloo; fails if a rank fails or the spawn runs past
-    PAR_TIMEOUT."""
-    return load_script("torch_parallel_rank").spawn_local(
-        args, world, PAR_ROOT, PAR_TIMEOUT, what)
+    under spawn_backend(world), which prints the backend, each rank's card
+    and transport. Fails if a rank fails or the spawn runs past
+    PAR_TIMEOUT (a failed NCCL spawn fails: it is not retried under
+    gloo), or if an NCCL rank is not on a card of its own."""
+    backend = spawn_backend(world)
+    reports, saved, secs = load_script("torch_parallel_rank").spawn_local(
+        args, world, PAR_ROOT, PAR_TIMEOUT, what, backend)
+    cards = [r["device"] for r in reports]
+    transports = sorted({rank_transport(r) for r in reports})
+    log(f"{what}: {world} ranks under {backend}, cards {cards}, transport "
+        f"{', '.join(transports)}")
+    for rank, r in enumerate(reports):
+        if r["backend"] != backend or (backend == "nccl" and (
+                r["device"] != f"cuda:{rank}" or
+                rank_transport(r) != "nccl")):
+            raise AssertionError(f"{what}: rank {rank} ran {r['backend']} "
+                                 f"on {r['device']} ({rank_transport(r)}), "
+                                 f"expected {backend}"
+                                 + (f" on cuda:{rank}" if backend == "nccl"
+                                    else ""))
+    return reports, saved, secs
 
 
 def planted_faults(rs, u, d, f, W, dt, method, strength):
@@ -2690,9 +2727,10 @@ def shard_err(a, b):
 
 
 def parallel_phase(dev, mconf, model, batch):
-    """Phase 20: the port's parallel/ in ranks sharing the card (gloo,
-    host-staged exchanges): (a) advect_step_z_sharded at PAR_RES^3 over
-    PAR_SP ranks, (b) halo_jacobi_solve on the 128^3 plume, (c)
+    """Phase 20: the port's parallel/ in ranks (spawn_backend: NCCL, a
+    card a rank, or gloo sharing the card with host-staged exchanges):
+    (a) advect_step_z_sharded at PAR_RES^3 over PAR_SP ranks, (b)
+    halo_jacobi_solve on the 128^3 plume, (c)
     train_step(group=) on PAR_DP ranks. Returns (the ranks' summed kernel
     launches, the result line's entries)."""
     from fluidnet_tpu_torch.core.celltype import CellType
@@ -2965,8 +3003,8 @@ def cg_iterations():
 
 
 def sharded_step_phase(dev, mconf, model):
-    """Phase 21: rollout_z_sharded in STEP_SP ranks sharing the card
-    (gloo, host-staged exchanges), each run of STEP_RUNS against one
+    """Phase 21: rollout_z_sharded in STEP_SP ranks (NCCL or gloo, as
+    phase 20's), each run of STEP_RUNS against one
     process's rollout with the kernels on the same state, and on every
     rank against the same slab's rollout with the kernels' plain versions
     (equal to the bit). Returns (the ranks' summed kernel launches, the
@@ -3264,8 +3302,8 @@ def rel_l2(a, b):
 
 
 def sharded_train_phase(dev, mconf, model, batch):
-    """Phase 22: train_step(mesh=) in SPT_WORLD ranks sharing the card
-    (gloo, host-staged exchanges), each run of SPT_RUNS against one
+    """Phase 22: train_step(mesh=) in SPT_WORLD ranks (NCCL or gloo, as
+    phase 20's), each run of SPT_RUNS against one
     process's loss_fn gradients and train_step on the whole batch, and on
     every rank against its rerun with the kernels' plain versions (equal
     to the bit). Returns (the ranks' summed kernel launches, the result

@@ -37,9 +37,10 @@ def projection_prologue(u, flags, density, buoy_g, grav_g, amp, dt,
     if torch.as_tensor(buoy_g).dim() > 1 or \
             torch.as_tensor(grav_g).dim() > 1 or \
             torch.as_tensor(amp).dim() > 0:
-        raise NotImplementedError("per-sample (B,) force scales are not "
-                                  "ported yet (ROADMAP queue 1, item 7: "
-                                  "batched scales; fault F1)")
+        raise NotImplementedError("the fused projection prologue takes "
+                                  "one force scale for the batch, as in "
+                                  "JAX: per-sample (B,) scales run the "
+                                  "unfused forces")
     if u.device.type == "cpu":
         return prologue_ref(u, flags, density, buoy_g, grav_g, amp, dt,
                             u_bc, u_inv, dx)

@@ -68,7 +68,19 @@ def _swap(sends, group):
     below, from_above), what the rank k places before this one on `group`
     sent up and what the rank k places after it sent down, None past the
     mesh ends (nothing is sent there); on the host when the collective
-    stages through it. One batch of sends and receives for all."""
+    stages through it. One batch of sends and receives for all.
+
+    Matching: gloo pairs a send with a receive by tag, NCCL ignores tags
+    and pairs the i-th send from rank a to rank b with the i-th receive
+    on b from a, in posting order. Both hold here: two ranks k places
+    apart exchange only through the entries of hop k, and every rank of
+    the group walks the same `sends` list (the same hops, and pieces of
+    the same shapes and dtypes: slabs of one zl), so a's i-th send to b
+    is b's i-th receive from a (tests/test_torch_parallel_order.py
+    delivers NCCL's way). Every rank of a group of two or more has a
+    neighbour and posts; a group of one posts nothing, so no rank skips
+    a batch the others post (NCCL's first batch on a group needs them
+    all)."""
     idx, n = dist.get_rank(group), dist.get_world_size(group)
     out, ops = [], []
     for tag, (k, *pair_send) in enumerate(sends):

@@ -21,7 +21,9 @@ this rank's slice by it.
 Host staging: the gloo backend moves host tensors (its point-to-point ops
 take no CUDA tensor), so every collective of this package stages a CUDA
 tensor through the host exactly when the group's backend is gloo
-(`host_staged`); under NCCL the card's tensors go as they are.
+(`host_staged`), and several gloo ranks may share a card; under NCCL the
+card's tensors go as they are, one card a rank (`select_device` refuses
+more ranks than a host has cards), and `barrier` names the card.
 """
 
 import os
@@ -44,7 +46,8 @@ def make_mesh(n_dp: Optional[int] = None, n_sp: int = 1,
               device_type: str = "cuda") -> DeviceMesh:
     """A ('dp', 'sp') DeviceMesh over the initialised default group; rank
     r sits at (r // n_sp, r % n_sp), as device r of JAX's make_mesh. On
-    'cuda' each rank takes a card (select_device)."""
+    'cuda' each rank takes a card (select_device; under NCCL a card of
+    its own, else ValueError)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "parallel.multihost.init_multihost first")
@@ -59,15 +62,54 @@ def make_mesh(n_dp: Optional[int] = None, n_sp: int = 1,
                             mesh_dim_names=("dp", "sp"))
 
 
-def select_device(device_type: str):
-    """On 'cuda', unless this process already uses a card: card LOCAL_RANK
-    (else its rank) modulo the card count, so that several ranks share one
-    card when there are more ranks than cards (DeviceMesh would take card
-    LOCAL_RANK, which need not exist)."""
-    if device_type != "cuda" or torch.cuda.is_initialized():
+def nccl_card(local_rank: int, local_world: int, n_cards: int) -> int:
+    """The card of local rank `local_rank` of a host's `local_world` ranks
+    under NCCL, which refuses two ranks on one card: card local_rank.
+    Raises ValueError, naming the card count, when the host's ranks
+    exceed its cards (two of them would share one)."""
+    if local_world > n_cards or not 0 <= local_rank < n_cards:
+        raise ValueError(
+            f"NCCL needs a card a rank: this host has {n_cards} CUDA "
+            f"card(s) for {max(local_world, local_rank + 1)} ranks, so "
+            f"two ranks would share one (local rank {local_rank} has no "
+            f"card of its own); start at most {n_cards} ranks a host, or "
+            f"use the gloo backend, which shares a card")
+    return local_rank
+
+
+def select_device(device_type: str, backend: Optional[str] = None,
+                  rank: Optional[int] = None, world: Optional[int] = None):
+    """Sets this rank's card on 'cuda'. `backend` (else the default
+    group's) NCCL: card LOCAL_RANK (nccl_card: ValueError when the host's
+    ranks exceed its cards), whatever card the process used before.
+    gloo: unless this process already uses a card, card LOCAL_RANK (else
+    its rank) modulo the card count, so that several ranks share one card
+    when there are more ranks than cards (DeviceMesh would take card
+    LOCAL_RANK, which need not exist). `rank` and `world` stand for the
+    default group's before it exists."""
+    if device_type != "cuda":
         return
-    rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
-    torch.cuda.set_device(rank % torch.cuda.device_count())
+    if backend is None:
+        backend = dist.get_backend()
+    local_rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()
+                                    if rank is None else rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     dist.get_world_size()
+                                     if world is None else world))
+    if backend == "nccl":
+        torch.cuda.set_device(nccl_card(local_rank, local_world,
+                                        torch.cuda.device_count()))
+    elif not torch.cuda.is_initialized():
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+
+
+def barrier(group=None):
+    """dist.barrier on `group`, on this rank's card under NCCL (which
+    otherwise guesses the card from the rank)."""
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group, device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group)
 
 
 def batch_sharding(mesh: DeviceMesh) -> Sharding:

@@ -42,9 +42,11 @@ def init_multihost(coordinator_address: Optional[str] = None,
     MASTER_PORT), `num_processes` the world size (else WORLD_SIZE),
     `process_id` the rank (else RANK). The backend is `backend`, else NCCL
     on 'cuda' and gloo on 'cpu' (gloo on 'cuda' lets several ranks share
-    one card, which NCCL refuses). Returns True if the group was
-    initialised (or already was), False when running single-process (a
-    no-op)."""
+    one card, which NCCL refuses). Under NCCL on 'cuda' the rank takes
+    its card (LOCAL_RANK) before the group exists, and a host whose ranks
+    exceed its cards raises ValueError naming the card count
+    (mesh.nccl_card). Returns True if the group was initialised (or
+    already was), False when running single-process (a no-op)."""
     if dist.is_initialized():
         return True
     if coordinator_address is None and "MASTER_ADDR" in os.environ:
@@ -62,6 +64,8 @@ def init_multihost(coordinator_address: Optional[str] = None,
                          "or set RANK)")
     if backend is None:
         backend = "nccl" if device_type == "cuda" else "gloo"
+    if backend == "nccl":
+        select_device(device_type, backend, process_id, num_processes)
     dist.init_process_group(
         backend,
         init_method=f"tcp://{coordinator_address}",
@@ -74,7 +78,8 @@ def make_global_mesh(n_dp: Optional[int] = None, n_sp: int = 1,
     """A ('host', 'dp', 'sp') DeviceMesh over the default group: 'host'
     spans WORLD_SIZE / LOCAL_WORLD_SIZE hosts, 'dp' x 'sp' the
     LOCAL_WORLD_SIZE ranks of each (every host the same count, as on the
-    JAX side). On 'cuda' each rank takes a card (mesh.select_device)."""
+    JAX side). On 'cuda' each rank takes a card (mesh.select_device;
+    under NCCL a card of its own, else ValueError)."""
     if not dist.is_initialized():
         raise RuntimeError("make_global_mesh: no process group; call "
                            "init_multihost first")

@@ -66,14 +66,16 @@ variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_WORLD_SIZE):
       then --reps timed solves of it and of halo_jacobi_solve.
 
 Each rank writes rank<r>.pt (its slabs, the halo planes its first
-exchange received, or its params) and rank<r>.json (its transport,
-launches a step, all its launches, times) under --out. gloo on the card
-stages each exchange through the host and lets several ranks share one
-card; NCCL needs a card a rank. Failures raise: the exit code is then not
-0. `spawn_local` starts the ranks of one host without torchrun (what
-chip_smoke.py's phase 20 and tests/test_torch_cuda.py do);
-`slab_reference` computes a rank's slab in one process, the reference
-those and tests/test_torch_parallel.py hold the ranks against.
+exchange received, or its params) and rank<r>.json (its card, backend
+and transport, launches a step, all its launches, times) under --out.
+gloo on the card stages each exchange through the host and lets several
+ranks share one card; NCCL moves the card's tensors and needs a card a
+rank (card LOCAL_RANK; more ranks than cards raise ValueError).
+Failures raise: the exit code is then not 0. `spawn_local` starts the
+ranks of one host without torchrun (what chip_smoke.py's phase 20 and
+tests/test_torch_cuda.py do); `slab_reference` computes a rank's slab in
+one process, the reference those and tests/test_torch_parallel.py hold
+the ranks against.
 """
 
 import argparse
@@ -93,7 +95,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from fluidnet_tpu_torch.ops.cuda import _build  # noqa: E402
 from fluidnet_tpu_torch.parallel.mesh import (  # noqa: E402
-    data_parallel_group, local_part, make_mesh, mesh_device,
+    barrier, data_parallel_group, local_part, make_mesh, mesh_device,
     spatial_sharding, transport)
 from fluidnet_tpu_torch.parallel.multihost import (  # noqa: E402
     init_multihost, make_global_mesh, shard_host_batch)
@@ -366,7 +368,7 @@ def timed(fn, reps):
     together by a barrier, each call closed by a synchronize."""
     out = []
     for _ in range(reps):
-        dist.barrier()
+        barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -528,7 +530,7 @@ def step(inp, reps, rank):
             # The labelling a rollout makes at its start, alone: its
             # time, sweeps and collectives.
             z0 = rank * state_l.u.shape[2]
-            dist.barrier()
+            barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with comm_counts() as comms:
@@ -665,7 +667,7 @@ def train_sp(inp, reps, rank):
         state = tr.init_train_state(seed, mconf, dev)
         steps = []
         for _ in range(2):
-            dist.barrier()
+            barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, t = tr.train_step(state, batch_l, None, mconf, n,
@@ -805,12 +807,14 @@ def main(argv=None):
                    "train_sp": lambda: train_sp(inp, args.reps, rank),
                    "jacobi": lambda: jacobi(inp, args.reps, rank)}[
         args.case]()
+    info.setdefault("device", f"cuda:{torch.cuda.current_device()}")
+    info["backend"] = dist.get_backend()
     info["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     info["launches_total"] = dict(_build.launches)
     torch.save(saved, os.path.join(args.out, f"rank{rank}.pt"))
     with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
         json.dump(info, f)
-    dist.barrier()
+    barrier()
     dist.destroy_process_group()
     return 0
 

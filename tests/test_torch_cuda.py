@@ -888,13 +888,42 @@ def _rank_script():
     return mod
 
 
+def _transports(rep):
+    """The transports a rank report names (its own, or its runs')."""
+    if "transport" in rep:
+        return {rep["transport"]}
+    return {r["transport"] for r in rep["runs"].values()}
+
+
+def _spawn(tmp_path, case, inputs, world, backend):
+    """scripts/torch_parallel_rank.py --case `case` on `world` ranks of
+    this host under `backend`, one timed rep: gloo (each rank on card
+    rank % device_count, the exchanges staged through the host) or NCCL
+    (skips without a card a rank; each rank on cuda:<rank>, device
+    tensors). Checks every rank's backend, card and transport. Returns
+    ([each rank's report], [each rank's saved tensors])."""
+    n_cards = torch.cuda.device_count()
+    if backend == "nccl" and n_cards < world:
+        pytest.skip(f"NCCL needs a card a rank: {world} CUDA devices")
+    torch.save(inputs, tmp_path / "in.pt")
+    reports, saved, _ = _rank_script().spawn_local(
+        ["--case", case, "--inputs", str(tmp_path / "in.pt"), "--reps",
+         "1"], world, str(tmp_path), 300, "test", backend)
+    for rank, rep in enumerate(reports):
+        assert rep["backend"] == backend
+        assert rep["device"] == (f"cuda:{rank}" if backend == "nccl" else
+                                 f"cuda:{rank % n_cards}")
+        assert _transports(rep) == {"nccl" if backend == "nccl" else
+                                    "gloo, host-staged"}
+    return reports, saved
+
+
 @pytest.mark.parametrize("backend", ["gloo", "nccl"])
 def test_sharded_paths_on_two_ranks(dev, tmp_path, backend):
-    """parallel/ on 2 ranks, each on card rank % device_count: gloo (the
-    exchange staged through the host; both on one card when there is one)
-    or NCCL (device tensors; needs two cards). A 1x24x20x28 grid with 15%
-    obstacles cut at z 12,
-    maccormackOurs at W = 1 and 2: each rank's exchanged planes equal its
+    """parallel/ on 2 ranks (_spawn: gloo, the exchange staged through
+    the host, both on one card when there is one; or NCCL, device
+    tensors, a card a rank). A 1x24x20x28 grid with 15% obstacles cut at
+    z 12, maccormackOurs at W = 1 and 2: each rank's exchanged planes equal its
     neighbours' (a torch.cat of the zero-padded grid's planes); each
     slab equal to the bit to the same halo-extended slab advected in this
     process, and within 1e-5 of each field's largest value of that slab
@@ -905,8 +934,6 @@ def test_sharded_paths_on_two_ranks(dev, tmp_path, backend):
     jacobi_plain on the whole grid."""
     from fluidnet_tpu_torch.ops.advect_fast import (advect_scalar_fast,
                                                     advect_vel_fast)
-    if backend == "nccl" and torch.cuda.device_count() < 2:
-        pytest.skip("NCCL needs a card a rank: two CUDA devices")
     rng = np.random.default_rng(29)
     shape = (1, 1, 24, 20, 28)
     flags = torch.tensor(_flags(rng, shape).astype(np.int32))
@@ -918,16 +945,10 @@ def test_sharded_paths_on_two_ranks(dev, tmp_path, backend):
     inp = {"u": u, "density": d, "flags": flags, "cases": cases,
            "method": "maccormackOurs", "strength": 0.6,
            "jacobi": {"flags": flags, "div": div, "n_iter": 8}}
-    torch.save(inp, tmp_path / "in.pt")
     rank_script = _rank_script()
-    reports, saved, _ = rank_script.spawn_local(
-        ["--case", "sharded", "--inputs", str(tmp_path / "in.pt"), "--reps",
-         "1"], 2, str(tmp_path), 300, "test", backend)
+    reports, saved = _spawn(tmp_path, "sharded", inp, 2, backend)
     u_c, d_c, f_c = u.to(dev), d.to(dev), flags.to(dev)
-    for rank, (rep, s) in enumerate(zip(reports, saved)):
-        assert rep["transport"] == {"gloo": "gloo, host-staged",
-                                    "nccl": "nccl"}[backend]
-        assert rep["device"] == f"cuda:{rank % torch.cuda.device_count()}"
+    for rank, s in enumerate(saved):
         want = rank_script.cut_slab(u, 2, rank, 4)
         assert torch.equal(s["halo"][0], want[:, :, :4])
         assert torch.equal(s["halo"][1], want[:, :, -4:])
@@ -958,9 +979,11 @@ def test_sharded_paths_on_two_ranks(dev, tmp_path, backend):
     assert torch.equal(p, jacobi_plain(flags, div, 8))
 
 
-def test_slab_jacobi_on_two_ranks(dev, tmp_path):
-    """slab_jacobi_solve on 2 gloo ranks sharing the card (scripts/
-    torch_parallel_rank.py --case jacobi): a 2x24x20x28 grid with 15%
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_slab_jacobi_on_two_ranks(dev, tmp_path, backend):
+    """slab_jacobi_solve on 2 ranks (scripts/torch_parallel_rank.py --case
+    jacobi; _spawn: gloo sharing the card, or NCCL on two cards, one
+    a rank): a 2x24x20x28 grid with 15%
     obstacles cut at z 12, 5, 12, 30 and 34 sweeps (one to three rounds on
     slabs grown by up to 12 planes): each rank's p equal to the bit to K3
     on the whole grid and to its plain versions'; K3 launched once a
@@ -970,11 +993,8 @@ def test_slab_jacobi_on_two_ranks(dev, tmp_path):
     flags = torch.tensor(_flags(rng, shape).astype(np.int32))
     div = torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
     n_iters = [5, 12, 30, 34]
-    torch.save({"flags": flags, "div": div, "n_iters": n_iters},
-               tmp_path / "in.pt")
-    reports, saved, _ = _rank_script().spawn_local(
-        ["--case", "jacobi", "--inputs", str(tmp_path / "in.pt"), "--reps",
-         "1"], 2, str(tmp_path), 300, "test")
+    reports, saved = _spawn(tmp_path, "jacobi", {
+        "flags": flags, "div": div, "n_iters": n_iters}, 2, backend)
     f_c, d_c = flags.to(dev), div.to(dev)
     for n in n_iters:
         rounds = -(-n // min(n, 12))
@@ -987,9 +1007,11 @@ def test_slab_jacobi_on_two_ranks(dev, tmp_path):
             assert r["plain_equal"], n
 
 
-def test_sharded_train_step_on_two_ranks(dev, tmp_path):
-    """train_step(mesh=) on a 1 x 2 ('dp', 'sp') mesh of 2 gloo ranks
-    sharing the card (scripts/torch_parallel_rank.py --case train_sp):
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_sharded_train_step_on_two_ranks(dev, tmp_path, backend):
+    """train_step(mesh=) on a 1 x 2 ('dp', 'sp') mesh of 2 ranks (scripts/
+    torch_parallel_rank.py --case train_sp; _spawn: gloo sharing the card,
+    or NCCL on two cards):
     m3d_v5's loss flags in float32, n = 2, a 2x32x16x16 batch with an
     obstacle box across the cut, the reject guard off. Against one
     process's loss_fn and train_step on the whole batch (deterministic
@@ -1022,13 +1044,10 @@ def test_sharded_train_step_on_two_ranks(dev, tmp_path):
         loss_reject_threshold=0.0, conv_compute_dtype="float32")
     draws = Draws(torch.tensor(0.1), torch.tensor([0.0, -1.0, 0.0]),
                   torch.tensor(2.0), torch.tensor(0.0), torch.tensor(3.0))
-    torch.save({"batches": {"b": batch}, "draws": draws, "n": n,
-                "model_seed": 5, "runs": [{"name": "f32", "mesh": (1, 2),
-                                           "mconf": mconf, "batch": "b"}]},
-               tmp_path / "in.pt")
-    reports, saved, _ = _rank_script().spawn_local(
-        ["--case", "train_sp", "--inputs", str(tmp_path / "in.pt"),
-         "--reps", "1"], 2, str(tmp_path), 300, "test")
+    reports, saved = _spawn(tmp_path, "train_sp", {
+        "batches": {"b": batch}, "draws": draws, "n": n, "model_seed": 5,
+        "runs": [{"name": "f32", "mesh": (1, 2), "mconf": mconf,
+                  "batch": "b"}]}, 2, backend)
     torch.backends.cudnn.deterministic = True
     try:
         b = {k: v.to(dev) for k, v in batch.items()}
@@ -1060,3 +1079,215 @@ def test_sharded_train_step_on_two_ranks(dev, tmp_path):
         assert max(rel(a, p.detach()) for a, p in
                    zip(s["params"], st.params)) <= 1e-4
         assert max(rel(a, g) for a, g in zip(s["fault"], grads)) > 1e-4
+
+
+# The z-sharded step on ranks (scripts/torch_parallel_rank.py --case
+# step): tests/test_torch_sharded_sim.py's limits against one process's
+# rollout on the card (the largest difference over the field's largest
+# value, and the share of cells past STEP_ROUND of it); PCG's sums add
+# in another order and CG carries the rounding: rtol 1e-4, atol 1e-5 of
+# the field's largest value (tests/test_torch_sharded_pcg.py's rollout).
+STEP_MAX, STEP_ROUND, STEP_FRAC = 1e-5, 1e-6, 1e-3
+PCG_RTOL, PCG_ATOL = 1e-4, 1e-5
+CANCEL = 1e-2
+STEP_KNOBS = dict(is_3d=True, sim_method="convnet", dt=0.1,
+                  buoyancy_scale=2.0, vorticity_confinement_amp=3.0,
+                  maccormack_strength=0.6, advection_method="maccormackOurs",
+                  adaptive_window=False, advection_window=1,
+                  conv_compute_dtype="float32")
+K1_FUSED = {"mac_sweep_fwd": 1, "mac_sweep_bwd": 1}
+# Each route: mconf changes and the launches a rank makes a step.
+STEP_ROUTES = {
+    "convnet": ({}, dict(K1_FUSED, prologue=1)),
+    "pcg": (dict(sim_method="pcg", max_iter=100, pcg_tol=1e-4),
+            dict(K1_FUSED, forces_block=1)),
+    "window0": (dict(advection_window=0), {"prologue": 1}),
+}
+
+
+def _plume_state(shape, seed):
+    """A global (u, p, flags, density) on the host, made with numpy: a
+    random velocity, pressure and density, an obstacle border and a box
+    across every z cut of 2 and 4 slabs."""
+    rng = np.random.default_rng(seed)
+    B, _, Z, Y, X = shape
+    flags = np.ones(shape, np.int32)
+    flags[:, :, [0, -1]] = flags[:, :, :, [0, -1]] = 2
+    flags[..., [0, -1]] = 2
+    for cut in range(Z // 4, Z, Z // 4):
+        flags[..., cut - 2:cut + 2, 3:6, 4:8] = 2
+    return {"u": torch.tensor(rng.standard_normal((B, 3, Z, Y, X)) * 0.5,
+                              dtype=torch.float32),
+            "p": torch.tensor(rng.standard_normal(shape) * 0.1,
+                              dtype=torch.float32),
+            "flags": torch.tensor(flags),
+            "density": torch.tensor(rng.random(shape), dtype=torch.float32)}
+
+
+def _step_runs(dev, tmp_path, state, routes, steps, world, backend):
+    """rollout_z_sharded of each of `routes` (STEP_ROUTES) for `steps`
+    steps on `world` ranks, against one process's rollout on the card
+    with the same weights (random_model, seed 3): every rank's slab
+    equal to the bit to its rerun with the kernels' plain versions, its
+    launches the route's a step, the first step's model inputs (u, K2's
+    divergence) equal to the bit to the whole grid's own planes, and
+    the gathered state within the route's limits. Returns the reports."""
+    from fluidnet_tpu_torch.core.config import ModelConfig
+    from fluidnet_tpu_torch.core.grids import FluidState
+    from fluidnet_tpu_torch.models.fluidnet import random_model
+    from fluidnet_tpu_torch.sim.simulate import rollout
+    rs = _rank_script()
+    runs = [{"name": r, "mconf": ModelConfig(**STEP_KNOBS).replace(
+        **STEP_ROUTES[r][0]), "state": "s", "steps": steps, "fault": False,
+        "model_seed": 3} for r in routes]
+    reports, saved = _spawn(tmp_path, "step", {
+        "states": {"s": state}, "runs": runs, "model": None}, world,
+        backend)
+    zl = state["u"].shape[2] // world
+    for run in runs:
+        name, m = run["name"], run["mconf"]
+        st, bcs = rs.plume({"s": state}, "s")
+        st = FluidState(**{k: getattr(st, k).to(dev)
+                           for k in ("u", "p", "flags", "density")})
+        bcs = type(bcs)(**{k: None if v is None else v.to(dev)
+                           for k, v in vars(bcs).items()})
+        net = None
+        if m.sim_method == "convnet":
+            net = rs.FirstInput(random_model(m, 3, dev))
+        out = rollout(st, m, steps, net, bcs)
+        for rank, rep in enumerate(reports):
+            r = rep["runs"][name]
+            assert r["plain_equal"], (name, rank, r["plain_max_abs"])
+            assert r["launches"] == {k: v * steps for k, v in
+                                     STEP_ROUTES[name][1].items()}, \
+                (name, rank, r["launches"])
+            if net is not None:
+                own = slice(rank * zl, (rank + 1) * zl)
+                s = saved[rank][name]
+                assert torch.equal(s["first_u"],
+                                   net.seen[:, :, own].cpu()), (name, rank)
+                assert torch.equal(s["first_div"],
+                                   net.div[:, :, own].cpu()), (name, rank)
+        for k in ("u", "p", "density"):
+            got = torch.cat([s[name][k] for s in saved], dim=2)
+            want = getattr(out, k).cpu()
+            scale = want.abs().max().item()
+            err = (got - want).abs() / scale
+            print(f"{backend} {name} {k}: max {err.max().item():.3e} of the "
+                  f"field's max, share past {STEP_ROUND} "
+                  f"{(err > STEP_ROUND).double().mean().item():.3e}")
+            if m.sim_method == "pcg":
+                assert torch.allclose(got, want, rtol=PCG_RTOL,
+                                      atol=PCG_ATOL * scale), (name, k)
+            else:
+                assert err.max().item() <= STEP_MAX, (name, k)
+                assert (err > STEP_ROUND).double().mean().item() <= \
+                    STEP_FRAC, (name, k)
+    return reports
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_sharded_step_on_two_ranks(dev, tmp_path, backend):
+    """rollout_z_sharded on 2 ranks (_spawn: gloo sharing the card, or
+    NCCL on two cards) of a 1x32x16x16 plume with boxes across the cut,
+    2 steps of each route: the ConvNet at window 1 (G 13), PCG
+    (labelling across the slabs, the CG loop's dots and component sums
+    as all_reduces) and the exact route at window 0 (G 27 past a slab's
+    16 planes), each held as _step_runs holds it."""
+    _step_runs(dev, tmp_path, _plume_state((1, 1, 32, 16, 16), 41),
+               ["convnet", "pcg", "window0"], 2, 2, backend)
+
+
+@pytest.mark.parametrize("case", ["step", "train"])
+def test_two_hop_exchange_on_four_ranks(dev, tmp_path, case):
+    """NCCL on 4 cards, one a rank, on slabs of 8 planes at window 0
+    (G 27, past the grid's 24 planes beyond a slab in a step: each
+    exchange reaches three ranks away, where the grid has them), so that
+    the exchange past the next rank and, in training, its adjoint move
+    device tensors. "step": 2 steps of the exact route's
+    rollout, held as _step_runs holds it (the ghost zone and the ranks it
+    reaches checked). "train": train_step(mesh=) on a 1 x 4 mesh, m3d_v5's
+    loss flags at window 0 in float32, n = 2, a 1x32x16x16 batch, against
+    one process's loss_fn and train_step (torch's deterministic
+    algorithms on both sides): terms within rtol 1e-5, gradients within
+    1e-4 relative L2 (of CANCEL times the whole gradient's norm where a
+    parameter's own is smaller) and the params after 2 steps within 1e-4
+    relative L2, each rank's gradients
+    equal to the bit to its plain versions', K2's launches alone
+    (prologue 2(n - 1), forces block once); the dropped adjoint fails."""
+    from fluidnet_tpu_torch.core.config import ModelConfig
+    from fluidnet_tpu_torch.train.train import (Draws, init_train_state,
+                                                loss_fn, train_step)
+    world, shape = 4, (1, 1, 32, 16, 16)
+    state = _plume_state(shape, 43)
+    if case == "step":
+        reports = _step_runs(dev, tmp_path, state, ["window0"], 2, world,
+                             "nccl")
+        for rep in reports:
+            r = rep["runs"]["window0"]
+            # G 27, cut to the 24 planes beyond a slab: three ranks away.
+            assert r["ghost"] == 24 and max(r["hops_per_step"]) == 3, r
+        return
+    n = 2
+    batch = {"flags": state["flags"], "u_div": state["u"],
+             "p_div": state["p"], "density": state["density"]}
+    mconf = ModelConfig(
+        is_3d=True, advection_method="maccormackOurs", adaptive_window=False,
+        advection_window=0, maccormack_strength=0.75,
+        long_term_div_lambda=1.0, long_term_grad_mode="full",
+        loss_reject_threshold=0.0, conv_compute_dtype="float32")
+    draws = Draws(torch.tensor(0.1), torch.tensor([0.0, -1.0, 0.0]),
+                  torch.tensor(2.0), torch.tensor(0.0), torch.tensor(3.0))
+    reports, saved = _spawn(tmp_path, "train_sp", {
+        "batches": {"b": batch}, "draws": draws, "n": n, "model_seed": 5,
+        "runs": [{"name": "w0", "mesh": (1, world), "mconf": mconf,
+                  "batch": "b"}]}, world, "nccl")
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        b = {k: v.to(dev) for k, v in batch.items()}
+        net = init_train_state(5, mconf, dev).model
+        total, terms = loss_fn(net, b, None, mconf, n, draws=draws)
+        grads = torch.autograd.grad(total, [
+            p for _, p in net.jax_named_parameters()])
+        st = init_train_state(5, mconf, dev)
+        for _ in range(2):
+            st, _ = train_step(st, b, None, mconf, n, draws=draws)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+    def rel(a, b):
+        return (torch.linalg.norm(a - b.cpu()) /
+                torch.linalg.norm(b.cpu())).item()
+
+    def grad_err(got, want):
+        """The worst parameter's gradient error over the larger of its
+        one-process gradient's norm and CANCEL of the whole gradient's
+        (tests/test_torch_sharded_exact.py's rule: a parameter whose
+        gradient is a sum that cancels, the final bias, is held to the
+        whole gradient's scale)."""
+        whole = torch.linalg.norm(torch.cat([g.reshape(-1) for g in want]))
+        return max((torch.linalg.norm(a - b.cpu()) / torch.maximum(
+            torch.linalg.norm(b.cpu()), CANCEL * whole.cpu())).item()
+            for a, b in zip(got, want))
+    for rep, s in zip(reports, saved):
+        r, s = rep["runs"]["w0"], s["w0"]
+        assert r["ghost"] == 27 > r["slab"][2] == 8
+        assert r["launches"] == {"prologue": 2 * (n - 1), "forces_block": 1}
+        assert r["comms"]["adjoint_exchanges"] > 0, r["comms"]
+        assert r["plain_equal"], r["plain_max_abs"]
+        for k, v in terms.items():
+            v = float(v.detach())
+            assert abs(r["terms"][k] - v) <= 1e-5 * abs(v), k
+        params = max(rel(a, p.detach()) for a, p in
+                     zip(s["params"], st.params))
+        print(f"nccl w0 train: gradients' worst error "
+              f"{grad_err(s['grads'], grads):.3e} (each parameter's "
+              f"relative L2 up to "
+              f"{max(rel(a, g) for a, g in zip(s['grads'], grads)):.3e}), "
+              f"params {params:.3e}, "
+              f"dropped adjoint {grad_err(s['fault'], grads):.3e}")
+        assert grad_err(s["grads"], grads) <= 1e-4
+        assert params <= 1e-4
+        assert grad_err(s["fault"], grads) > 1e-4
