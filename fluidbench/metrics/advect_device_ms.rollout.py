@@ -1,0 +1,11 @@
+"""advect_device_ms.rollout (ms): device time a rollout step of the
+kernels, copies and fills launched while sim.advect was the innermost
+layer span open on the main thread, over pass B of fluidbench/layers.py
+(traced); sim.advect covers sim/simulate._advect (K1 and the clamp).
+Layer: the advection. Moves steps_per_s."""
+
+from fluidbench import layers
+
+
+def read(s):
+    return layers.read(s, "device_ms", "sim.advect")

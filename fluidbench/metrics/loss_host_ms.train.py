@@ -1,0 +1,12 @@
+"""loss_host_ms.train (ms): the host-clock self time a train step of the
+span train.loss on the main thread (its duration minus the layer spans
+nested in it), over pass A of fluidbench/layers.py (unprofiled, the
+recorder on); train.loss covers train/train._loss: the forward, the
+unroll and its sim.* spans. Layer: the trainer. Moves
+train_samples_per_s."""
+
+from fluidbench import layers
+
+
+def read(s):
+    return layers.read(s, "host_ms", "train.loss")

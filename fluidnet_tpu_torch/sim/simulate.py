@@ -84,6 +84,7 @@ from fluidnet_tpu_torch.solvers.components import (Segments,
                                                    connected_components)
 from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_plain
 from fluidnet_tpu_torch.solvers.jacobi import solve_jacobi
+from fluidnet_tpu_torch.utils.profiler import span
 
 U_CLAMP = 1e6  # blow-up containment (simulate.lua:323-326)
 
@@ -378,45 +379,55 @@ def _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels, dx=None):
 def _step(state, mconf, model, bcs, consts, use_kernels, forces,
           output_div=False, slab: Optional[SlabStep] = None):
     """One step; `slab` None on a whole grid, else what a ghost-extended
-    slab of a z-sharded grid takes from the whole grid."""
-    dt = forces.dt
-    flags = state.flags
-    window, z0 = (None, 0) if slab is None else (slab.window, slab.z0)
-    u, density = _advect(state, mconf, consts, dt, not use_kernels, window,
-                         z0)
-    state = state.replace(u=u, density=density)
-    dx = get_dx(flags) if slab is None else slab.dx
-    buoy_g, grav_g, amp = _forces_config(dx, forces)
-    convnet = mconf.sim_method == "convnet"
-    if state.is_3d and convnet and not output_div and \
-            density is not None and not forces.batched:
-        state = _convnet_projection(state, mconf, model, bcs, buoy_g,
-                                    grav_g, amp, dt, use_kernels, slab)
-    else:
-        # 3. External BCs; 4.-6. forces (simulate.py:199-241).
-        state = apply_boundaries(state, bcs)
-        u = _forces(state, buoy_g, grav_g, amp, dt, forces, use_kernels, dx)
-        if output_div:
-            return state.replace(u=u)
-        # 7. Projection (simulate.py:248-290).
-        if not convnet:
-            u = set_wall_bcs(u, flags)
-        state = apply_boundaries(state.replace(u=u), bcs)
-        if convnet:
-            polish, kw = _slab_model(slab)
-            state = polish(state, mconf,
-                           *model(state.p, state.u, flags, **kw),
-                           use_kernels)
+    slab of a z-sharded grid takes from the whole grid. Spans: sim.step
+    around it, sim.advect, sim.forces and sim.project inside (the BCs, the
+    clamp and the Python between them are sim.step's own)."""
+    with span("sim.step"):
+        dt = forces.dt
+        flags = state.flags
+        window, z0 = (None, 0) if slab is None else (slab.window, slab.z0)
+        with span("sim.advect"):
+            u, density = _advect(state, mconf, consts, dt, not use_kernels,
+                                 window, z0)
+        state = state.replace(u=u, density=density)
+        dx = get_dx(flags) if slab is None else slab.dx
+        buoy_g, grav_g, amp = _forces_config(dx, forces)
+        convnet = mconf.sim_method == "convnet"
+        if state.is_3d and convnet and not output_div and \
+                density is not None and not forces.batched:
+            state = _convnet_projection(state, mconf, model, bcs, buoy_g,
+                                        grav_g, amp, dt, use_kernels, slab)
         else:
-            solve = _solver_projection if slab is None else slab.solve
-            state = solve(state, mconf, consts, use_kernels)
-    state = apply_boundaries(state, bcs)
-    u = state.u
-    if u.requires_grad:
-        # jnp.clip's gradient at ties (simulate.py:289), not torch.clamp's.
-        lim = u.new_tensor(U_CLAMP)
-        return state.replace(u=torch.minimum(torch.maximum(u, -lim), lim))
-    return state.replace(u=u.clamp(-U_CLAMP, U_CLAMP))
+            # 3. External BCs; 4.-6. forces (simulate.py:199-241).
+            state = apply_boundaries(state, bcs)
+            with span("sim.forces"):
+                u = _forces(state, buoy_g, grav_g, amp, dt, forces,
+                            use_kernels, dx)
+            if output_div:
+                return state.replace(u=u)
+            # 7. Projection (simulate.py:248-290).
+            if not convnet:
+                u = set_wall_bcs(u, flags)
+            state = apply_boundaries(state.replace(u=u), bcs)
+            with span("sim.project"):
+                if convnet:
+                    polish, kw = _slab_model(slab)
+                    state = polish(state, mconf,
+                                   *model(state.p, state.u, flags, **kw),
+                                   use_kernels)
+                else:
+                    solve = _solver_projection if slab is None \
+                        else slab.solve
+                    state = solve(state, mconf, consts, use_kernels)
+        state = apply_boundaries(state, bcs)
+        u = state.u
+        if u.requires_grad:
+            # jnp.clip's gradient at ties (simulate.py:289), not
+            # torch.clamp's.
+            lim = u.new_tensor(U_CLAMP)
+            return state.replace(u=torch.minimum(torch.maximum(u, -lim),
+                                                 lim))
+        return state.replace(u=u.clamp(-U_CLAMP, U_CLAMP))
 
 
 def _polish(state, mconf, p, u, use_kernels):
@@ -457,18 +468,20 @@ def _convnet_projection(state, mconf, model, bcs, buoy_g, grav_g, amp, dt,
     u_bc = bcs.u_bc if bcs is not None else None
     u_inv = bcs.u_bc_inv_mask if bcs is not None else None
     prologue = projection_prologue if use_kernels else prologue_ref
-    u, div = prologue(state.u, flags, state.density[:, 0:1], buoy_g, grav_g,
-                      amp, float(dt), u_bc, u_inv,
-                      None if slab is None else slab.dx)
+    with span("sim.forces"):
+        u, div = prologue(state.u, flags, state.density[:, 0:1], buoy_g,
+                          grav_g, amp, float(dt), u_bc, u_inv,
+                          None if slab is None else slab.dx)
 
     # The p/density slabs are idempotent masks, reapplied as the JAX step
     # does. The model takes the prologue's divergence (fault F3 fixed: the
     # gradient reaches u through it).
     state = apply_boundaries(state.replace(u=u), bcs_nou)
     polish, kw = _slab_model(slab)
-    return polish(state, mconf,
-                  *model(state.p, u, flags, precomputed_div=div, **kw),
-                  use_kernels)
+    with span("sim.project"):
+        return polish(state, mconf,
+                      *model(state.p, u, flags, precomputed_div=div, **kw),
+                      use_kernels)
 
 
 def _solver_projection(state, mconf, consts, use_kernels):

@@ -66,6 +66,7 @@ from fluidnet_tpu_torch.solvers.components import normalize_pressure_mean
 from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_plain
 from fluidnet_tpu_torch.solvers.jacobi import solve_jacobi
 from fluidnet_tpu_torch.train.loss import border_loss_weights, fluid_loss
+from fluidnet_tpu_torch.utils.profiler import span
 
 F32 = torch.float32
 METRIC_KEYS = ("total", "p", "u", "div", "long_term_div", "grad_norm",
@@ -439,11 +440,24 @@ def train_step(state: TrainState, batch, gen, mconf: ModelConfig,
     if group is not None and mesh is not None:
         raise ValueError("train_step: pass group= (data parallel) or "
                          "mesh= (sharded), not both")
-    params = state.params
-    with torch.enable_grad():
-        total, terms = _loss(state.model, batch, gen, mconf, n_future,
-                             draws, use_kernels, mesh)
-        grads = torch.autograd.grad(total, params)
+    with span("train.step"):
+        params = state.params
+        with torch.enable_grad():
+            with span("train.loss"):
+                total, terms = _loss(state.model, batch, gen, mconf,
+                                     n_future, draws, use_kernels, mesh)
+            with span("train.backward"):
+                grads = torch.autograd.grad(total, params)
+        with span("train.update"):
+            state, terms = _update(state, params, mconf, grads, terms,
+                                   group, mesh)
+    return state, terms
+
+
+def _update(state, params, mconf, grads, terms, group, mesh):
+    """train_step after the backward: the mean over ranks, the optimizer,
+    the global norm, the reject guard and the parameter and state
+    copies."""
     if group is not None:
         grads, terms = _mean_over(group, grads, terms)
     if mesh is not None:

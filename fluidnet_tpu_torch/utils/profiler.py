@@ -1,16 +1,30 @@
-"""Timing utilities: startup FPROP profiling and trace capture.
+"""Timing utilities: startup FPROP profiling and the span recorder.
 
 Port of fluidnet_tpu.utils.profiler, the reference's profiling hooks
 (SURVEY.md §5.1):
   - the conf.profile startup FPROP timing (fluid_net_train.lua:144-189),
-  - wall-clock bracketing with a device fence (tfluids.profilePressure,
-    simulate.lua:254-318): torch.cuda.synchronize when the tensors lie on
-    the card (PyTorch returns before the card finishes),
-  - torch.profiler trace capture for deep dives.
+    with a device fence (tfluids.profilePressure, simulate.lua:254-318):
+    torch.cuda.synchronize when the tensors lie on the card (PyTorch
+    returns before the card finishes),
+  - named spans around the layers of a step (`span`), recorded only
+    inside `recording()`.
+
+The recorder is off unless a caller turns it on: `span(name)` then
+returns one shared null context after one module-level check, records
+nothing and calls no torch function, so the program's hot loops carry
+their spans at no measurable cost. Inside `with recording() as spans:`
+each span appends a `Span` to `spans` (name, id, parent id on its own
+thread, native thread id, start and end from time.perf_counter_ns) and,
+while a torch profiler is running, also enters
+torch.profiler.record_function(name), so the span lands in the trace as
+a user annotation on the clock of the device activity. Spans launch
+nothing on the device and hold no tensor: autograd, the recompute of
+torch.utils.checkpoint and CUDA graph capture see no difference.
 """
 
 import contextlib
-import os
+import itertools
+import threading
 import time
 
 import torch
@@ -30,26 +44,6 @@ def _sync(tensors):
             _sync(t)
 
 
-class Timer:
-    """Accumulating wall-clock timer with device synchronization."""
-
-    def __init__(self):
-        self.total = 0.0
-        self.count = 0
-
-    @contextlib.contextmanager
-    def measure(self, sync_on=None):
-        t0 = time.perf_counter()
-        yield
-        _sync(sync_on)
-        self.total += time.perf_counter() - t0
-        self.count += 1
-
-    @property
-    def mean(self):
-        return self.total / max(self.count, 1)
-
-
 def profile_fprop(fn, args, min_seconds=2.0, warmup=2):
     """Times fn(*args): a first call and `warmup` more, then calls for at
     least min_seconds, the last fenced by the device. Returns seconds/call (the
@@ -67,16 +61,71 @@ def profile_fprop(fn, args, min_seconds=2.0, warmup=2):
     return (time.perf_counter() - t0) / max(n, 1)
 
 
+# The list that recording() fills, None while the recorder is off. One
+# recorder a process: the spans sit in library code that takes no
+# handle, and the off path must cost one global read.
+_records = None
+_OFF = contextlib.nullcontext()
+_ids = itertools.count()
+_open = threading.local()
+
+
+class Span:
+    """One recorded span: `parent` is the id of the span open around it
+    on the same thread (None at the top), `tid` the native thread id,
+    `start_ns` and `end_ns` time.perf_counter_ns (end None while open)."""
+
+    __slots__ = ("name", "id", "parent", "tid", "start_ns", "end_ns",
+                 "_annotation")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        mine = _open.__dict__
+        if "stack" not in mine:
+            # The native id once a thread: it is a system call, several
+            # microseconds on some hosts.
+            mine["stack"], mine["tid"] = [], threading.get_native_id()
+        stack = mine["stack"]
+        self.id = next(_ids)
+        self.parent = stack[-1].id if stack else None
+        self.tid = mine["tid"]
+        self.end_ns = None
+        self._annotation = None
+        if torch.autograd._profiler_enabled():
+            self._annotation = torch.profiler.record_function(self.name)
+            self._annotation.__enter__()
+        stack.append(self)
+        _records.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.perf_counter_ns()
+        _open.stack.pop()
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+            self._annotation = None
+        return False
+
+
+def span(name):
+    """A context manager around one layer of the program named `name`
+    (the names the benchmark reads: sim.step, sim.advect, sim.forces,
+    sim.project, train.step, train.loss, train.backward, train.update)."""
+    if _records is None:
+        return _OFF
+    return Span(name)
+
+
 @contextlib.contextmanager
-def trace(log_dir):
-    """torch.profiler trace of the block (the CPU, and the card when there
-    is one), written to `log_dir`/trace.json (chrome://tracing,
-    Perfetto). Yields the profiler, whose key_averages() sum the time by
-    kernel."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+def recording():
+    """Turns the recorder on for the block; yields the list of `Span`s,
+    in the order they were entered, from every thread."""
+    global _records
+    outer, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = outer

@@ -264,16 +264,30 @@ def test_train_cli_runs_the_startup_profile(tmp_path, capsys):
     assert "ms/batch" in line[0]
 
 
-def test_profiler_timer_profile_fprop_and_trace(tmp_path):
-    from fluidnet_tpu_torch.utils.profiler import Timer, profile_fprop, trace
+def test_profiler_timer_profile_fprop_and_trace():
+    """profile_fprop times a call; the span recorder records the spans
+    entered inside recording() on every thread, each under the span open
+    around it on its own thread, and nothing outside it."""
+    import threading
+
+    from fluidnet_tpu_torch.utils.profiler import (profile_fprop,
+                                                   recording, span)
     x = torch.ones(64, 64)
-    timer = Timer()
-    for _ in range(3):
-        with timer.measure(sync_on=(x, {"y": x})):
-            x @ x
-    assert timer.count == 3 and 0 < timer.mean <= timer.total
     assert profile_fprop(lambda a: a @ a, (x,), min_seconds=0.05) > 0
-    with trace(str(tmp_path / "tr")) as prof:
-        x @ x
-    assert any("mm" in e.key for e in prof.key_averages())
-    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+    with span("outside"):
+        pass
+    with recording() as spans:
+        with span("a"):
+            with span("b"):
+                x @ x
+            t = threading.Thread(target=lambda: span("c").__enter__()
+                                 .__exit__(None, None, None))
+            t.start()
+            t.join(timeout=10)
+            assert not t.is_alive()
+    assert [s.name for s in spans] == ["a", "b", "c"]
+    a, b, c = spans
+    assert (a.parent, b.parent, c.parent) == (None, a.id, None)
+    assert a.tid == b.tid != c.tid
+    assert a.start_ns <= b.start_ns <= b.end_ns <= a.end_ns
+    assert 0 < b.end_ns - b.start_ns <= a.end_ns - a.start_ns
