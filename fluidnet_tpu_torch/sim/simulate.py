@@ -54,6 +54,11 @@ has the gradient rule of its JAX custom VJP, and the exact advection
 (advection_window 0) is plain PyTorch that autograd differentiates, as XLA
 differentiates JAX's. rollout() and the default simulate() run under
 torch.no_grad.
+
+rollout() replays its steps from a chain of CUDA graphs (sim/chain.py)
+where graph_eligible says the step makes no host read: the same kernels
+in the same order as the eager step, captured in segments cut at the
+layer spans. Everything else runs the step op by op.
 """
 
 from __future__ import annotations
@@ -78,12 +83,14 @@ from fluidnet_tpu_torch.ops.forces import (add_buoyancy, add_gravity,
 from fluidnet_tpu_torch.ops.prologue import (projection_prologue,
                                              prologue_ref)
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
+from fluidnet_tpu_torch.sim.chain import Chain
 from fluidnet_tpu_torch.solvers.cg import solve_pcg
 from fluidnet_tpu_torch.solvers.components import (Segments,
                                                    component_segments,
                                                    connected_components)
 from fluidnet_tpu_torch.solvers.cuda_jacobi import jacobi_plain
 from fluidnet_tpu_torch.solvers.jacobi import solve_jacobi
+from fluidnet_tpu_torch.utils import profiler
 from fluidnet_tpu_torch.utils.profiler import span
 
 U_CLAMP = 1e6  # blow-up containment (simulate.lua:323-326)
@@ -269,9 +276,12 @@ class FlagConsts:
     """Fields that depend on the flags alone, which do not change within
     a rollout: computed at the first step that needs them. free_space maps
     the free-space cap (window + 1) to its field; labels are PCG's
-    connected components, as solvers.components.component_segments."""
+    connected components, as solvers.components.component_segments;
+    chain is rollout's captured step (sim/chain.Chain), whose memory goes
+    with this object."""
     free_space: dict = dataclasses.field(default_factory=dict)
     labels: Optional[Segments] = None
+    chain: Optional[object] = None
 
     def free(self, flags, max_d: int):
         if max_d not in self.free_space:
@@ -499,15 +509,60 @@ def _solver_projection(state, mconf, consts, use_kernels):
     return state.replace(u=velocity_update(u, flags, p), p=p)
 
 
+def graph_eligible(mconf: ModelConfig, device, use_kernels: bool,
+                   slab: Optional[SlabStep] = None) -> bool:
+    """Whether rollout replays the step from a CUDA graph chain: where its
+    inputs show that the step makes no host read. CUDA tensors with the
+    kernels, on a whole grid (no slab); a fixed advection window (W >= 1,
+    and not adaptive past 1, where _window reads max|u|); the ConvNet or
+    Jacobi projection (PCG reads its residual every iteration)."""
+    return (torch.device(device).type == "cuda" and use_kernels and
+            slab is None and mconf.advection_window >= 1 and
+            not (mconf.adaptive_window and mconf.advection_window > 1) and
+            mconf.sim_method in ("convnet", "jacobi"))
+
+
+def _chain_key(state, mconf, model, bcs):
+    """What a captured chain holds fixed: mconf; the shapes, dtypes and
+    device of u, p and density; the flags (identity and version); the
+    model (identity and its parameters' addresses); the boundary masks
+    (identity); cuDNN's settings."""
+    def sig(t):
+        return None if t is None else (tuple(t.shape), t.dtype, t.device)
+    cudnn = torch.backends.cudnn
+    return (mconf, sig(state.u), sig(state.p), sig(state.density),
+            id(state.flags), state.flags._version, id(model),
+            () if model is None else
+            tuple(w.data_ptr() for w in model.parameters()),
+            None if bcs is None else
+            tuple(id(getattr(bcs, f.name)) for f in dataclasses.fields(bcs)),
+            cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+
+
 def rollout(state: FluidState, mconf: ModelConfig, n_steps: int,
             model=None, bcs: Optional[Boundaries] = None,
             save_every: int = 0, use_kernels: bool = True,
             consts: Optional[FlagConsts] = None):
-    """Runs `n_steps` simulate() steps as a Python loop (the JAX package
-    scans on device; a CUDA graph of this loop is later work). What
-    depends on the flags alone, which do not change, is computed once:
-    the free space, and for PCG the connected-component labels (`consts`
-    keeps them across calls on the same flags, as cli/sim3d's chunks do).
+    """Runs `n_steps` simulate() steps (the JAX package scans on device).
+    What depends on the flags alone, which do not change, is computed
+    once: the free space, and for PCG the connected-component labels
+    (`consts` keeps them across calls on the same flags, as cli/sim3d's
+    chunks do; None builds them for this call).
+
+    Where graph_eligible holds, the steps replay a chain of CUDA graphs
+    (sim/chain.py) kept on `consts`: the first call on a key runs its
+    first step eagerly (which warms cuDNN and the kernels and builds the
+    free space), captures the step, and replays the rest; later calls
+    replay every step. The chain is keyed on _chain_key (mconf, the
+    fields' shapes, the flags' identity and version, the model and the
+    boundary masks): a change there captures anew. Its graphs read the
+    model's parameters, the flags and the masks by address, so in-place
+    updates of the weights or the masks are seen. The state is copied
+    into the chain's buffers once a call and the result copied out once:
+    what rollout returns never aliases the chain's memory. Replays equal
+    eager steps to the bit (the same kernels in the same order).
+    Elsewhere, and in a call of one step with no `consts`, the steps run
+    op by op. utils/profiler.rollout_steps counts both kinds of step.
 
     Returns the final state; with `save_every > 0` also the density every
     `save_every` steps, stacked (n_steps // save_every, b, c, z, y, x)."""
@@ -516,14 +571,41 @@ def rollout(state: FluidState, mconf: ModelConfig, n_steps: int,
                          f"save_every ({save_every})")
     forces = _resolve_forces(state, mconf, None, None, None, None)
     _check_slice(state, mconf, model)
+    graphs = graph_eligible(mconf, state.u.device, use_kernels) and (
+        consts is not None or n_steps > 1)
     consts = FlagConsts() if consts is None else consts
     frames = []
+
+    def step(s):
+        return _step(s, mconf, model, bcs, consts, use_kernels, forces)
+
     with torch.no_grad():
+        chain = None
+        if graphs:
+            key = _chain_key(state, mconf, model, bcs)
+            if consts.chain is not None and consts.chain.key == key:
+                chain = consts.chain
+        loaded = False
         for i in range(n_steps):
-            state = _step(state, mconf, model, bcs, consts, use_kernels,
-                          forces)
+            if chain is None:
+                state = step(state)
+                profiler.rollout_steps["eager"] += 1
+                if graphs:
+                    consts.chain = None     # frees the old chain's pool
+                    chain = consts.chain = Chain(key, state, step,
+                                                 (state.flags, model, bcs))
+                    profiler.rollout_steps["chains"] += 1
+            else:
+                if not loaded:
+                    chain.load(state)
+                    loaded = True
+                chain.replay()
+                profiler.rollout_steps["replayed"] += 1
             if save_every and (i + 1) % save_every == 0:
-                frames.append(state.density)
+                frames.append(chain.bufs["density"].clone() if loaded
+                              else state.density)
+        if loaded:
+            state = chain.result(state)
     if save_every:
         return state, torch.stack(frames)
     return state

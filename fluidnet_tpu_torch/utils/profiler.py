@@ -10,7 +10,7 @@ Port of fluidnet_tpu.utils.profiler, the reference's profiling hooks
     inside `recording()`.
 
 The recorder is off unless a caller turns it on: `span(name)` then
-returns one shared null context after one module-level check, records
+returns one shared null context after two module-level checks, records
 nothing and calls no torch function, so the program's hot loops carry
 their spans at no measurable cost. Inside `with recording() as spans:`
 each span appends a `Span` to `spans` (name, id, parent id on its own
@@ -20,8 +20,14 @@ torch.profiler.record_function(name), so the span lands in the trace as
 a user annotation on the clock of the device activity. Spans launch
 nothing on the device and hold no tensor: autograd, the recompute of
 torch.utils.checkpoint and CUDA graph capture see no difference.
+
+While sim/chain.py captures a rollout step as a chain of CUDA graphs
+(`cutting(fn)`), each span entered or left on the capturing thread calls
+fn(name, entering) instead, and the chain cuts its capture there. How a
+rollout's steps ran is counted process-wide in `rollout_steps`.
 """
 
+import collections
 import contextlib
 import itertools
 import threading
@@ -63,7 +69,7 @@ def profile_fprop(fn, args, min_seconds=2.0, warmup=2):
 
 # The list that recording() fills, None while the recorder is off. One
 # recorder a process: the spans sit in library code that takes no
-# handle, and the off path must cost one global read.
+# handle, and the off path must cost two global reads.
 _records = None
 _OFF = contextlib.nullcontext()
 _ids = itertools.count()
@@ -114,9 +120,52 @@ def span(name):
     """A context manager around one layer of the program named `name`
     (the names the benchmark reads: sim.step, sim.advect, sim.forces,
     sim.project, train.step, train.loss, train.backward, train.update)."""
+    if _cut is not None and _cut[0] == threading.get_ident():
+        return _Cut(name)
     if _records is None:
         return _OFF
     return Span(name)
+
+
+# Steps of sim/simulate.rollout by how they ran: "replayed" from a chain
+# of CUDA graphs, "eager" op by op; "chains" counts the chains captured.
+# Totals of the process, never reset by the program.
+rollout_steps = collections.Counter()
+
+# (the capturing thread's id, its callback) while a chain is captured.
+_cut = None
+
+
+class _Cut:
+    """A span while a chain is captured: its entry and exit call the
+    callback of `cutting` (not on the way out of an exception)."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        _cut[1](self.name, True)
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            _cut[1](self.name, False)
+        return False
+
+
+@contextlib.contextmanager
+def cutting(fn):
+    """For the block, each span entered or left on this thread calls
+    fn(name, True) on entry and fn(name, False) on exit, and records
+    nothing."""
+    global _cut
+    outer, _cut = _cut, (threading.get_ident(), fn)
+    try:
+        yield
+    finally:
+        _cut = outer
 
 
 @contextlib.contextmanager

@@ -13,7 +13,8 @@ past K1's tiled reach), K1, K2 and K4 on shapes that cut their
 xy tiles and z-ranges raggedly and on both routes of K1 (windows 1, 2
 tiled, 3 global), K6 on shapes that cut its 32 x 8 tiles raggedly, K3 on
 every route it takes, from p = 0 and from a given p0; rollouts to 1e-5 of
-each field's largest value.
+each field's largest value; rollout's CUDA graph chain to the bit against
+the eager steps.
 Batch 2 and odd extents exercise the kernels' indexing.
 """
 
@@ -478,6 +479,136 @@ def test_rollout_kernels_match_plain(dev, name):
     plain = rollout(state, mconf, 3, model, bcs, use_kernels=False)
     for field in ("u", "p", "density"):
         _close(getattr(kern, field), getattr(plain, field), field)
+
+
+# rollout's CUDA graph chain (sim/chain.py), by case: mconf's knobs over
+# the plume's, and the model's seed (None: no model).
+CHAIN_CASES = {
+    "m3d_v5_fast_trunk": ({}, 0),
+    "tog_stage_path": (dict(model_type="tog"), 1),
+    "convnet_p8": (dict(polish_iters=8), 2),
+    "jacobi34": (dict(sim_method="jacobi", max_iter=34), None),
+}
+CHAIN_SHAPE = (2, 1, 16, 20, 24)     # tog pools twice: extents of 4n
+
+
+def _chain_case(dev, name):
+    from fluidnet_tpu_torch.core.config import ModelConfig
+    from fluidnet_tpu_torch.core.grids import FluidState
+    from fluidnet_tpu_torch.models.fluidnet import random_model
+    from fluidnet_tpu_torch.sim.simulate import create_plume_bcs
+
+    knobs, seed = CHAIN_CASES[name]
+    mconf = ModelConfig(is_3d=True, dt=0.1, buoyancy_scale=2.0,
+                        vorticity_confinement_amp=3.0,
+                        maccormack_strength=0.6,
+                        advection_method="maccormackOurs",
+                        adaptive_window=False, advection_window=1, **knobs)
+    model = None if seed is None else random_model(mconf, seed, dev)
+    rng = np.random.default_rng(7)
+    b = CHAIN_SHAPE[0]
+    state = FluidState(
+        u=torch.tensor((rng.standard_normal((b, 3) + CHAIN_SHAPE[2:]) *
+                        0.5).astype(np.float32), device=dev),
+        p=torch.zeros(CHAIN_SHAPE, device=dev),
+        flags=torch.tensor(_flags(rng, CHAIN_SHAPE).astype(np.int32),
+                           device=dev),
+        density=torch.tensor(rng.random(CHAIN_SHAPE).astype(np.float32),
+                             device=dev))
+    return mconf, model, state, create_plume_bcs(state, [1.0], u_scale=0.6,
+                                                 rad=0.2)
+
+
+def _steps_counted():
+    from fluidnet_tpu_torch.utils import profiler
+    return {k: profiler.rollout_steps[k]
+            for k in ("eager", "replayed", "chains")}
+
+
+def _moved(before):
+    return {k: v - before[k] for k, v in _steps_counted().items()}
+
+
+def _same_state(got, want, what):
+    for field in ("u", "p", "density"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), \
+            f"{what}: {field} differs"
+
+
+@pytest.mark.parametrize("name", list(CHAIN_CASES))
+def test_graph_rollout_equals_eager(dev, name):
+    """4 calls of 3 steps on one FlagConsts (the first call's first step
+    eager, then the capture, then replays) equal 12 eager steps
+    (simulate) to the bit after every call; a state one call returned is
+    unchanged after the later calls; the launch counter counts each
+    replayed step as one eager step; save_every saves the replays'
+    densities."""
+    from fluidnet_tpu_torch.sim.simulate import FlagConsts, rollout, simulate
+
+    mconf, model, state, bcs = _chain_case(dev, name)
+    eager, ec = state, FlagConsts()
+    _build.launches.clear()
+    eager = simulate(eager, mconf, model, bcs, consts=ec)
+    one = dict(_build.launches)
+    wants = [eager]
+    for _ in range(11):
+        eager = simulate(eager, mconf, model, bcs, consts=ec)
+        wants.append(eager)
+    consts, out, kept = FlagConsts(), state, []
+    before = _steps_counted()
+    for call in range(4):
+        if call == 1:
+            _build.launches.clear()
+        out = rollout(out, mconf, 3, model, bcs, consts=consts)
+        kept.append((out, {f: getattr(out, f).clone()
+                           for f in ("u", "p", "density")}))
+        _same_state(out, wants[3 * call + 2], f"call {call}")
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {k: 9 * v for k, v in one.items()}
+    assert _moved(before) == {"eager": 1, "replayed": 11, "chains": 1}
+    for i, (got, snap) in enumerate(kept):
+        for f, t in snap.items():
+            assert torch.equal(getattr(got, f), t), f"call {i}'s {f} moved"
+    end, frames = rollout(wants[5], mconf, 6, model, bcs, save_every=2,
+                          consts=consts)
+    _same_state(end, wants[11], "save_every")
+    for j, fr in enumerate(frames):
+        assert torch.equal(fr, wants[7 + 2 * j].density), f"frame {j}"
+
+
+def test_graph_rollout_captures_anew_or_runs_eagerly(dev):
+    """Flags changed in place, or a new model, capture the chain anew
+    (and the new chain's steps equal the eager ones); PCG and the
+    adaptive window past 1 run every step op by op."""
+    import dataclasses
+
+    from fluidnet_tpu_torch.models.fluidnet import random_model
+    from fluidnet_tpu_torch.sim.simulate import FlagConsts, rollout, simulate
+
+    mconf, model, state, bcs = _chain_case(dev, "m3d_v5_fast_trunk")
+    consts = FlagConsts()
+    before = _steps_counted()
+    out = rollout(state, mconf, 3, model, bcs, consts=consts)
+    out = rollout(out, mconf, 3, model, bcs, consts=consts)
+    assert _moved(before) == {"eager": 1, "replayed": 5, "chains": 1}
+    out.flags[:, :, 5, 5, 5] = 2
+    out = rollout(out, mconf, 3, model, bcs, consts=consts)
+    assert _moved(before) == {"eager": 2, "replayed": 7, "chains": 2}
+    other = random_model(mconf, 5, dev)
+    want = out
+    for _ in range(3):
+        want = simulate(want, mconf, other, bcs, consts=consts)
+    out = rollout(out, mconf, 3, other, bcs, consts=consts)
+    assert _moved(before) == {"eager": 3, "replayed": 9, "chains": 3}
+    _same_state(out, want, "new model")
+    for knobs in (dict(sim_method="pcg", max_iter=20, pcg_tol=1e-4),
+                  dict(advection_window=2, adaptive_window=True)):
+        m = dataclasses.replace(mconf, **knobs)
+        kept = FlagConsts()
+        before = _steps_counted()
+        rollout(out, m, 3, model, bcs, consts=kept)
+        assert _moved(before) == {"eager": 3, "replayed": 0, "chains": 0}
+        assert kept.chain is None
 
 
 # K5: every form the 2-D advection launches (ops/advect_fast.py), by
