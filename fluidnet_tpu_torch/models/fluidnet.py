@@ -26,6 +26,11 @@ nonlinearity, pooling, pixel shuffle, upsampling and batch norm run in
 float32. The convolutions are cuDNN's (the JAX package left them to XLA
 too); the physics around them stays float32.
 
+Each trunk forward counts in utils/profiler.trunk_forwards by its path
+(`FluidNet.path`); a banked stage path marks each bank's stages and the
+join with spans (model.bank<i>, model.join), which cut a rollout's CUDA
+graph chain there as the step's own spans do (sim/chain.py).
+
 Two quirks of the reference are kept (ROADMAP, faults F11 and F12): batch
 norm always runs its eval-mode formula, and its running mean and
 variance are trainable parameters like its scale and bias (no JAX caller
@@ -34,6 +39,8 @@ are separate parameters, each with its own gradient.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -45,8 +52,10 @@ from fluidnet_tpu_torch.core.grids import flags_to_occupancy, resolve_device
 from fluidnet_tpu_torch.ops.boundary import set_wall_bcs
 from fluidnet_tpu_torch.ops.divergence import velocity_divergence
 from fluidnet_tpu_torch.ops.velocity_update import velocity_update
+from fluidnet_tpu_torch.utils import profiler
 
 BN_KEYS = ("scale", "bias", "mean", "var")
+_NO_SPAN = contextlib.nullcontext()
 
 
 def layer_spec(mconf: ModelConfig):
@@ -340,10 +349,19 @@ class FluidNet(nn.Module):
         return out + [("final/conv/w", self.final.weight),
                       ("final/conv/b", self.final.bias)]
 
+    @property
+    def path(self):
+        """The trunk's path as utils/profiler.trunk_forwards counts it:
+        "fast", "stages" or "banked" (the stage path with banks)."""
+        if self.fast:
+            return "fast"
+        return "banked" if self.mconf.banks_num > 1 else "stages"
+
     def trunk(self, x, skip=None):
         """The conv trunk on the (b, c, z, y, x) input: the fast trunk,
         or the generic stage path; `skip` is the normalized pDiv the
         pressure skip concatenates before the head."""
+        profiler.trunk_forwards[self.path] += 1
         if self.fast:
             return self._trunk_fast(x)
         if self.nd == 3:
@@ -366,35 +384,47 @@ class FluidNet(nn.Module):
         """The generic stage path (fluidnet.py:561-600) on (b, c, *sp):
         the banks split into an avg-pool pyramid (mres) or copies
         (dilate, dilation 2^ib) and join by nearest upsampling (mres) then
-        concat or add; each bank's conv, nonlinearity, pool, batch norm."""
+        concat or add; each bank's conv, nonlinearity, pool, batch norm.
+        With banks, each bank's stage between the split and the join runs
+        in the span model.bank<ib> (for mres with the pyramid's pool that
+        makes the bank's input), and the join in model.join."""
         m, nd, cdt = self.mconf, self.nd, self.compute_dtype
+        banked = m.banks_num > 1
         hl = [x]
         for lid, convs in enumerate(self.stages):
-            if m.banks_num > 1 and lid + 1 == m.banks_split_stage:
-                if m.banks_type == "mres":
-                    for ib in range(1, m.banks_num):
-                        hl.append(_pool(hl[ib - 1], 2, nd, "avg"))
-                else:
-                    hl = [hl[0]] * m.banks_num
-            if m.banks_num > 1 and lid + 1 == m.banks_join_stage:
-                if m.banks_type == "mres":
-                    hl = [hl[0]] + [_nearest_upsample(h, 2 ** ib, nd)
-                                    for ib, h in enumerate(hl) if ib > 0]
-                if m.banks_aggregate_method == "concat":
-                    hl = [torch.cat(hl, dim=1)]
-                elif m.banks_aggregate_method == "add":
-                    hl = [sum(hl)]
-                else:
-                    raise ValueError(m.banks_aggregate_method)
+            pyramid = False
+            if banked and lid + 1 == m.banks_split_stage:
+                # mres: each bank's input is the bank before's, pooled.
+                pyramid = m.banks_type == "mres"
+                hl = [hl[0]] * m.banks_num
+            if banked and lid + 1 == m.banks_join_stage:
+                with profiler.span("model.join"):
+                    if m.banks_type == "mres":
+                        hl = [hl[0]] + [_nearest_upsample(h, 2 ** ib, nd)
+                                        for ib, h in enumerate(hl)
+                                        if ib > 0]
+                    if m.banks_aggregate_method == "concat":
+                        hl = [torch.cat(hl, dim=1)]
+                    elif m.banks_aggregate_method == "add":
+                        hl = [sum(hl)]
+                    else:
+                        raise ValueError(m.banks_aggregate_method)
+            inside = banked and \
+                m.banks_split_stage <= lid + 1 < m.banks_join_stage
             new_hl = []
-            for conv, h in zip(convs, hl, strict=True):
-                out = _nonlin(_apply_stage(conv, h, nd, self.usize[lid],
-                                           cdt), m.nonlin_type)
-                if self.psize[lid] > 1:
-                    out = _pool(out, self.psize[lid], nd, m.pool_type)
-                if self.bn is not None:
-                    out = self.bn[lid](out, nd, m.batch_norm_eps,
-                                       m.batch_norm_affine)
+            prev = hl[0]
+            for ib, (conv, h) in enumerate(zip(convs, hl, strict=True)):
+                with profiler.span(f"model.bank{ib}") if inside \
+                        else _NO_SPAN:
+                    if pyramid and ib > 0:
+                        h = prev = _pool(prev, 2, nd, "avg")
+                    out = _nonlin(_apply_stage(conv, h, nd, self.usize[lid],
+                                               cdt), m.nonlin_type)
+                    if self.psize[lid] > 1:
+                        out = _pool(out, self.psize[lid], nd, m.pool_type)
+                    if self.bn is not None:
+                        out = self.bn[lid](out, nd, m.batch_norm_eps,
+                                           m.batch_norm_affine)
                 new_hl.append(out)
             hl = new_hl
         (h,) = hl

@@ -42,6 +42,9 @@ cotangent of each received plane back to the rank that owns it, where it
 adds into that rank's own planes; nothing crosses the grid's ends. The
 backward is a collective too: every rank of the group must run it, and
 the ranks post their sends and receives in the forward's order.
+
+Both run in the span parallel.exchange (utils/profiler.span), and every
+send adds its bytes to utils/profiler.exchange_bytes["sent"].
 """
 
 import torch
@@ -53,6 +56,7 @@ from fluidnet_tpu_torch.parallel.mesh import host_staged
 from fluidnet_tpu_torch.solvers.cuda_jacobi import (jacobi_cuda,
                                                     jacobi_plain,
                                                     jacobi_update)
+from fluidnet_tpu_torch.utils import profiler
 
 
 def _hops(h: int, zl: int):
@@ -93,6 +97,8 @@ def _swap(sends, group):
                 recv = torch.empty(send.shape, dtype=send.dtype, device=dev)
                 rank = dist.get_global_rank(group, peer)
                 send = send.to(dev).contiguous()
+                profiler.exchange_bytes["sent"] += \
+                    send.numel() * send.element_size()
                 ops += [dist.P2POp(dist.isend, send, rank, group, tag),
                         dist.P2POp(dist.irecv, recv, rank, group, tag)]
             pair.append(recv)
@@ -208,6 +214,12 @@ def exchange_z_planes(xs, h: int, group):
     Differentiable: under autograd the cotangents of (lo, hi) go back to
     the ranks that own those planes, one batch of sends and receives in
     the backward (every rank must then run the backward)."""
+    with profiler.span("parallel.exchange"):
+        return _z_planes(xs, h, group)
+
+
+def _z_planes(xs, h: int, group):
+    """exchange_z_planes outside its span."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         out = _Exchange.apply(h, group, *xs)
     else:
@@ -228,11 +240,12 @@ def exchange_ghost(xs, g: int, group):
     slabs]."""
     idx, n = dist.get_rank(group), dist.get_world_size(group)
     out = []
-    for x, (lo, hi) in zip(xs, exchange_z_planes(xs, g, group)):
-        zl = x.shape[2]
-        below, above = min(g, idx * zl), min(g, (n - 1 - idx) * zl)
-        out.append(torch.cat([lo[:, :, g - below:], x, hi[:, :, :above]],
-                             dim=2))
+    with profiler.span("parallel.exchange"):
+        for x, (lo, hi) in zip(xs, _z_planes(xs, g, group)):
+            zl = x.shape[2]
+            below, above = min(g, idx * zl), min(g, (n - 1 - idx) * zl)
+            out.append(torch.cat([lo[:, :, g - below:], x,
+                                  hi[:, :, :above]], dim=2))
     return out
 
 

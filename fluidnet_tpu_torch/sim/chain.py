@@ -17,7 +17,8 @@ the eager step opens there, so the span recorder and the profiler put
 its device time on the same layers as an eager step's: n steps are n
 replays of the chain, the host only launching graphs. The launch counter
 (ops/cuda/_build.launches) counts a replay as the eager step it replays:
-what the capture counted is taken back, and added again at each replay.
+what the capture counted is taken back, and added again at each replay;
+so does the count of the model's forwards (utils/profiler.trunk_forwards).
 
 The graphs read everything by address: the input buffers, the flags, the
 boundary masks, the free space kept in simulate.FlagConsts and the
@@ -60,6 +61,7 @@ class Chain:
         dev = self.flags.device
         pool = torch.cuda.graph_pool_handle()
         counted = collections.Counter(_build.launches)
+        forwards = collections.Counter(profiler.trunk_forwards)
         program = []
 
         def begin():
@@ -103,6 +105,9 @@ class Chain:
         launches = _build.launches - counted
         _build.launches.clear()
         _build.launches.update(counted)
+        self.forwards = profiler.trunk_forwards - forwards
+        profiler.trunk_forwards.clear()
+        profiler.trunk_forwards.update(forwards)
         return program, launches
 
     def load(self, state):
@@ -122,6 +127,7 @@ class Chain:
             else:
                 opened.pop().__exit__(None, None, None)
         _build.launches.update(self.launches)
+        profiler.trunk_forwards.update(self.forwards)
 
     def result(self, state):
         """`state` with the buffers' fields, copied out."""

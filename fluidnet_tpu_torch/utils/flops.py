@@ -16,7 +16,11 @@ from fluidnet_tpu_torch.models.fluidnet import layer_spec, num_input_channels
 
 
 def model_flops(mconf: ModelConfig, size_xyz):
-    """FLOPs for one frame (batch 1) at grid size (x, y, z)."""
+    """FLOPs for one frame (batch 1) at grid size (x, y, z). Each bank
+    runs at its own size: a dilate bank at its input's, an mres bank at
+    the pyramid's (halved once a bank), each carried through its own
+    pools and upsampling; the join goes on at bank 0's size (mres
+    upsamples the others to it)."""
     osize, ksize, psize, usize = layer_spec(mconf)
     nd = 3 if mconf.is_3d else 2
     X, Y, Z = size_xyz
@@ -34,11 +38,13 @@ def model_flops(mconf: ModelConfig, size_xyz):
     for lid in range(n_stage - 1):
         if mconf.banks_num > 1 and lid + 1 == mconf.banks_split_stage:
             n_banks = mconf.banks_num
+            mres = mconf.banks_type == "mres"
             for ib in range(1, n_banks):
-                bank_spatial[ib] = [s // (2 ** ib) for s in spatial]
+                bank_spatial[ib] = [s // (2 ** ib) if mres else s
+                                    for s in bank_spatial[0]]
         if mconf.banks_num > 1 and lid + 1 == mconf.banks_join_stage:
             n_banks = 1
-            bank_spatial = {0: list(spatial)}
+            bank_spatial = {0: bank_spatial[0]}
             if mconf.banks_aggregate_method == "concat":
                 in_c = in_c * mconf.banks_num
         for ib in range(n_banks):

@@ -24,7 +24,9 @@ torch.utils.checkpoint and CUDA graph capture see no difference.
 While sim/chain.py captures a rollout step as a chain of CUDA graphs
 (`cutting(fn)`), each span entered or left on the capturing thread calls
 fn(name, entering) instead, and the chain cuts its capture there. How a
-rollout's steps ran is counted process-wide in `rollout_steps`.
+rollout's steps ran is counted process-wide in `rollout_steps`, the
+model's forwards by the trunk's path in `trunk_forwards`, and the bytes
+a rank's exchanges of z-planes send in `exchange_bytes`.
 """
 
 import collections
@@ -119,7 +121,11 @@ class Span:
 def span(name):
     """A context manager around one layer of the program named `name`
     (the names the benchmark reads: sim.step, sim.advect, sim.forces,
-    sim.project, train.step, train.loss, train.backward, train.update)."""
+    sim.project, train.step, train.loss, train.backward, train.update;
+    inside a banked trunk's forward on the stage path model.bank0,
+    model.bank1, ... around each bank's stage between the split and the
+    join, and model.join around the join; parallel.exchange around an
+    exchange of z-planes between the ranks of a sharded grid)."""
     if _cut is not None and _cut[0] == threading.get_ident():
         return _Cut(name)
     if _records is None:
@@ -131,6 +137,16 @@ def span(name):
 # of CUDA graphs, "eager" op by op; "chains" counts the chains captured.
 # Totals of the process, never reset by the program.
 rollout_steps = collections.Counter()
+
+# Forwards of the model's trunk by path (models/fluidnet.FluidNet.trunk):
+# "fast" the fast trunk, "stages" the stage path with one bank, "banked"
+# the stage path with banks. A step replayed from a chain counts the
+# forwards its capture ran (sim/chain.py). Never reset by the program.
+trunk_forwards = collections.Counter()
+
+# Bytes this process sent to other ranks in exchanges of z-planes
+# (parallel/halo.py), under "sent". Never reset by the program.
+exchange_bytes = collections.Counter()
 
 # (the capturing thread's id, its callback) while a chain is captured.
 _cut = None

@@ -486,6 +486,8 @@ def test_rollout_kernels_match_plain(dev, name):
 CHAIN_CASES = {
     "m3d_v5_fast_trunk": ({}, 0),
     "tog_stage_path": (dict(model_type="tog"), 1),
+    "tog_dil2_banked": (dict(model_type="tog", banks_num=2,
+                             banks_type="dilate"), 3),
     "convnet_p8": (dict(polish_iters=8), 2),
     "jacobi34": (dict(sim_method="jacobi", max_iter=34), None),
 }
@@ -574,6 +576,40 @@ def test_graph_rollout_equals_eager(dev, name):
     _same_state(end, wants[11], "save_every")
     for j, fr in enumerate(frames):
         assert torch.equal(fr, wants[7 + 2 * j].density), f"frame {j}"
+
+
+# Graphs a replayed step launches, by case: the step's own segments (PR
+# 25: sim.advect, sim.step's BCs, sim.forces, the BCs again, sim.project,
+# the final BCs and clamp, the copy-back), and on the banked stage path 6
+# more inside sim.project (the input assembly, each bank's two stages,
+# the join, the rest of the trunk).
+CHAIN_GRAPHS = {"m3d_v5_fast_trunk": 7, "tog_stage_path": 7,
+                "tog_dil2_banked": 13}
+
+
+@pytest.mark.parametrize("name", list(CHAIN_GRAPHS))
+def test_chain_segments_by_trunk(dev, name):
+    """The model's spans cut the chain on the banked stage path only: the
+    fast trunk's and the one-bank stage path's chains keep their graphs,
+    the banked one's holds the bank and join spans, and each replay
+    counts one forward of the trunk's path."""
+    from fluidnet_tpu_torch.sim.simulate import FlagConsts, rollout
+    from fluidnet_tpu_torch.utils import profiler
+
+    mconf, model, state, bcs = _chain_case(dev, name)
+    consts = FlagConsts()
+    out = rollout(state, mconf, 2, model, bcs, consts=consts)
+    program = consts.chain.program
+    graphs = [x for x in program if isinstance(x, torch.cuda.CUDAGraph)]
+    marks = [x[0] for x in program if not isinstance(x, torch.cuda.CUDAGraph)]
+    assert len(graphs) == CHAIN_GRAPHS[name], marks
+    assert any(m.startswith("model.") for m in marks) == \
+        (name == "tog_dil2_banked")
+    before = dict(profiler.trunk_forwards)
+    rollout(out, mconf, 3, model, bcs, consts=consts)
+    moved = {k: v - before.get(k, 0)
+             for k, v in profiler.trunk_forwards.items()}
+    assert {k: v for k, v in moved.items() if v} == {model.path: 3}
 
 
 def test_graph_rollout_captures_anew_or_runs_eagerly(dev):

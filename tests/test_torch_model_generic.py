@@ -202,9 +202,41 @@ def test_jax_checkpoint_loads_and_port_checkpoint_round_trips(tmp_path, bn):
 # --- FLOPs and the startup profile -----------------------------------------
 
 
+# Banked cases whose JAX count is off (fluidnet_tpu/utils/flops.py counts
+# a dilate bank at the mres pyramid's size and forgets a bank's pools at
+# the join): the port's count is held to the convolutions a forward runs.
+FLOPS_BY_RUN = ("dilate_add_2d", "dilate_add_3d")
+
+
+def _flops_of_a_run(tm, size, monkeypatch):
+    """2 x each convolution's output elements x its weight's fan-in, over
+    the convolutions of one trunk forward on a batch of 1 at `size` (x, y,
+    z), run on meta tensors (shapes only)."""
+    import math
+
+    import torch.nn.functional as F
+
+    from fluidnet_tpu_torch.models.fluidnet import num_input_channels
+    total = []
+    for name in ("conv2d", "conv3d"):
+        real = getattr(F, name)
+
+        def counted(x, w, *a, _real=real, **k):
+            out = _real(x, w, *a, **k)
+            total.append(2 * out.numel() * math.prod(w.shape[1:]))
+            return out
+        monkeypatch.setattr(F, name, counted)
+    net = FluidNet(tm, device="meta")
+    X, Y, Z = size if tm.is_3d else size[:2] + (1,)
+    net.trunk(torch.empty((1, num_input_channels(tm), Z, Y, X),
+                          device="meta"))
+    monkeypatch.undo()
+    return sum(total)
+
+
 @pytest.mark.parametrize("case", sorted(CASES) + ["default_2d", "default_3d",
                                                   "yang_3d"])
-def test_model_flops_match_jax(case):
+def test_model_flops_match_jax(case, monkeypatch):
     if case in CASES:
         jm, tm = _mconfs(case)
     else:
@@ -219,7 +251,9 @@ def test_model_flops_match_jax(case):
         else:
             jm, tm = JModelConfig(**kw), ModelConfig(**kw)
     for size in ((128, 128, 128 if tm.is_3d else 1), (64, 32, 16)):
-        assert flops.model_flops(tm, size) == jflops.model_flops(jm, size)
+        want = _flops_of_a_run(tm, size, monkeypatch) \
+            if case in FLOPS_BY_RUN else jflops.model_flops(jm, size)
+        assert flops.model_flops(tm, size) == want
         assert flops.model_peak_activation(tm, size) == \
             jflops.model_peak_activation(jm, size)
 
